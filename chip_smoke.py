@@ -3,27 +3,35 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ngsepcore_tpu_torch/csrc (first use), holds
-each against its plain PyTorch version on the card, checks the align+call
-pipeline on CUDA against the same pipeline on the CPU, then runs the
-pipeline at a bacterial-isolate WGS size (4.6 Mbp diploid genome with
-repeat families and tandem arrays, 345,000 x 150 bp reads, 11.25x) and
-applies bench.py's accuracy gates.  Prints one line per phase and exits
+each against its plain PyTorch version on the card (phases 2-3), checks
+the fused align+call pipeline on CUDA against the same pipeline on the CPU
+(phase 4), runs it at a bacterial-isolate WGS size (4.6 Mbp diploid
+genome with repeat families and tandem arrays, 345,000 x 150 bp reads,
+11.25x) with bench.py's accuracy gates (phase 5), checks the classic
+two-stage flow (phase 6) and the span-scatter genotyper (phase 7) on CUDA
+against the CPU at 50 kb, and runs the CLI (ReadsAligner -> SAM ->
+SingleSampleVariantsDetector -> VCF, as subprocesses) on phase 5's data
+with the same gates (phase 8).  Prints one line per phase and exits
 nonzero at the first failure.  The last lines are a JSON object of the
-kernels (launch counts from the timed pipeline run, errors and times
-measured here), the card's name and power limit, and the result line.
+kernels (launch counts from the timed runs of phases 5 and 6, errors and
+times measured here), the card's name and power limit, and the result
+line.
 
 Imports torch, numpy and the port only (bench.py's gates are numpy).
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 T_START = time.perf_counter()
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -132,6 +140,24 @@ def _noisy(rng, B, Lq, Ls):
     return q, ql, s, sl
 
 
+def _classic_chunk(rng, B, read_len=150, Lq=192, Ls=192):
+    """Classic tier-3 jobs (ReadsAligner._tier3_dispatch): the read's
+    subject window starts 3 bases before its predicted start and is
+    read_len + 6 wide, query and subject padded with N to 64-granular
+    widths; 2% substitutions."""
+    q = np.full((B, Lq), 4, np.int8)
+    s = np.full((B, Ls), 4, np.int8)
+    win = rng.integers(0, 4, (B, read_len + 6), dtype=np.int8)
+    s[:, : read_len + 6] = win
+    q[:, :read_len] = np.where(
+        rng.random((B, read_len)) < 0.02,
+        rng.integers(0, 4, (B, read_len), dtype=np.int8),
+        win[:, 3 : 3 + read_len],
+    )
+    return (q, np.full(B, read_len, np.int32), s,
+            np.full(B, read_len + 6, np.int32))
+
+
 def phase_gotoh():
     import torch
 
@@ -145,6 +171,8 @@ def phase_gotoh():
         ("bench chunk 2048x160x256", _bench_chunk(rng, 2048, 160, 256), {}),
         ("main-path chunk 2048x160x160", _bench_chunk(rng, 2048, 160, 160), {}),
         ("ragged 1000x160x200", _noisy(rng, 1000, 160, 200), {}),
+        ("classic tier-3 2048x192x192", _classic_chunk(rng, 2048), {}),
+        ("classic tier-3 256x192x192", _classic_chunk(rng, 256), {}),
     ]
     for cfg in (
         dict(free_start2=True, free_end2=True),
@@ -174,7 +202,7 @@ def phase_gotoh():
             f"mismatches {vec_bad}")
         if bad or any(vec_bad):
             fail(f"gotoh kernel disagrees with its plain version on {name}")
-        if name.startswith(("bench", "main-path")):
+        if name.startswith(("bench", "main-path", "classic")):
             ms = cuda_ms(lambda: gotoh_forward_plane(*args, **cfg))
             plain = cuda_ms(lambda: gotoh_forward_plane_ref(*args, **cfg))
             log(f"  time {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms "
@@ -262,17 +290,20 @@ def _simulate_50kb(seed: int = 3):
     return genome, reads
 
 
-def _run_pipeline(genome, reads, device, batch_size, table=None):
+def _make_pipeline(genome, device, batch_size, table=None):
     from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
     from ngsepcore_tpu_torch.call.fused_pipeline import AlignCallPipeline
     from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
 
-    aligner = ReadsAligner(genome, table=table, device=device)
-    pipe = AlignCallPipeline(
-        genome, aligner=aligner,
-        detector=SingleSampleVariantsDetector(genome, sample_id="s1"),
+    return AlignCallPipeline(
+        genome, aligner=ReadsAligner(genome, table=table, device=device),
+        detector=SingleSampleVariantsDetector(genome, sample_id="s1", device=device),
         batch_size=batch_size, device=device,
     )
+
+
+def _run_pipeline(genome, reads, device, batch_size, table=None):
+    pipe = _make_pipeline(genome, device, batch_size, table)
     return pipe, pipe.run_reads(reads)
 
 
@@ -298,6 +329,7 @@ def phase_cuda_vs_cpu(counters):
         fail("CUDA and CPU records differ on the 50 kb workload")
     if min(launches.values()) == 0:
         fail(f"a kernel was not launched on the CUDA run: {launches}")
+    return kc
 
 
 # ---------------------------------------------------------------------------
@@ -429,7 +461,164 @@ def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS):
         fail("accuracy gates: " + "; ".join(acc["gates"]))
     if device == "cuda" and min(launches.values()) == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
-    return launches, dt
+    truth = (truth_snv, truth_indel_pos, in_repeat)
+    return launches, dt, records, genome, reads, truth
+
+
+# ---------------------------------------------------------------------------
+def _run_classic(genome, reads, device):
+    """ReadsAligner.align_batch in 1024-read batches, then
+    SingleSampleVariantsDetector.find_variants: (SAM lines, records)."""
+    from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
+    from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
+
+    aligner = ReadsAligner(genome, device=device)
+    alns = []
+    for i in range(0, len(reads), 1024):
+        for per_read in aligner.align_batch(reads[i : i + 1024]):
+            alns.extend(per_read)
+    sam = ["\t".join(a.to_sam_fields()) for a in alns]
+    det = SingleSampleVariantsDetector(genome, sample_id="s1", device=device)
+    return sam, det.find_variants(alns), aligner
+
+
+def phase_classic(counters, fused_keys):
+    genome, reads = _simulate_50kb()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    sam_cuda, rec_cuda, al = _run_classic(genome, reads, "cuda")
+    sync("cuda")
+    t_cuda = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    t0 = time.perf_counter()
+    sam_cpu, rec_cpu, _ = _run_classic(genome, reads, "cpu")
+    t_cpu = time.perf_counter() - t0
+    kc = [record_key(r) for r in rec_cuda]
+    kp = [record_key(r) for r in rec_cpu]
+    n_sam_diff = sum(a != b for a, b in zip(sam_cuda, sam_cpu))
+    log(f"phase 6 classic 50 kb: {len(sam_cuda)} SAM lines, {len(kc)} records "
+        f"on CUDA ({t_cuda:.2f}s), {len(kp)} on CPU ({t_cpu:.2f}s); "
+        f"SAM lines differing {n_sam_diff}; tier-3 jobs {al.complete_alns}; "
+        f"launches {launches}")
+    if len(sam_cuda) != len(sam_cpu) or n_sam_diff:
+        fail("classic CUDA and CPU SAM lines differ")
+    if len(kc) <= 10 or kc != kp:
+        fail("classic CUDA and CPU records differ")
+    if kc != fused_keys:
+        fail("classic records differ from the fused records of phase 4")
+    if launches["gotoh_forward_plane"] == 0:
+        fail(f"the classic tier-3 did not launch the Gotoh kernel: {launches}")
+    return launches
+
+
+def phase_span(counters):
+    """The 50 kb reads with qualities redrawn over all 42 Phred values:
+    31 levels after the 0..30 clamp, so the fused pipeline genotypes
+    through the span-scatter path."""
+    from ngsepcore_tpu_torch.core.sequences import RawRead
+
+    genome, reads = _simulate_50kb()
+    rng = np.random.default_rng(41)
+    reads = [
+        RawRead(
+            name=r.name, sequence=r.sequence,
+            qualities=(rng.integers(0, 42, len(r.sequence)) + 33)
+            .astype(np.uint8).tobytes().decode("ascii"),
+        )
+        for r in reads
+    ]
+    keys = {}
+    for device in ("cuda", "cpu"):
+        pipe = _make_pipeline(genome, device, 1024)
+        took = []
+        span = pipe._genotype_span
+        pipe._genotype_span = lambda *a, _s=span: took.append(1) or _s(*a)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        recs = pipe.run_reads(reads)
+        sync(device)
+        dt = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        if took != [1]:
+            fail(f"the {device} run did not take the span genotyper")
+        keys[device] = [record_key(r) for r in recs]
+        log(f"phase 7 span genotyper 50 kb, 31 quality levels, {device}: "
+            f"{len(recs)} records ({dt:.2f}s), launches {launches}")
+    if len(keys["cuda"]) <= 10 or keys["cuda"] != keys["cpu"]:
+        fail("span-path CUDA and CPU records differ")
+
+
+def _write_inputs(d, genome, reads):
+    """FASTA of the genome and FASTQ of the reads (the block's default
+    quality where it carries none)."""
+    from ngsepcore_tpu_torch.io.fasta import save_fasta
+    from ngsepcore_tpu_torch.io.fastq import write_fastq
+
+    save_fasta(genome.sequences, os.path.join(d, "genome.fa"))
+    write_fastq(reads, os.path.join(d, "reads.fastq"))
+
+
+def _cli(args, timeout):
+    """Run the port's CLI on the card in a subprocess with --profile;
+    returns (seconds, stage-profile lines)."""
+    cmd = [sys.executable, "-m", "ngsepcore_tpu_torch", "--device", "cuda",
+           "--profile"] + args
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    if out.returncode != 0:
+        print(out.stderr[-4000:], flush=True)
+        fail(f"CLI {args[0]} exited {out.returncode}")
+    err = out.stderr.splitlines()
+    prof = err[err.index("stage profile (wall-clock)"):] if (
+        "stage profile (wall-clock)" in err) else []
+    summary = [l for l in err if l.startswith(("Reads:", "Called"))]
+    return dt, [l for l in prof if l.startswith("  ")], summary
+
+
+def phase_cli(genome, reads, truth, fused_records):
+    from bench import check_accuracy
+    from ngsepcore_tpu_torch.vcf.io import VCFFileReader, VCFFileWriter
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        _write_inputs(d, genome, reads)
+        log(f"phase 8 CLI inputs: {len(reads)} reads -> FASTQ "
+            f"({time.perf_counter() - t0:.1f}s)")
+        g, fq = os.path.join(d, "genome.fa"), os.path.join(d, "reads.fastq")
+        sam, vcf = os.path.join(d, "alns.sam"), os.path.join(d, "calls")
+        t_al, prof_al, sum_al = _cli(
+            ["ReadsAligner", "-r", g, "-o", sam, "-s", "s1", fq], 900)
+        log(f"  ReadsAligner: {t_al:.3f}s = {len(reads) / t_al:.1f} reads/s "
+            f"(process wall, start-up included); {'; '.join(sum_al)}")
+        for line in prof_al:
+            print(f"  align {line.strip()}", flush=True)
+        t_vc, prof_vc, sum_vc = _cli(
+            ["SingleSampleVariantsDetector", "-r", g, "-i", sam, "-o", vcf,
+             "-sampleId", "s1"], 900)
+        log(f"  SingleSampleVariantsDetector: {t_vc:.3f}s; {'; '.join(sum_vc)}")
+        for line in prof_vc:
+            print(f"  call {line.strip()}", flush=True)
+        log(f"  classic CLI total {t_al + t_vc:.3f}s = "
+            f"{len(reads) / (t_al + t_vc):.1f} reads/s")
+        records = VCFFileReader(vcf + ".vcf").load_all()
+        with VCFFileWriter(os.path.join(d, "fused.vcf"), ["s1"]) as w:
+            for r in fused_records:
+                w.write(r)
+        body = lambda p: [l for l in open(p) if not l.startswith("#")]
+        cli_lines, fused_lines = body(vcf + ".vcf"), body(os.path.join(d, "fused.vcf"))
+        n_diff = len(set(cli_lines) ^ set(fused_lines))
+        log(f"  {len(records)} records; differing from phase 5's fused "
+            f"records: {n_diff} (of {len(cli_lines)} and {len(fused_lines)})")
+    acc = check_accuracy(records, *truth)
+    log(f"  accuracy: {json.dumps(acc['metrics'])}")
+    if acc["gates"]:
+        fail("CLI accuracy gates: " + "; ".join(acc["gates"]))
+    return t_al, t_vc
 
 
 # ---------------------------------------------------------------------------
@@ -444,10 +633,15 @@ def main() -> None:
     phase_build()
     gotoh_t = phase_gotoh()
     shear_t = phase_shear()
-    phase_cuda_vs_cpu(counters)
-    launches, _ = phase_real_size(counters)
+    fused_keys = phase_cuda_vs_cpu(counters)
+    launches, _, fused_records, genome, reads, truth = phase_real_size(counters)
+    classic_launches = phase_classic(counters, fused_keys)
+    phase_span(counters)
+    torch.cuda.empty_cache()  # the CLI subprocesses share the card
+    phase_cli(genome, reads, truth, fused_records)
 
     g_ms, g_plain, g_err = gotoh_t["main-path chunk 2048x160x160"]
+    c_ms, c_plain, c_err = gotoh_t["classic tier-3 2048x192x192"]
     s_ms, s_plain, s_err = shear_t[1]
     kernels = {
         "kernels": [
@@ -460,6 +654,18 @@ def main() -> None:
                 "max_abs_err": g_err,
                 "ms": g_ms,
                 "plain_ms": g_plain,
+            },
+            {
+                # the same kernel on the classic path (phase 6), timed at
+                # the classic tier-3 shape
+                "name": "gotoh_forward_classic",
+                "route": "cuda",
+                "source": "ngsepcore_tpu_torch/csrc/gotoh_forward.cu",
+                "replaces": "ngsepcore_tpu/kernels/pairwise_pallas.py:243",
+                "launches": classic_launches["gotoh_forward_plane"],
+                "max_abs_err": c_err,
+                "ms": c_ms,
+                "plain_ms": c_plain,
             },
             {
                 "name": "shear_hist",

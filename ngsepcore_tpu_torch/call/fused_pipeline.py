@@ -15,10 +15,13 @@ host objects; gapped, ambiguous or indel-adjacent reads take the exact
 host path (realigner, indel genotyper), and the records equal the JAX
 package's.
 
-This slice covers the configuration the flagship runs: one sample,
-`max_alns_per_read == 1`, the default `min_mq`, no known STRs, and at
-most 29 distinct base qualities (the histogram genotyper).  Every other
-branch raises NotImplementedError naming its ROADMAP.md item.
+The fused path needs `max_alns_per_read == 1` and `15 < min_mq <= 60`;
+other settings run the classic two-stage flow (ReadsAligner.align_batch
+then SingleSampleVariantsDetector.find_variants).  Runs with at most 29
+distinct base qualities genotype through the shear histogram; runs with
+more, or with no device-path reads, through the span-scatter genotyper
+(kernels/genotyping.genotype_window_span).  Known STRs raise
+NotImplementedError (ROADMAP.md Queue 1, "Tier-2 STR").
 
 Host syncs on CUDA (each a device->host copy): the seeding/classify
 fetch per batch, the tier-3 stats fetch per group, nonzero in the
@@ -239,7 +242,9 @@ class AlignCallPipeline:
         self.genome = genome
         self.device = torch.device(device)
         self.aligner = aligner or ReadsAligner(genome, device=self.device)
-        self.detector = detector or SingleSampleVariantsDetector(genome)
+        self.detector = detector or SingleSampleVariantsDetector(
+            genome, device=self.device
+        )
         self.batch_size = batch_size
         # cooperative cancellation (ref: ProgressNotifier.keepRunning
         # polled in run() loops); polled at batch and window boundaries
@@ -266,11 +271,12 @@ class AlignCallPipeline:
     # ------------------------------------------------------------------
     def run_reads(self, reads: list[RawRead]) -> list[VCFRecord]:
         if not self._fusable:
-            raise NotImplementedError(
-                "classic two-stage path (max_alns_per_read != 1 or min_mq "
-                "outside 16..60): ROADMAP.md Queue 1, \"Classic two-stage "
-                "path\""
-            )
+            # classic two-stage flow: align every batch, then call
+            alns: list[ReadAlignment] = []
+            for i in range(0, len(reads), self.batch_size):
+                for r in self.aligner.align_batch(reads[i : i + self.batch_size]):
+                    alns.extend(r)
+            return self.detector.find_variants(alns)
         # Chunks are descending powers of two (capped at batch_size), so
         # the tail chunk is not padded to a large row bucket
         spans: list[tuple[int, int]] = []
@@ -604,7 +610,7 @@ class AlignCallPipeline:
                 aln.alignment_quality = int(qf[wi])
                 st.host_alns[r_].append(aln)
                 mat_jobs.append((aln, r_, rev))
-            _materialize_sequences(st.reads, mat_jobs, is_block)
+            _materialize_sequences(st.reads, mat_jobs, None, is_block)
         st.t1_cells = None
         return j1
 
@@ -1028,18 +1034,173 @@ class AlignCallPipeline:
     def _genotype(
         self, batches: list[_BatchState], host: list[ReadAlignment]
     ) -> list[VCFRecord]:
-        """Shear-histogram genotyper over both paths.  Runs with no fused
-        reads or more than 29 distinct base qualities need the span
-        genotyper, which is not part of this slice."""
+        """Dispatch: the shear-histogram path by default, the span-scatter
+        path for runs with no device-path reads or more than 29 distinct
+        base qualities (the 7-bit stage byte cannot bin those)."""
         with stage("call.compact_fused"):
             fused = self._compact_hist(batches)
         if fused is None:
-            raise NotImplementedError(
-                "span-scatter genotyper (no device-path reads, or more than "
-                "29 distinct base qualities): ROADMAP.md Queue 1, \"Span "
-                "genotyper\""
-            )
+            return self._genotype_span(batches, host)
         return self._genotype_hist(batches, host, fused)
+
+    # ------------------------------------------------------------------
+    def _compact_fused(self, batches: list[_BatchState]):
+        """Place every batch's fused rows into one run-wide packed-read
+        matrix on the device, sorted by predicted start, so each window's
+        reads are one contiguous row range (genotype_window_span).  The
+        read bytes come from the batch matrices already on the device; the
+        per-read meta (final placements, realigner trims folded into the
+        clips) comes from the host arrays."""
+        from ..kernels.genotyping import (
+            META_CE,
+            META_COLS,
+            META_CS,
+            META_LEN,
+            META_PRED,
+            META_STRAND,
+            place_fused_rows,
+        )
+
+        rows_per = [np.nonzero(st.fused)[0] for st in batches]
+        F = sum(len(r) for r in rows_per)
+        if F == 0:
+            return None
+        maxlen = max(
+            int(st.lengths[r].max()) for st, r in zip(batches, rows_per) if len(r)
+        )
+        Lp = min(
+            max(st.fwd_mat.shape[1] for st, r in zip(batches, rows_per) if len(r)),
+            (maxlen + 15) & ~15,
+        )
+        pred_h = np.concatenate(
+            [st.pred[r] for st, r in zip(batches, rows_per) if len(r)]
+        )
+        order = np.argsort(pred_h, kind="stable")
+        inv = np.empty(F, np.int64)
+        inv[order] = np.arange(F)
+        dev = self.device
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        pq = torch.zeros((F, Lp), dtype=torch.uint8, device=dev)
+        meta_h = np.zeros((F, META_COLS), np.int64)
+        r0 = 0
+        for st, rows in zip(batches, rows_per):
+            if not len(rows):
+                continue
+            nb = len(rows)
+            dst_rows = inv[r0 : r0 + nb]
+            cs_eff = st.cs[rows].astype(np.int64)
+            ce_eff = st.ce[rows].astype(np.int64)
+            if st.ig5 is not None:  # realigner end-trims fold into clips
+                ln = st.lengths[rows].astype(np.int64)
+                cs_eff = np.maximum(cs_eff, st.ig5[rows])
+                ce_eff = np.minimum(
+                    np.maximum(ce_eff, st.ig3[rows]), ln - cs_eff
+                )
+            meta_h[dst_rows, META_PRED] = st.pred[rows]
+            meta_h[dst_rows, META_CS] = cs_eff
+            meta_h[dst_rows, META_CE] = ce_eff
+            meta_h[dst_rows, META_STRAND] = np.clip(st.strand[rows], 0, 1)
+            meta_h[dst_rows, META_LEN] = st.lengths[rows]
+            place_fused_rows(pq, st.pq_dev, up(rows.astype(np.int64)), up(dst_rows))
+            r0 += nb
+        return {"pq": pq, "meta": up(meta_h), "pred": pred_h[order], "Lp": Lp}
+
+    def _genotype_span(
+        self, batches: list[_BatchState], host: list[ReadAlignment]
+    ) -> list[VCFRecord]:
+        """Span-scatter genotyper: per window, the fused reads whose
+        predicted start can reach it (one row range of _compact_fused's
+        matrix) plus the window's slice of the host calls."""
+        from ..kernels.genotyping import (
+            genotype_window_hist_resolve_batch,
+            genotype_window_span,
+            window_pk_slice,
+        )
+        from .single_sample import _window_for, merge_indel_records
+
+        det = self.detector
+        genome = self.genome
+        offs = genome.offsets
+        dev = self.device
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        with stage("call.compact_fused"):
+            fused = self._compact_fused(batches)
+        contribution = up(np.asarray(det._contribution))
+        het = float(det.heterozygosity_rate)
+        minq = int(det.min_quality)
+        empty_pk = torch.empty(0, dtype=torch.int32, device=dev)
+        records: list[VCFRecord] = []
+        pending = []
+        for si in range(genome.num_sequences):
+            name = genome.sequence_name(si)
+            seq_len = genome.sequence_length(si)
+            base = int(offs[si])
+            # per-sequence host work precomputed in _call
+            indel_records, devc = self._seq_host[si]
+            window = _window_for(seq_len)
+            w_starts = list(range(1, seq_len + 1, window))
+            if devc is not None:
+                # window bounds into the sorted call arrays: one
+                # searchsorted + one small fetch per sequence
+                edges = np.array(w_starts + [seq_len + 1], np.int32)
+                bnd = torch.searchsorted(devc["pos"], up(edges)).cpu().numpy()
+            seq_records: list[VCFRecord] = []
+            for wi, w0 in enumerate(w_starts):
+                w1 = min(seq_len, w0 + window - 1)
+                w0_concat = base + w0 - 1
+                # reads sorted by pred: the rows that can touch [w0, w1]
+                # are contiguous (left-edge over-inclusion is masked by
+                # the per-base bounds check)
+                if fused is not None:
+                    slo = int(np.searchsorted(
+                        fused["pred"], w0_concat - fused["Lp"], side="left"
+                    ))
+                    shi = int(np.searchsorted(
+                        fused["pred"], w0_concat + window, side="left"
+                    ))
+                    count = shi - slo
+                else:
+                    slo = count = 0
+                lo, hi = (int(bnd[wi]), int(bnd[wi + 1])) if devc else (0, 0)
+                if hi > lo:
+                    pk = window_pk_slice(
+                        devc["pos"], devc["attr"], lo, w0, hi - lo,
+                        size=hi - lo,
+                    )
+                elif count == 0:
+                    continue  # no evidence touches this window
+                else:
+                    pk = empty_pk
+                ref_win = np.full(window, 4, dtype=np.int8)
+                ref_win[: w1 - w0 + 1] = genome.sequences[si].codes[w0 - 1 : w1]
+                with stage("call.window_dispatch"):
+                    res = genotype_window_span(
+                        fused["pq"] if fused else None,
+                        fused["meta"] if fused else None,
+                        slo, count, w0_concat, pk, up(ref_win), contribution,
+                        het, minq, out_size=window,
+                    )
+                pending.append(
+                    (name, w0, ref_win, res, indel_records, seq_records)
+                )
+            # a sequence with indel records but no window: its records go
+            # out here, ahead of the windowed sequences (JAX order)
+            if not any(p[0] == name for p in pending) and indel_records:
+                seq_records.extend(indel_records)
+                records.extend(sorted(seq_records, key=lambda r: r.variant.first))
+
+        with stage("call.window_resolve"):
+            resolved = genotype_window_hist_resolve_batch([p[3] for p in pending])
+        handled: dict[str, tuple[list, list]] = {}
+        with stage("call.build_records"):
+            for (name, w0, ref_win, _, indel_records, seq_records), res in zip(
+                pending, resolved
+            ):
+                seq_records.extend(det._window_records(name, w0, ref_win, res))
+                handled[name] = (indel_records, seq_records)
+            for name, (indel_records, seq_records) in handled.items():
+                records.extend(merge_indel_records(seq_records, indel_records))
+        return records
 
     # ------------------------------------------------------------------
     def _compact_hist(self, batches: list[_BatchState]):
@@ -1273,23 +1434,7 @@ class AlignCallPipeline:
         with stage("call.build_records"):
             for (name, w0, ref_win, indel_records), res in zip(meta_list, resolved):
                 seq_records = seq_records_by_name.setdefault(name, [])
-                for i in range(int(res["n_sites"])):
-                    p = int(res["site_idx"][i])
-                    rec = det._build_record(
-                        name,
-                        w0 + p,
-                        int(ref_win[p]),
-                        int(res["bi"][i]),
-                        int(res["bj"][i]),
-                        int(res["gq"][i]),
-                        float(res["ref_prob"][i]),
-                        res["depths"][i],
-                        int(res["total"][i]),
-                        res["logcond"][i],
-                        res["strand_counts"][i],
-                    )
-                    if rec is not None:
-                        seq_records.append(rec)
+                seq_records.extend(det._window_records(name, w0, ref_win, res))
                 handled[name] = indel_records
             # sequences with indel records but no dispatched windows
             for si in range(genome.num_sequences):

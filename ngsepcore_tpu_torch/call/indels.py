@@ -381,7 +381,10 @@ class IndelCountsHelper:
                 match = self._allele_codes[i] == call_codes
                 # logProbCacheGT[0][q][0]=log10(1-e); error: -0.1q - log10(3)
                 e = 10.0 ** (-0.1 * q)
-                per_base = np.where(match, np.log10(1 - e), -0.1 * q - np.log10(3))
+                # log10 only where q >= MIN_BASE_QS: at q = 0, 1 - e is 0
+                # and the masked-out lanes would take log10(0)
+                log_ok = np.log10(1 - e, out=np.zeros(q.shape), where=ok)
+                per_base = np.where(match, log_ok, -0.1 * q - np.log10(3))
                 lc = float(np.sum(np.where(ok, per_base, 0.0)))
                 lc = max(LOG_ERROR_PROB_INDEL, lc)
                 log_cond_alleles[i] = lc

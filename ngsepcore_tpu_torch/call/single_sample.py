@@ -1,28 +1,43 @@
-"""Single-sample variant detector: the members the fused align+call
-pipeline reads (call/fused_pipeline.py).
+"""Single-sample variant detector — SNV and indel discovery/genotyping.
 
-Ref: src/ngsep/discovery/SingleSampleVariantsDetector.java:62-931,
+Ref: src/ngsep/discovery/SingleSampleVariantsDetector.java:62-931 (command
+`SingleSampleVariantsDetector`, orchestration at :589-656),
 SingleSampleVariantPileupListener.java:147-331 (discovery mode, minQuality
 40 default at :50, keep only non-homoref decided calls),
 VariantDiscoverySNVQAlgorithm.java:100-265 (discoverSNV incl. triallelic).
 
-The classic BAM-driven flow (`run`, `find_variants`), CNV/SV/repeat
-analyses and known-STR loading are not part of this slice; see
-ROADMAP.md Queue 1.
+The reference's per-position listener chain becomes, per genome window,
+one scatter-add of packed base calls into a (window, allele, qbin) count
+tensor on the detector's device plus one screened genotyping pass over all
+positions (kernels/genotyping.py); only interesting sites come back to
+the host to become VCF records.  Indel sites come from the realigner and
+are genotyped on the host (call/indel_batch.py).
+
+Read-depth CNVs, read-pair SVs and long-read SVs (ROADMAP.md Queue 1
+items 11 and 12) and known STRs ("Tier-2 STR") raise NotImplementedError.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from ..kernels.genotyping import HET_RATE_DIPLOID, snv_contribution_table
+from ..align.read_alignment import ReadAlignment
+from ..io.sam import ReadAlignmentFileReader
+from ..kernels.genotyping import (
+    HET_RATE_DIPLOID,
+    MAX_BASE_QS,
+    snv_contribution_table,
+)
 from ..math.fisher import fisher_exact_2x2
 from ..math.phred import phred_score
+from ..utils.profiling import stage
 from ..variants.model import (
     CalledGenomicVariant,
     TYPE_BIALLELIC_SNV,
     TYPE_MULTIALLELIC_SNV,
 )
-from ..vcf.io import VCFRecord
+from ..vcf.io import VCFFileWriter, VCFRecord
+from .pileup import cap_alignments_per_start
 
 DEF_MIN_QUALITY = 40  # ref: SingleSampleVariantPileupListener.java:50
 DEF_MIN_MQ = 20  # ref: ReadAlignment.DEF_MIN_MQ_UNIQUE_ALIGNMENT
@@ -74,7 +89,38 @@ class SingleSampleVariantsDetector:
         ploidy: int = 2,
         calc_strand_bias: bool = False,
         max_alns_per_start: int = 5,
+        find_cnvs: bool = False,
+        find_svs: bool = False,
+        run_long_read_svs: bool = False,
+        min_sv_quality: int = 0,
+        known_strs_file: str | None = None,
+        alg_cnv: str = "CNVnator",  # ref: DEF_ALGORITHM_CNV (:75), comma list
+        find_repeats: bool = False,
+        known_repeats_file: str | None = None,
+        query_seq: str | None = None,  # ref: -querySeq/-first/-last region
+        query_first: int = 0,  # restriction (AlignmentsPileupGenerator
+        query_last: int = 0,  # .java:310-321 via indexed BAM reads)
+        *,
+        device=None,  # where find_variants/run genotype; the fused
+        # pipeline genotypes on its own device and needs none here
     ):
+        for flag, what in (
+            (find_cnvs, "read-depth CNVs (-cnvs): ROADMAP.md Queue 1 item 11"),
+            (find_svs, "read-pair SVs (-svs): ROADMAP.md Queue 1 item 11"),
+            (run_long_read_svs,
+             "long-read SVs (-runLongReadSVs): ROADMAP.md Queue 1 item 12"),
+            (known_strs_file,
+             "known STRs (-knownSTRs): ROADMAP.md Queue 1, \"Tier-2 STR\""),
+        ):
+            if flag:
+                raise NotImplementedError(what)
+        self.device = None if device is None else torch.device(device)
+        self.query_seq = query_seq
+        self.query_first = int(query_first or 0)
+        self.query_last = int(query_last or 0)
+        self.alg_cnv = alg_cnv
+        self.find_repeats = find_repeats
+        self.known_repeats_file = known_repeats_file
         self.genome = genome
         self.sample_id = sample_id
         self.heterozygosity_rate = heterozygosity_rate
@@ -83,16 +129,201 @@ class SingleSampleVariantsDetector:
         self.ploidy = ploidy
         self.calc_strand_bias = calc_strand_bias
         self.max_alns_per_start = max_alns_per_start
-        # known STRs (tier-2 alignment + STR realignment) are not part of
-        # this slice; the fused pipeline refuses a non-empty dict
+        self.min_sv_quality = min_sv_quality
+        # cooperative cancel hook (ref: SingleSampleVariantsDetector polls
+        # progressNotifier.keepRunning at :600,614,624,641)
+        self.progress_notifier = None
         self.known_strs: dict[str, list] = {}
         self._contribution = snv_contribution_table(4, 0.5)
 
-    def find_variants(self, alignments):
-        raise NotImplementedError(
-            "classic alignments -> variants flow: ROADMAP.md Queue 1, "
-            "\"Classic two-stage path\""
+    # ------------------------------------------------------------------
+    def run(self, alignments_file: str, output_vcf: str) -> int:
+        """Orchestration mirrors SingleSampleVariantsDetector.run
+        (:589-656): repeat masking (optional), then SNV/indel pileup
+        genotyping; repeat regions additionally land in a GFF next to the
+        VCF."""
+        region = None
+        if self.query_seq:
+            first = self.query_first or 1
+            last = self.query_last or self.genome.sequence_length(
+                self.query_seq
+            )
+            region = (self.query_seq, first, last)
+        reader = ReadAlignmentFileReader(
+            alignments_file, min_mq=self.min_mq, skip_secondary=True,
+            region=region,
         )
+        with stage("call.read_alignments"):
+            alns = list(reader)
+        records = self.find_variants(alns)
+        if region is not None:
+            # evidence from reads overlapping the region can support
+            # variants hanging past its edges; the deliverable is the
+            # records INSIDE the region (identical to the full run's
+            # records there)
+            records = [
+                r
+                for r in records
+                if r.variant.sequence_name == region[0]
+                and region[1] <= r.variant.first <= region[2]
+            ]
+        svs = []
+        # ref findRepeats :607-612: repeat regions from multi-mapping reads
+        # (or a known-repeats file) mask variant calls
+        repeat_regions = []
+        if self.known_repeats_file:
+            from ..genome.builders import load_regions_file
+
+            repeat_regions = [
+                (r.sequence_name, r.first, r.last)
+                for r in load_regions_file(self.known_repeats_file)
+            ]
+        elif self.find_repeats:
+            from .repeats import MultipleMappingRegionsCalculator
+
+            reps = MultipleMappingRegionsCalculator(
+                min_mq=self.min_mq
+            ).calculate_multiple_mapping_regions(alns)
+            for c in reps:
+                c.sample_id = self.sample_id
+            svs.extend(reps)
+            repeat_regions = [(c.sequence_name, c.first, c.last) for c in reps]
+        if repeat_regions:
+            by_seq: dict[str, list[tuple[int, int]]] = {}
+            for s, f, l in repeat_regions:
+                by_seq.setdefault(s, []).append((f, l))
+            records = [
+                r
+                for r in records
+                if not any(
+                    f <= r.variant.first <= l
+                    for f, l in by_seq.get(r.variant.sequence_name, [])
+                )
+            ]
+        if svs:
+            records.sort(key=lambda r: (r.variant.sequence_name, r.variant.first))
+        with stage("call.write_vcf"), VCFFileWriter(
+            output_vcf, [self.sample_id]
+        ) as w:
+            for r in records:
+                w.write(r)
+        if svs:
+            from ..io.gff_sv import write_sv_gff
+
+            write_sv_gff(svs, output_vcf.rsplit(".", 1)[0] + "_SV.gff")
+        return len(records)
+
+    # ------------------------------------------------------------------
+    def find_variants(self, alignments: list[ReadAlignment]) -> list[VCFRecord]:
+        by_seq: dict[str, list[ReadAlignment]] = {}
+        for a in alignments:
+            if a.is_unmapped or a.alignment_quality < self.min_mq:
+                continue
+            by_seq.setdefault(a.sequence_name, []).append(a)
+        from ..utils.progress import check as _progress_check
+
+        records: list[VCFRecord] = []
+        for si in range(self.genome.num_sequences):
+            _progress_check(self.progress_notifier, si)
+            name = self.genome.sequence_name(si)
+            alns = by_seq.get(name)
+            if not alns:
+                continue
+            with stage("call.sort_cap"):
+                alns.sort(key=lambda a: a.first)
+                alns = cap_alignments_per_start(alns, self.max_alns_per_start)
+            records.extend(self._process_sequence(si, name, alns))
+        return records
+
+    # ------------------------------------------------------------------
+    def _process_sequence(
+        self, seq_idx: int, seq_name: str, alns: list[ReadAlignment]
+    ) -> list[VCFRecord]:
+        from ..kernels.genotyping import (
+            accumulate_allele_counts_packed,
+            genotype_window_hist_resolve_batch,
+            genotype_window_sparse,
+            init_count_tensors_flat,
+        )
+        from .aln_table import AlnTable
+        from .realigner import IndelRealigner
+
+        if self.device is None:
+            raise ValueError(
+                "SingleSampleVariantsDetector needs device= to genotype "
+                "(find_variants, run)"
+            )
+        # listener #1: conciliate indel placements across reads and derive
+        # the spanning-call sites (IndelRealignerPileupListener analog)
+        with stage("call.realign"):
+            sites = IndelRealigner(self.genome, seq_idx, None).realign(alns)
+        with stage("call.aln_table"):
+            table = AlnTable(alns)
+            pos, allele, qual, strand = table.expand_calls()
+        if len(pos) == 0:
+            return []
+        with stage("call.indel_genotype"):
+            indel_records = self._call_indels(
+                seq_idx, seq_name, alns, sites, table=table
+            )
+        with stage("call.sort_calls"):
+            order = np.argsort(pos, kind="stable")
+            pos, allele, qual, strand = (
+                pos[order], allele[order], qual[order], strand[order],
+            )
+        dev = self.device
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        seq_len = self.genome.sequence_length(seq_idx)
+        ref_codes = self.genome.sequences[seq_idx].codes
+        contribution = up(np.asarray(self._contribution))
+        het = float(self.heterozygosity_rate)
+        minq = int(self.min_quality)
+        window = _window_for(seq_len)
+        # one int32 per call (rel pos | qual << 20 | allele << 25 |
+        # strand << 28), one upload per window
+        qual_p = np.clip(qual, 0, MAX_BASE_QS).astype(np.int32)
+        al_p = allele.astype(np.int32)
+        st_p = strand.astype(np.int32)
+        pending = []
+        meta = []
+        for w0 in range(1, seq_len + 1, window):
+            w1 = min(seq_len, w0 + window - 1)
+            lo = np.searchsorted(pos, w0, side="left")
+            hi = np.searchsorted(pos, w1, side="right")
+            if hi <= lo:
+                continue
+            with stage("call.window_dispatch"):
+                pk_win = (
+                    (pos[lo:hi] - w0).astype(np.int32)
+                    | (qual_p[lo:hi] << 20)
+                    | (al_p[lo:hi] << 25)
+                    | (st_p[lo:hi] << 28)
+                )
+                pk_win = np.where(al_p[lo:hi] >= 0, pk_win, -1)
+                counts, strand_counts, _low_qual, total = (
+                    accumulate_allele_counts_packed(
+                        *init_count_tensors_flat(window, device=dev),
+                        up(pk_win),
+                    )
+                )
+                ref_win = np.full(window, 4, dtype=np.int8)
+                ref_win[: w1 - w0 + 1] = ref_codes[w0 - 1 : w1]
+                pending.append(
+                    genotype_window_sparse(
+                        counts, strand_counts, total, up(ref_win),
+                        contribution, het, minq,
+                    )
+                )
+            meta.append((w0, ref_win))
+        with stage("call.window_resolve"):
+            resolved = genotype_window_hist_resolve_batch(pending)
+        out: list[VCFRecord] = []
+        with stage("call.build_records"):
+            for (w0, ref_win), res in zip(meta, resolved):
+                out.extend(self._window_records(seq_name, w0, ref_win, res))
+        # merge indel calls and suppress embedded SNVs (lastIndelEnd
+        # semantics, SingleSampleVariantPileupListener.java:147-160)
+        return merge_indel_records(out, indel_records)
 
     # ------------------------------------------------------------------
     def _call_indels(
@@ -202,6 +433,27 @@ class SingleSampleVariantsDetector:
         return records
 
     # ------------------------------------------------------------------
+    def _window_records(self, seq_name: str, w0: int, ref_win, res) -> list:
+        """VCF records of one genotyped window: `res` is a window
+        genotyper's result on the host (kernels/genotyping
+        .genotype_window_hist_resolve_batch), the window starts at 1-based w0."""
+        return [
+            self._build_record(
+                seq_name,
+                w0 + int(p),
+                int(ref_win[p]),
+                int(res["bi"][i]),
+                int(res["bj"][i]),
+                int(res["gq"][i]),
+                float(res["ref_prob"][i]),
+                res["depths"][i],
+                int(res["total"][i]),
+                res["logcond"][i],
+                res["strand_counts"][i],
+            )
+            for i, p in enumerate(res["site_idx"][: int(res["n_sites"])])
+        ]
+
     def _build_record(
         self,
         seq_name: str,
@@ -215,7 +467,7 @@ class SingleSampleVariantsDetector:
         total: int,
         logcond: np.ndarray,
         strand_counts: np.ndarray,
-    ) -> VCFRecord | None:
+    ) -> VCFRecord:
         bases = "ACGT"
         variant_qs = phred_score(ref_prob)
         # triallelic / both alleles non-ref (ref: discoverSNV:128-177)

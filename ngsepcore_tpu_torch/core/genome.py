@@ -117,3 +117,12 @@ class ReferenceGenome:
             )
             self._device_packed[device] = t
         return t
+
+    def concat_pos(self, seq_idx: int, pos: int) -> int:
+        """Map (sequence idx, 1-based pos) to 0-based concatenated coordinate."""
+        return int(self.offsets[seq_idx]) + pos - 1
+
+    def split_concat_pos(self, cpos: int) -> tuple[int, int]:
+        """Inverse of concat_pos: -> (sequence idx, 1-based pos)."""
+        idx = int(np.searchsorted(self.offsets, cpos, side="right")) - 1
+        return idx, int(cpos - self.offsets[idx]) + 1
