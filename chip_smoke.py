@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ngsepcore_tpu_torch/csrc (first use), holds
-each against its plain PyTorch version on the card (phases 2-3), checks
+each against its plain PyTorch version on the card, full plane and edge
+shapes included, and times it beside its bound (phases 2-3), checks
 the fused align+call pipeline on CUDA against the same pipeline on the CPU
 (phase 4), runs it at a bacterial-isolate WGS size (4.6 Mbp diploid
 genome with repeat families and tandem arrays, 345,000 x 150 bp reads,
@@ -15,7 +16,9 @@ with the same gates (phase 8).  Prints one line per phase and exits
 nonzero at the first failure.  The last lines are a JSON object of the
 kernels (launch counts from the timed runs of phases 5 and 6, errors and
 times measured here), the card's name and power limit, and the result
-line.
+line.  A kernel's bound is the least time the card could take: the
+larger of its bytes (inputs read once, outputs written once) over the
+memory rate and its integer operations over the INT32 issue rate.
 
 Imports torch, numpy and the port only (bench.py's gates are numpy).
 """
@@ -58,8 +61,10 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up)."""
+def cuda_ms(fn, reps: int = 5, calls: int = 1) -> float:
+    """Median of `reps` CUDA-event timings of `calls` back-to-back fn()
+    (after one warm-up), per call.  A kernel is timed over many calls so
+    that the stream never waits for the host between launches."""
     import torch
 
     fn()
@@ -68,11 +73,37 @@ def cuda_ms(fn, reps: int = 5) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return float(np.median(times))
+
+
+# H100 SXM: HBM3 rate from the data sheet; INT32 issue as 132 SMs x 64
+# lanes x 1.98 GHz boost (half of the 67 TFLOP/s float32 lanes, one
+# operation each), since the data sheet gives no integer rate
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+GOTOH_OPS_PER_CELL = 45  # warp kernel's arithmetic: M 12, I 12, D + both scans 13, fields/pack/store 8
+SHEAR_OPS_PER_BYTE = 11  # decode 1, range 1, count 1, allele 5, strand column 2, count 1
+
+
+def bound(n_bytes: int, n_ops: int):
+    """(bound_ms, bound_by) of a kernel that must move n_bytes and do
+    n_ops integer operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gotoh_bound(B: int, Lq: int, Ls: int):
+    """Inputs int8 (B,Lq), (B,Ls) and two int32 (B,); outputs the int32
+    (Lq,B,Ls) plane and three int32 (B,); every cell computed (rows past
+    qlen still get fresh D-run fields)."""
+    n_bytes = B * (Lq + Ls) + 8 * B + 4 * Lq * B * Ls + 12 * B
+    return bound(n_bytes, GOTOH_OPS_PER_CELL * B * Lq * Ls)
 
 
 # ---------------------------------------------------------------------------
@@ -158,57 +189,136 @@ def _classic_chunk(rng, B, read_len=150, Lq=192, Ls=192):
             np.full(B, read_len + 6, np.int32))
 
 
+def _random_jobs(rng, B, Lq, Ls, alphabet=5):
+    """Unrelated query/subject codes (N included) with ragged lengths."""
+    q = rng.integers(0, alphabet, (B, Lq)).astype(np.int8)
+    s = rng.integers(0, alphabet, (B, Ls)).astype(np.int8)
+    w = min(Lq, Ls)
+    s[:, :w] = np.where(rng.random((B, w)) < 0.2, s[:, :w], q[:, :w])
+    ql = rng.integers(0, Lq + 1, B).astype(np.int32)
+    sl = rng.integers(0, Ls + 1, B).astype(np.int32)
+    ql[0], sl[0] = Lq, Ls
+    return q, ql, s, sl
+
+
+def _saturating(rng, B, Lq, Ls):
+    """Identical and all-N rows whose M and I runs outgrow the 8-bit run
+    lengths of the plane."""
+    q, ql, s, sl = _random_jobs(rng, B, Lq, Ls, alphabet=4)
+    q[0], s[0] = 1, 1
+    q[1] = 4
+    ql[:2] = Lq
+    sl[:2] = Ls
+    return q, ql, s, sl
+
+
+def _edge_cases(rng):
+    """Shapes that are edges of the two Gotoh kernels' layouts: (name,
+    inputs).  The warp-per-alignment kernel takes Ls <= 256 with
+    ceil(Ls/32) columns a lane and four alignments a block; wider subjects
+    take the block-per-alignment kernel."""
+    q0, ql0, s0, sl0 = _noisy(rng, 203, 48, 128)
+    ql0[::3] = 0
+    sl0[::5] = 0
+    qn, qln, sn, sln = _noisy(rng, 64, 48, 160)
+    qn[:] = 4
+    sn[:] = 4
+    return [
+        ("Ls 256 (widest register variant), B 301", _noisy(rng, 301, 64, 256)),
+        ("Ls 256, runs past 255", _saturating(rng, 30, 300, 256)),
+        ("Ls 288 (block kernel)", _noisy(rng, 130, 64, 288)),
+        ("Ls 512 (block kernel)", _noisy(rng, 67, 96, 512)),
+        ("Ls 33", _random_jobs(rng, 37, 40, 33)),
+        ("Ls 1", _random_jobs(rng, 9, 12, 1)),
+        ("Lq 1", _random_jobs(rng, 50, 1, 70)),
+        ("B 1", _noisy(rng, 1, 48, 128)),
+        ("qlen 0 and slen 0 rows, B 203", (q0, ql0, s0, sl0)),
+        ("all-N query and subject", (qn, qln, sn, sln)),
+    ]
+
+
+_GOTOH_CFGS = (
+    dict(free_start2=True, free_end2=True),
+    dict(free_start2=False, free_end2=False),
+    dict(free_start2=True, free_end2=False),
+)
+
+
+def _gotoh_mismatches(got, ref):
+    """(cells of the FULL plane that differ, [score, end_i, end_j,
+    start_k] mismatches, max abs error over all of them)."""
+    full = int((got[0] != ref[0]).sum())
+    vec_bad = [int((a != b).sum()) for a, b in zip(got[1:], ref[1:])]
+    err = max(
+        [int((got[0].long() - ref[0].long()).abs().max())]
+        + [int((a.long() - b.long()).abs().max()) for a, b in zip(got[1:], ref[1:])]
+    )
+    return full, vec_bad, err
+
+
 def phase_gotoh():
+    """Both Gotoh kernels against the plain version, bit for bit on the
+    full plane; times of the kernel the wrapper picks, of the
+    block-per-alignment kernel (the only one before the redesign) and of
+    the plain version at the shapes the main paths use."""
     import torch
 
     from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
         gotoh_forward_plane,
+        gotoh_forward_plane_block,
         gotoh_forward_plane_ref,
     )
 
     rng = np.random.default_rng(0)
-    cases = [
-        ("bench chunk 2048x160x256", _bench_chunk(rng, 2048, 160, 256), {}),
-        ("main-path chunk 2048x160x160", _bench_chunk(rng, 2048, 160, 160), {}),
-        ("ragged 1000x160x200", _noisy(rng, 1000, 160, 200), {}),
-        ("classic tier-3 2048x192x192", _classic_chunk(rng, 2048), {}),
-        ("classic tier-3 256x192x192", _classic_chunk(rng, 256), {}),
+    timed = [
+        ("bench chunk 2048x160x256", _bench_chunk(rng, 2048, 160, 256)),
+        ("main-path chunk 2048x160x160", _bench_chunk(rng, 2048, 160, 160)),
+        ("classic tier-3 2048x192x192", _classic_chunk(rng, 2048)),
+        ("classic tier-3 256x192x192", _classic_chunk(rng, 256)),
     ]
-    for cfg in (
-        dict(free_start2=True, free_end2=True),
-        dict(free_start2=False, free_end2=False),
-        dict(free_start2=True, free_end2=False),
-    ):
+    cases = [(n, d, {}) for n, d in timed]
+    cases.append(("ragged 1000x160x200", _noisy(rng, 1000, 160, 200), {}))
+    for cfg in _GOTOH_CFGS:
         cases.append((f"pallas-test 256x48x128 {cfg}", _noisy(rng, 256, 48, 128), cfg))
+    for name, data in _edge_cases(rng):
+        for cfg in _GOTOH_CFGS:
+            cases.append((f"{name} {cfg}", data, cfg))
+    timed_names = {n for n, _ in timed}
     timing = {}
+    n_cells = 0
     for name, (q, ql, s, sl), cfg in cases:
         args = [torch.from_numpy(a).cuda() for a in (q, ql, s, sl)]
-        kern = gotoh_forward_plane(*args, **cfg)
         ref = gotoh_forward_plane_ref(*args, **cfg)
-        torch.cuda.synchronize()
-        Lq, Ls = q.shape[1], s.shape[1]
-        rows = torch.arange(1, Lq + 1, device="cuda")[:, None, None]
-        cols = torch.arange(1, Ls + 1, device="cuda")[None, None, :]
-        mask = (rows <= args[1][None, :, None]) & (cols <= args[3][None, :, None])
-        bad = int(((kern[0] != ref[0]) & mask).sum())
-        full = int((kern[0] != ref[0]).sum())
-        vec_bad = [int((a != b).sum()) for a, b in zip(kern[1:], ref[1:])]
-        err = max(
-            [int(((kern[0].long() - ref[0].long()).abs() * mask).max())]
-            + [int((a.long() - b.long()).abs().max()) for a, b in zip(kern[1:], ref[1:])]
-        )
-        log(f"phase 2 gotoh {name}: masked plane mismatches {bad}, "
-            f"full-plane mismatches {full}, score/end_i/end_j/start_k "
-            f"mismatches {vec_bad}")
-        if bad or any(vec_bad):
-            fail(f"gotoh kernel disagrees with its plain version on {name}")
-        if name.startswith(("bench", "main-path", "classic")):
-            ms = cuda_ms(lambda: gotoh_forward_plane(*args, **cfg))
+        kernels = [("kernel", gotoh_forward_plane)]
+        if s.shape[1] <= 256:  # wider subjects take the block kernel anyway
+            kernels.append(("block kernel", gotoh_forward_plane_block))
+        err = 0
+        for label, fn in kernels:
+            got = fn(*args, **cfg)
+            torch.cuda.synchronize()
+            full, vec_bad, label_err = _gotoh_mismatches(got, ref)
+            err = max(err, label_err)
+            log(f"phase 2 gotoh {name}, {label}: full-plane mismatches {full} "
+                f"of {got[0].numel()}, score/end_i/end_j/start_k mismatches {vec_bad}")
+            if full or any(vec_bad):
+                fail(f"gotoh {label} disagrees with its plain version on {name}")
+            n_cells += got[0].numel()
+            del got
+        if name in timed_names:
+            B, Lq, Ls = q.shape[0], q.shape[1], s.shape[1]
+            ms = cuda_ms(lambda: gotoh_forward_plane(*args, **cfg), calls=20)
+            old = cuda_ms(lambda: gotoh_forward_plane_block(*args, **cfg), calls=20)
             plain = cuda_ms(lambda: gotoh_forward_plane_ref(*args, **cfg))
-            log(f"  time {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms "
-                "(median of 5)")
-            timing[name] = (ms, plain, err)
-        del kern, ref
+            b_ms, b_by = gotoh_bound(B, Lq, Ls)
+            log(f"  time {name}: kernel {ms:.4f} ms, block kernel {old:.4f} ms "
+                f"(medians of 5 x 20 calls), plain {plain:.3f} ms (median of 5); bound "
+                f"{b_ms:.4f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it, "
+                f"block kernel at {100 * b_ms / old:.1f}%")
+            timing[name] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
+                                bound_ms=b_ms, bound_by=b_by, block_ms=old)
+        del ref
+    log(f"phase 2 gotoh: {len(cases)} cases, {n_cells} plane cells compared, "
+        "0 differing")
     return timing
 
 
@@ -238,12 +348,18 @@ def phase_shear():
             f"mismatches {bad}")
         if bad:
             fail(f"shear kernel disagrees with its plain version (nq={nq})")
-        ms = cuda_ms(lambda: shear_hist(stage, w0s, window=window, nq=nq, lanes=lanes))
+        ms = cuda_ms(lambda: shear_hist(stage, w0s, window=window, nq=nq, lanes=lanes),
+                     calls=20)
         plain = cuda_ms(
             lambda: shear_hist_ref(stage, w0s, window=window, nq=nq, lanes=lanes)
         )
-        log(f"  time nq={nq}: kernel {ms:.3f} ms, plain {plain:.3f} ms (median of 5)")
-        timing[nq] = (ms, plain, err)
+        b_ms, b_by = bound(stage.numel() + 4 * kern.numel(),
+                           SHEAR_OPS_PER_BYTE * stage.numel())
+        log(f"  time nq={nq}: kernel {ms:.4f} ms (median of 5 x 20 calls), plain "
+            f"{plain:.3f} ms (median of 5); bound {b_ms:.4f} ms by {b_by}, "
+            f"kernel at {100 * b_ms / ms:.1f}% of it")
+        timing[nq] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
+                          bound_ms=b_ms, bound_by=b_by)
         del stage, kern, ref
     return timing
 
@@ -576,7 +692,7 @@ def _cli(args, timeout):
     err = out.stderr.splitlines()
     prof = err[err.index("stage profile (wall-clock)"):] if (
         "stage profile (wall-clock)" in err) else []
-    summary = [l for l in err if l.startswith(("Reads:", "Called"))]
+    summary = [l for l in err if l.startswith(("Reads:", "Called", "kernel launches"))]
     return dt, [l for l in prof if l.startswith("  ")], summary
 
 
@@ -640,43 +756,31 @@ def main() -> None:
     torch.cuda.empty_cache()  # the CLI subprocesses share the card
     phase_cli(genome, reads, truth, fused_records)
 
-    g_ms, g_plain, g_err = gotoh_t["main-path chunk 2048x160x160"]
-    c_ms, c_plain, c_err = gotoh_t["classic tier-3 2048x192x192"]
-    s_ms, s_plain, s_err = shear_t[1]
+    def entry(name, source, replaces, n_launches, t):
+        # no one PyTorch call computes either function (the Gotoh plane
+        # with packed run pointers; the sheared per-position histogram)
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+        }
+
+    gotoh_src = "ngsepcore_tpu_torch/csrc/gotoh_forward.cu"
+    gotoh_tpu = "ngsepcore_tpu/kernels/pairwise_pallas.py:243"
     kernels = {
         "kernels": [
-            {
-                "name": "gotoh_forward",
-                "route": "cuda",
-                "source": "ngsepcore_tpu_torch/csrc/gotoh_forward.cu",
-                "replaces": "ngsepcore_tpu/kernels/pairwise_pallas.py:243",
-                "launches": launches["gotoh_forward_plane"],
-                "max_abs_err": g_err,
-                "ms": g_ms,
-                "plain_ms": g_plain,
-            },
-            {
-                # the same kernel on the classic path (phase 6), timed at
-                # the classic tier-3 shape
-                "name": "gotoh_forward_classic",
-                "route": "cuda",
-                "source": "ngsepcore_tpu_torch/csrc/gotoh_forward.cu",
-                "replaces": "ngsepcore_tpu/kernels/pairwise_pallas.py:243",
-                "launches": classic_launches["gotoh_forward_plane"],
-                "max_abs_err": c_err,
-                "ms": c_ms,
-                "plain_ms": c_plain,
-            },
-            {
-                "name": "shear_hist",
-                "route": "cuda",
-                "source": "ngsepcore_tpu_torch/csrc/shear_hist.cu",
-                "replaces": "ngsepcore_tpu/kernels/shear_pileup.py:227",
-                "launches": launches["shear_hist"],
-                "max_abs_err": s_err,
-                "ms": s_ms,
-                "plain_ms": s_plain,
-            },
+            entry("gotoh_forward", gotoh_src, gotoh_tpu,
+                  launches["gotoh_forward_plane"],
+                  gotoh_t["main-path chunk 2048x160x160"]),
+            # the same kernel on the classic path (phase 6), timed at the
+            # classic tier-3 shape
+            entry("gotoh_forward_classic", gotoh_src, gotoh_tpu,
+                  classic_launches["gotoh_forward_plane"],
+                  gotoh_t["classic tier-3 2048x192x192"]),
+            entry("shear_hist", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
+                  "ngsepcore_tpu/kernels/shear_pileup.py:227",
+                  launches["shear_hist"], shear_t[1]),
         ]
     }
     print(json.dumps(kernels), flush=True)

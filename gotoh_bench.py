@@ -1,0 +1,126 @@
+"""Check and time Gotoh-forward kernel sources against each other on one GPU.
+
+    python3 gotoh_bench.py [variant.cu ...]
+
+Each source (default: ngsepcore_tpu_torch/csrc/gotoh_forward.cu; a variant
+exports the same `gotoh_forward_launch`) is built alone with the package's
+nvcc flags, held bit for bit against the plain PyTorch version on ragged
+inputs in the three free-end configurations, and timed at the shapes the
+fused and classic tier-3 paths use, together with its block-per-alignment
+kernel.  All sources are timed in one process, in rounds A B .. B A, so
+that two versions are compared on one card under one power limit.  Prints
+ptxas' registers and spills, the median times with their bounds, and the
+card's name and power limit.
+"""
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from chip_smoke import (
+    _GOTOH_CFGS,
+    _bench_chunk,
+    _classic_chunk,
+    _gotoh_mismatches,
+    _noisy,
+    fail,
+    gotoh_bound,
+    nvidia_smi,
+)
+from ngsepcore_tpu_torch.kernels import cuda_build
+from ngsepcore_tpu_torch.kernels.pairwise_cuda import gotoh_forward_plane_ref
+
+
+def run(lib, args, cfg, block_kernel=False):
+    """One launch of lib's gotoh_forward_launch: (plane, score, end_i,
+    end_j, start_k)."""
+    q, ql, s, sl = args
+    B, Lq = q.shape
+    Ls = s.shape[1]
+    plane = torch.empty((Lq, B, Ls), dtype=torch.int32, device=q.device)
+    fin = torch.empty((3, B), dtype=torch.int32, device=q.device)
+    rc = lib.gotoh_forward_launch(
+        q.data_ptr(), ql.data_ptr(), s.data_ptr(), sl.data_ptr(),
+        plane.data_ptr(), fin[0].data_ptr(), fin[1].data_ptr(), fin[2].data_ptr(),
+        B, Lq, Ls, 1, 1, 3, 1,
+        int(cfg.get("free_start2", True)), int(cfg.get("free_end2", True)),
+        int(block_kernel), torch.cuda.current_stream().cuda_stream,
+    )
+    cuda_build.check("gotoh_forward", rc)
+    return plane, fin[0], ql, fin[1], fin[2]
+
+
+def event_ms(fn, reps):
+    """CUDA-event time of `reps` back-to-back calls, per call."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    print(nvidia_smi(), flush=True)
+    sources = [Path(a) for a in sys.argv[1:]] or [cuda_build.CSRC / "gotoh_forward.cu"]
+    libs = []
+    for src in sources:
+        lib, info = cuda_build.build([src], stem=f"libgotoh_{src.stem}")
+        print(f"{src}: built in {info['seconds']:.1f}s", flush=True)
+        for line in info["ptxas"].splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip(), flush=True)
+        libs.append((str(src), lib))
+
+    rng = np.random.default_rng(0)
+    to_dev = lambda data: [torch.from_numpy(a).cuda() for a in data]
+    checks = [(f"ragged {cfg}", to_dev(_noisy(rng, 301, 64, Ls)), cfg)
+              for Ls in (33, 160, 200, 256, 288) for cfg in _GOTOH_CFGS]
+    shapes = [
+        ("2048x192x192", to_dev(_classic_chunk(rng, 2048))),
+        ("2048x160x160", to_dev(_bench_chunk(rng, 2048, 160, 160))),
+        ("2048x160x256", to_dev(_bench_chunk(rng, 2048, 160, 256))),
+        ("256x192x192", to_dev(_classic_chunk(rng, 256))),
+    ]
+    checks += [(name, args, {}) for name, args in shapes]
+    for name, args, cfg in checks:
+        ref = gotoh_forward_plane_ref(*args, **cfg)
+        for src, lib in libs:
+            for block in (False, True):
+                full, vec_bad, _ = _gotoh_mismatches(run(lib, args, cfg, block), ref)
+                if full or any(vec_bad):
+                    fail(f"{src} (block_kernel={block}) disagrees on {name} "
+                         f"Ls={args[2].shape[1]}: {full} cells, {vec_bad}")
+    print(f"{len(checks)} cases x {len(libs)} sources x 2 kernels: bit-exact, "
+          "full plane", flush=True)
+
+    order = list(range(len(libs)))
+    order += order[::-1]
+    for name, args in shapes:
+        B, Lq, Ls = args[0].shape[0], args[0].shape[1], args[2].shape[1]
+        b_ms, b_by = gotoh_bound(B, Lq, Ls)
+        times = {(i, blk): [] for i in range(len(libs)) for blk in (False, True)}
+        for _round in range(3):
+            for i in order:
+                for blk in (False, True):
+                    fn = lambda: run(libs[i][1], args, {}, blk)
+                    fn()
+                    times[(i, blk)].append(event_ms(fn, 20))
+        for i, (src, _) in enumerate(libs):
+            ms, old = np.median(times[(i, False)]), np.median(times[(i, True)])
+            print(f"{name} {src}: kernel {ms:.4f} ms "
+                  f"(runs {min(times[(i, False)]):.4f}-{max(times[(i, False)]):.4f}), "
+                  f"block kernel {old:.4f} ms; bound {b_ms:.4f} ms by {b_by}: "
+                  f"{100 * b_ms / ms:.1f}% and {100 * b_ms / old:.1f}%", flush=True)
+    print(nvidia_smi(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

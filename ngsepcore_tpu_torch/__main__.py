@@ -7,7 +7,7 @@ legacy-id redirect and a grouped help listing.
 Global flags (any position): --device names where every tensor of the run
 lives (default cuda; there is no fallback: without a usable CUDA device
 the command exits nonzero), --profile prints the per-stage wall-clock
-ledger at exit (utils/profiling.py).
+ledger (utils/profiling.py) and the CUDA kernels' launch counts at exit.
 """
 from __future__ import annotations
 
@@ -119,6 +119,14 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         if profile:
             profiling.report()
+            from .kernels.pairwise_cuda import gotoh_forward_plane
+            from .kernels.shear_pileup import shear_hist
+
+            print(
+                f"kernel launches: gotoh_forward_plane={gotoh_forward_plane.launches} "
+                f"shear_hist={shear_hist.launches}",
+                file=sys.stderr, flush=True,
+            )
     return 0
 
 

@@ -2,11 +2,292 @@
 //
 // Replaces the Pallas kernel ngsepcore_tpu/kernels/pairwise_pallas.py:243
 // (gotoh_forward_plane_pallas).  Semantics and the plane layout are those
-// of kernels/pairwise_cuda.py:gotoh_forward_plane_ref, which this kernel
-// matches bit for bit on every cell.
+// of kernels/pairwise_cuda.py:gotoh_forward_plane_ref, which both kernels
+// of this file match bit for bit on every cell of the plane.
 //
-// One block per alignment b, one thread per subject column c = t+1.  The
-// block walks the query rows in order.  Per row:
+// What bounds the function on an H100 (SXM: 3.35 TB/s; 132 SMs with 64
+// INT32 lanes each at 1.98 GHz, about 16.7 T integer operations a second;
+// no tensor-core work):
+//   bytes       the (Lq, B, Ls) int32 plane is written once and the int8
+//               inputs are read once: 302.0 MB at 2048x192x192, 0.090 ms;
+//   operations  45 integer operations a cell as the warp kernel below does
+//               the arithmetic (M with its pointer and run carry 12, I 12,
+//               D with both scans 13, run fields, packing and the store 8):
+//               75.5 M cells x 45 / 16.7 T = 0.203 ms at 2048x192x192.
+// INT32 issue is the larger bound at every shape, so the design spends no
+// time on block barriers or shared-memory round trips and keeps the
+// per-cell instruction count down (68 SASS instructions a cell at K = 6,
+// moves, addresses, shuffles and the tile included).
+//
+// Times quoted in these notes: gotoh_bench.py on an NVIDIA H100 80GB HBM3
+// at a 700 W power limit, medians of CUDA-event timings.
+//
+// gotoh_forward_warp_kernel<K>, 1 <= Ls <= 256: ONE WARP PER ALIGNMENT.
+//   * Lane l owns the K = ceil(Ls/32) contiguous columns l*K+1 .. l*K+K
+//     and keeps their previous-row M, I, D and run carries in registers.
+//     The carries are the previous row's plane word, masked: cwm holds the
+//     M fields (sm | em<<8), cwi the I fields (si<<2 | ei<<16); a
+//     saturating run-length increment is min(x + one, x | field_mask).
+//     Interleaved columns (c = lane + 32k) would store without a tile but
+//     need a warp scan for every k: 0.290 against 0.235 ms at
+//     2048x192x192.
+//   * Each column turns its previous-row state into what its diagonal
+//     successor needs (hd = max(M, I, D) and the successor's M fields), so
+//     the hand-off is a register rename inside a lane and two
+//     __shfl_up_sync between lanes; lane 0 takes column 0's boundary.
+//   * D[c] = max_{h<c}(A[h] + ext*h) - ext*(c-1) and the D-run source
+//     (latest column whose D pointer is not "extend", packed col*4 + ptr)
+//     are two exclusive max-scans over the row.  Each is a sequential pass
+//     over the lane's own columns, one 5-step warp scan of the lane
+//     totals, and a second pass that applies the lane's prefix.  "The D
+//     pointer of column h+1 opens" is y[h] >= prefix[h], so the second
+//     scan needs no D values.
+//   * No __syncthreads() and no shared state in the row loop.  The row
+//     leaves through a per-warp shared tile (padded one word per 32, so
+//     the lane-contiguous writes and the coalesced reads are free of bank
+//     conflicts; two __syncwarp) and is stored as whole 128-byte lines,
+//     one per warp instruction.  Streaming stores (__stcs) for the plane,
+//     which does not fit the 50 MB L2, measured 2-4% slower and are not
+//     used.
+//   * kWarps = 4 alignments a block, so 2048 alignments put 15-16
+//     resident warps on each SM; the K columns a lane owns give the
+//     instruction-level parallelism that this low occupancy needs.  Eight
+//     a block is 2-4% faster at 2048 alignments but 46% slower at 256
+//     (two warps share a scheduler on 32 SMs); two a block changes nothing.
+//   * Rows past qlen are warp-uniform: the state is simply not committed,
+//     while sd/ed are computed fresh, as the plain version does.
+//
+// gotoh_forward_block_kernel, 256 < Ls <= 1024: one block per alignment,
+// one thread per column, previous row and scans through shared memory
+// with block barriers.  gotoh_forward_launch picks the kernel BY SHAPE
+// (Ls); nothing falls back from one to the other.
+#include <cuda_runtime.h>
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kNeg = -10000000;
+constexpr int kWarps = 4;      // alignments (warps) per block, warp kernel
+constexpr int kMaxLaneCols = 8;  // widest register variant: Ls <= 256
+
+// ---------------------------------------------------------------------------
+// warp-per-alignment kernel
+
+// max(a, b) and whether a >= b.  Hopper's DPX form of this pair,
+// __vibmax_s32, measured slower here (0.263 against 0.245 ms at
+// 2048x192x192), so this is a plain max and a compare.
+__device__ __forceinline__ int max_ge(int a, int b, bool* ge) {
+  *ge = a >= b;
+  return max(a, b);
+}
+
+// Exclusive max-scan of the lane totals: lane l gets
+// max(seed, v[0..l-1]).  __shfl_up_sync hands lanes below the offset their
+// own value back, which max() absorbs.
+__device__ __forceinline__ int warp_excl_max(int v, int seed, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1)
+    v = max(v, __shfl_up_sync(0xffffffffu, v, o));
+  const int up = __shfl_up_sync(0xffffffffu, v, 1);
+  return lane == 0 ? seed : max(seed, up);
+}
+
+// What the diagonal successor of a cell needs from it: max(M, I, D) and
+// the successor's M fields (sm | em<<8), from the cell's own M fields cwm.
+__device__ __forceinline__ void diag_out(int m, int i, int d, int cwm,
+                                         int* hd, int* mw) {
+  bool i_ge_d, m_ge;
+  const int mx = max_ge(i, d, &i_ge_d);
+  *hd = max_ge(m, mx, &m_ge);
+  const int grown = min(cwm + 0x100, cwm | 0xFF00);  // em saturates at 255
+  *mw = m_ge ? grown : (i_ge_d ? 0x101 : 0x102);
+}
+
+__device__ __forceinline__ long long warp_max64(long long v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    long long n = __shfl_xor_sync(0xffffffffu, v, o);
+    v = v > n ? v : n;
+  }
+  return v;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_kernel(
+    const int8_t* __restrict__ query, const int* __restrict__ qlen,
+    const int8_t* __restrict__ subject, const int* __restrict__ slen,
+    int* __restrict__ plane, int* __restrict__ score_out,
+    int* __restrict__ endj_out, int* __restrict__ startk_out,
+    int B, int Lq, int Ls, int match, int mismatch, int open_gap,
+    int ext_gap, int free_start2, int free_end2) {
+  // word i of a row sits at tile[i + i/32]
+  __shared__ int tiles[kWarps][K * 33];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= B) return;  // whole warp; nothing below synchronises the block
+  int* tile = tiles[warp];
+  const int ql = qlen[b];
+  const int sl = slen[b];
+  const int c0 = lane * K + 1;  // first owned column
+
+  // previous-row state of the owned columns (columns past Ls compute
+  // values nobody reads: the scans only look to the left)
+  int s_ch[K], m[K], i[K], d[K], cwm[K], cwi[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = c0 + k;
+    s_ch[k] = c <= Ls ? subject[(size_t)b * Ls + c - 1] : 0;
+    m[k] = kNeg;
+    i[k] = kNeg;
+    d[k] = free_start2 ? 0 : -open_gap - ext_gap * (c - 1);
+    cwm[k] = 0;
+    cwi[k] = 0;
+  }
+  int m0 = 0, i0 = 0, d0 = 0;  // column 0 (its run carries stay 0)
+
+  const int8_t* qrow = query + (size_t)b * Lq;
+  const size_t row_stride = (size_t)B * Ls;
+  int* prow = plane + (size_t)b * Ls;
+  const int neg_mismatch = -mismatch;
+  int q_next = qrow[0];
+
+  for (int r = 1; r <= Lq; ++r) {
+    const int q = q_next;
+    if (r < Lq) q_next = qrow[r];  // in flight during this row
+    const bool active = r <= ql;   // warp-uniform
+    const int i0n = -open_gap - ext_gap * (r - 1);  // column 0 of row r
+    const int am0 = kNeg - open_gap;
+    const int ai0 = i0n - open_gap;
+    const int a0 = max(am0, ai0);
+
+    // diagonal hand-off from the previous row
+    int hd[K], mw[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) diag_out(m[k], i[k], d[k], cwm[k], &hd[k], &mw[k]);
+    int hd_in = __shfl_up_sync(0xffffffffu, hd[K - 1], 1);
+    int mw_in = __shfl_up_sync(0xffffffffu, mw[K - 1], 1);
+    if (lane == 0) diag_out(m0, i0, d0, 0, &hd_in, &mw_in);
+
+    // M, I, y = A + ext*c and the lane's running max of y
+    int m_row[K], i_row[K], cwi_row[K], y[K], run[K];
+    bool m_ge_i[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      m_row[k] = (k == 0 ? hd_in : hd[k - 1]) +
+                 (s_ch[k] == q ? match : neg_mismatch);
+      const int cm = m[k] - open_gap, ci = i[k] - ext_gap, cd = d[k] - open_gap;
+      bool ci_ge_cd, cm_ge;
+      const int mx = max_ge(ci, cd, &ci_ge_cd);
+      i_row[k] = max_ge(cm, mx, &cm_ge);
+      const int grown = min(cwi[k] + 0x10000, cwi[k] | 0xFF0000);
+      // ip = 0: from M (si 0), 1: extend, 2: from D (si 2); ei restarts at 1
+      cwi_row[k] = cm_ge ? 0x10000 : (ci_ge_cd ? grown : 0x10008);
+      const int a = max_ge(m_row[k], i_row[k], &m_ge_i[k]) - open_gap;
+      y[k] = a + ext_gap * (c0 + k);
+      run[k] = k == 0 ? y[0] : max(run[k - 1], y[k]);
+    }
+    const int pre = warp_excl_max(run[K - 1], a0, lane);
+
+    // D of this row; z = packed source if column c+1's D pointer opens
+    // from this column (y >= everything to its left), else -1
+    int d_row[K], zrun[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = c0 + k;
+      const int left = k == 0 ? pre : max(pre, run[k - 1]);
+      d_row[k] = left - ext_gap * (c - 1);
+      const int z = y[k] >= left ? (c + 1) * 4 + (m_ge_i[k] ? 0 : 1) : -1;
+      zrun[k] = k == 0 ? z : max(zrun[k - 1], z);
+    }
+    // column 0: its D is banned, so column 1 opens unless a0 is banned too
+    const int z0 = a0 >= kNeg - ext_gap ? 4 + (am0 >= ai0 ? 0 : 1) : -1;
+    const int zpre = warp_excl_max(zrun[K - 1], max(z0, 0), lane);
+
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        m[k] = m_row[k];
+        i[k] = i_row[k];
+        d[k] = d_row[k];
+        cwm[k] = k == 0 ? mw_in : mw[k - 1];
+        cwi[k] = cwi_row[k];
+      }
+      m0 = kNeg;
+      i0 = i0n;
+      d0 = kNeg;
+    }
+
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = c0 + k;
+      const int orun = k == 0 ? zpre : max(zpre, zrun[k - 1]);
+      const int sd = orun & 3;
+      const int ed = min(c - (orun >> 2) + 1, 255);
+      const int idx = c - 1;
+      tile[idx + (idx >> 5)] = cwm[k] | cwi[k] | (sd << 4) | (ed << 24);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int idx = j * 32 + lane;
+      if (idx < Ls) prow[idx] = tile[idx + j];
+    }
+    __syncwarp();
+    prow += row_stride;
+  }
+
+  if (free_end2) {
+    // best M over columns 0..Ls (columns past slen count as kNeg); ties go
+    // to the largest column: maximise (value, column) packed in 64 bits
+    constexpr long long kCol = 1LL << 32;
+    long long key = LLONG_MIN;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = c0 + k;
+      if (c <= Ls) {
+        const long long kc = (long long)(c <= sl ? m[k] : kNeg) * kCol + c;
+        key = key > kc ? key : kc;
+      }
+    }
+    if (lane == 0) {
+      const long long k0 = (long long)m0 * kCol;  // column 0 <= slen
+      key = key > k0 ? key : k0;
+    }
+    key = warp_max64(key);
+    if (lane == 0) {
+      const int ej = (int)(key & 0xffffffffLL);
+      score_out[b] = (int)((key - ej) / kCol);
+      endj_out[b] = ej;
+      startk_out[b] = 0;
+    }
+  } else {
+    const int sc = min(max(sl, 0), Ls);  // callers keep slen <= Ls
+    int mc = m0, ic = i0, dc = d0;
+    bool mine = lane == 0 && sc == 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (c0 + k == sc) {
+        mc = m[k]; ic = i[k]; dc = d[k];
+        mine = true;
+      }
+    }
+    if (mine) {
+      int score = mc, sk = 0;
+      if (ic > mc) { score = ic; sk = 1; }
+      if (dc > score) score = dc;
+      if (dc > max(mc, ic)) sk = 2;
+      score_out[b] = score;
+      endj_out[b] = sl;
+      startk_out[b] = sk;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// block-per-alignment kernel (256 < Ls <= 1024): one thread per subject
+// column c = t+1.  Per row:
 //   phase A  M/I and their run carries from the previous row (own column
 //            in registers, diagonal neighbour from shared memory);
 //   scan 1   block-wide inclusive max of y[h] = A[h] + ext*h, seeded with
@@ -15,15 +296,6 @@
 //            c*4 + dp) gives the D-run source and length;
 //   write    the row of the plane, coalesced, then publish this row's
 //            M/I/D/em/sm to shared memory for the next row.
-// Rows past qlen freeze M/I/D/em/ei/sm/si (the plane's sd/ed stay fresh,
-// as in the plain version).
-#include <cuda_runtime.h>
-#include <climits>
-#include <cstdint>
-
-namespace {
-
-constexpr int kNeg = -10000000;
 
 __device__ __forceinline__ int warp_incl_max(int v, int lane) {
 #pragma unroll
@@ -54,16 +326,7 @@ __device__ __forceinline__ int block_incl_max(int v, int* warp_tot) {
   return v;
 }
 
-__device__ __forceinline__ long long warp_max64(long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    long long n = __shfl_xor_sync(0xffffffffu, v, o);
-    v = v > n ? v : n;
-  }
-  return v;
-}
-
-__global__ void gotoh_forward_kernel(
+__global__ void gotoh_forward_block_kernel(
     const int8_t* __restrict__ query, const int* __restrict__ qlen,
     const int8_t* __restrict__ subject, const int* __restrict__ slen,
     int* __restrict__ plane, int* __restrict__ score_out,
@@ -174,8 +437,7 @@ __global__ void gotoh_forward_kernel(
   }
 
   if (free_end2) {
-    // best M over columns 0..Ls (columns past slen count as kNeg); ties go
-    // to the largest column: maximise (value, column) packed in 64 bits
+    // best M over columns 0..Ls, as in the warp kernel
     constexpr long long kCol = 1LL << 32;
     long long key = LLONG_MIN;
     if (col) key = (long long)(c <= sl ? pM[c] : kNeg) * kCol + c;
@@ -208,20 +470,50 @@ __global__ void gotoh_forward_kernel(
   }
 }
 
+#define GOTOH_ARGS                                                          \
+  (const int8_t*)query, (const int*)qlen, (const int8_t*)subject,           \
+      (const int*)slen, (int*)plane, (int*)score, (int*)end_j,              \
+      (int*)start_k, B, Lq, Ls, match, mismatch, open_gap, ext_gap,         \
+      free_start2, free_end2
+
 }  // namespace
 
+// Launches the warp-per-alignment kernel for Ls <= 256 and the
+// block-per-alignment kernel for 256 < Ls <= 1024; `block_kernel` != 0
+// asks for the block kernel at any Ls <= 1024 (to check and time it at
+// narrow shapes).
 extern "C" int gotoh_forward_launch(
     const void* query, const void* qlen, const void* subject,
     const void* slen, void* plane, void* score, void* end_j, void* start_k,
     int B, int Lq, int Ls, int match, int mismatch, int open_gap,
-    int ext_gap, int free_start2, int free_end2, void* stream) {
+    int ext_gap, int free_start2, int free_end2, int block_kernel,
+    void* stream_ptr) {
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  const int threads = ((Ls + 31) / 32) * 32;
-  const size_t shmem = (size_t)9 * (Ls + 1) * sizeof(int);
-  gotoh_forward_kernel<<<B, threads, shmem, (cudaStream_t)stream>>>(
-      (const int8_t*)query, (const int*)qlen, (const int8_t*)subject,
-      (const int*)slen, (int*)plane, (int*)score, (int*)end_j,
-      (int*)start_k, B, Lq, Ls, match, mismatch, open_gap, ext_gap,
-      free_start2, free_end2);
+  if (Ls < 1 || Ls > 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (block_kernel || Ls > 32 * kMaxLaneCols) {
+    const int threads = ((Ls + 31) / 32) * 32;
+    const size_t shmem = (size_t)9 * (Ls + 1) * sizeof(int);
+    gotoh_forward_block_kernel<<<B, threads, shmem, stream>>>(GOTOH_ARGS);
+    return (int)cudaGetLastError();
+  }
+  const int blocks = (B + kWarps - 1) / kWarps;
+#define GOTOH_WARP_CASE(K)                                                  \
+  case K:                                                                   \
+    gotoh_forward_warp_kernel<K>                                            \
+        <<<blocks, kWarps * 32, 0, stream>>>(GOTOH_ARGS);                   \
+    break;
+  switch ((Ls + 31) / 32) {
+    GOTOH_WARP_CASE(1)
+    GOTOH_WARP_CASE(2)
+    GOTOH_WARP_CASE(3)
+    GOTOH_WARP_CASE(4)
+    GOTOH_WARP_CASE(5)
+    GOTOH_WARP_CASE(6)
+    GOTOH_WARP_CASE(7)
+    GOTOH_WARP_CASE(8)
+  }
+#undef GOTOH_WARP_CASE
+#undef GOTOH_ARGS
   return (int)cudaGetLastError();
 }

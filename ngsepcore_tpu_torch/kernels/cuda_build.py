@@ -27,6 +27,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "--threads", "0",  # one compile job per source
 ]
 
 _P = ctypes.c_void_p
@@ -39,6 +40,7 @@ _SIGNATURES = {
         _I, _I, _I,  # B, Lq, Ls
         _I, _I, _I, _I,  # match, mismatch, open_gap, ext_gap
         _I, _I,  # free_start2, free_end2
+        _I,  # block_kernel
         _P,  # stream
     ],
     "shear_hist_launch": [
@@ -65,44 +67,52 @@ def _nvcc() -> str:
     return path
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it first if needed."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        sources = sorted(CSRC.glob("*.cu"))
-        digest = hashlib.sha256()
-        for src in sources + sorted(CSRC.glob("*.cuh")):
-            digest.update(src.name.encode())
-            digest.update(src.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
-        so = BUILD_DIR / f"libngsep_kernels_{digest.hexdigest()[:16]}.so"
-        t0 = time.perf_counter()
-        report = ""
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-                capture_output=True, text=True,
+def build(sources: list[Path], stem: str = "libngsep_kernels") -> tuple[ctypes.CDLL, dict]:
+    """Compile `sources` into one shared library under BUILD_DIR (skipped
+    when a library of the same sources and flags is there), load it and
+    declare the entry points of _SIGNATURES it exports.  Returns the
+    library and {seconds, path, ptxas}."""
+    digest = hashlib.sha256()
+    for src in list(sources) + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    so = BUILD_DIR / f"{stem}_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    report = ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
             )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-                )
-            report = proc.stderr
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        report = proc.stderr
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        build_info.update(
-            seconds=time.perf_counter() - t0, path=str(so), ptxas=report
-        )
-        _lib = lib
-        return lib
+    return lib, dict(seconds=time.perf_counter() - t0, path=str(so), ptxas=report)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library of csrc/*.cu, building it first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib, info = build(sorted(CSRC.glob("*.cu")))
+            for name in _SIGNATURES:
+                getattr(lib, name)  # every kernel of the package is there
+            build_info.update(info)
+            _lib = lib
+        return _lib
 
 
 def check(name: str, rc: int) -> None:

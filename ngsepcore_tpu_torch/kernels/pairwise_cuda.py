@@ -16,15 +16,34 @@ readers mask after every right shift.  Rows past qlen freeze M/I/D and
 the em/ei/sm/si carries; sd/ed are recomputed there, so plane cells past
 qlen (and columns past slen) hold values the walk never reads.
 
-CUDA design (csrc/gotoh_forward.cu): one block per alignment, one thread
-per subject column (Ls <= 1024); the block loops over query rows, which
-takes the place of the TPU's sequential row grid axis.  Each row needs
-the diagonal neighbour (shared memory) and two block-wide inclusive
-max-scans: D from cummax(A[h] + ext*h) and the packed D-run source from
-cummax(col*4 + dp).  What bounds it on the H100: the ~7 block barriers per
-row and the plane write of 4 bytes per cell (Lq*B*Ls*4 bytes per call,
-written once, coalesced per row); the arithmetic is a few dozen integer
-ops per cell.  The walk reads the plane back from L2/HBM.
+What bounds the function on the H100 (3.35 TB/s; 64 INT32 lanes on each of
+132 SMs, about 16.7 T integer operations a second; no tensor-core work):
+
+    bytes       B*(Lq+Ls+8) read + Lq*B*Ls*4 written, each once
+                (2048x192x192: 302.0 MB, 0.090 ms);
+    operations  45 integer operations a cell as the warp kernel does the
+                arithmetic: M with its pointer and run carry 12, I 12, D
+                with both scans 13, run fields, packing and store 8
+                (2048x192x192: 75.5 M cells, 0.203 ms).  This is the larger
+                bound at every shape.
+
+CUDA design (csrc/gotoh_forward.cu), two kernels picked by Ls:
+
+    Ls <= 256   one WARP per alignment, four alignments a block.  A lane
+                owns ceil(Ls/32) contiguous columns and keeps their
+                previous-row M/I/D and run carries (the masked previous
+                plane word) in registers; the diagonal neighbour crosses
+                lanes by shuffle; D and the D-run source are two blocked
+                max-scans (pass over the lane's columns, 5-step warp scan
+                of the lane totals, prefix applied).  No block barrier and
+                no shared state in the row loop; the row leaves through a
+                per-warp shared tile as whole 128-byte lines.  Rows past
+                qlen are warp-uniform.
+    Ls <= 1024  one block per alignment, one thread per column, previous
+                row and scans in shared memory with block barriers (the
+                port's first kernel); reached by shape only.
+
+The walk reads the plane back from L2/HBM.
 """
 from __future__ import annotations
 
@@ -180,6 +199,60 @@ def gotoh_forward_plane_ref(
     return plane, score, qlen, slen, start_k
 
 
+def _check_args(query, qlen, subject, slen, free_end1, free_end2):
+    """Shapes, types and devices both versions take; raises otherwise."""
+    if query.dim() != 2 or subject.dim() != 2:
+        raise ValueError("query and subject must be (B, L) matrices")
+    B = query.shape[0]
+    if subject.shape[0] != B or qlen.shape != (B,) or slen.shape != (B,):
+        raise ValueError("query/subject/qlen/slen batch sizes differ")
+    if query.dtype != torch.int8 or subject.dtype != torch.int8:
+        raise TypeError("query and subject must be int8 codes")
+    if not 1 <= subject.shape[1] <= 1024:
+        raise ValueError(
+            f"subject width {subject.shape[1]} outside the kernels' 1..1024"
+        )
+    if any(t.device != query.device for t in (subject, qlen, slen)):
+        raise ValueError("all inputs must lie on one device")
+    if free_end1 and free_end2:
+        raise ValueError("free_end1 with free_end2 unsupported")
+
+
+def _launch(query, qlen, subject, slen, cfg, block_kernel: bool):
+    """Launch csrc/gotoh_forward.cu on checked CUDA tensors (kernel by Ls,
+    or the block-per-alignment kernel when asked) or raise."""
+    dev = query.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if cfg["free_start1"] or cfg["free_end1"]:
+        raise NotImplementedError(
+            "free_start1/free_end1 (tier-2 STR alignment) on CUDA: "
+            "ROADMAP.md Queue 1, \"Tier-2 STR\""
+        )
+    B, Lq = query.shape
+    Ls = subject.shape[1]
+    query = query.contiguous()
+    subject = subject.contiguous()
+    qlen = qlen.to(torch.int32).contiguous()
+    slen = slen.to(torch.int32).contiguous()
+    plane = torch.empty((Lq, B, Ls), dtype=torch.int32, device=dev)
+    fin = torch.empty((3, B), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gotoh_forward_launch(
+            query.data_ptr(), qlen.data_ptr(), subject.data_ptr(),
+            slen.data_ptr(), plane.data_ptr(), fin[0].data_ptr(),
+            fin[1].data_ptr(), fin[2].data_ptr(),
+            B, Lq, Ls, cfg["match"], cfg["mismatch"], cfg["open_gap"],
+            cfg["ext_gap"], int(cfg["free_start2"]), int(cfg["free_end2"]),
+            int(block_kernel), stream,
+        )
+    check("gotoh_forward", rc)
+    gotoh_forward_plane.launches += 1
+    return plane, fin[0], qlen, fin[1], fin[2]
+
+
 def gotoh_forward_plane(
     query: torch.Tensor,
     qlen: torch.Tensor,
@@ -195,56 +268,39 @@ def gotoh_forward_plane(
     free_start2: bool = True,
     free_end2: bool = True,
 ):
-    """Forward Gotoh pass, same contract as gotoh_forward_plane_ref.
+    """Forward Gotoh pass, same contract as gotoh_forward_plane_ref, for
+    int8 codes and 1 <= Ls <= 1024.
 
-    CPU tensors run the plain version.  CUDA tensors launch the CUDA
-    kernel (which covers the free_start2/free_end2 configurations the
-    tier-3 aligner and the long-read segments use) or raise."""
+    CPU tensors run the plain version.  CUDA tensors launch a CUDA kernel
+    (which covers the free_start2/free_end2 configurations the tier-3
+    aligner and the long-read segments use) or raise: the warp-per-alignment
+    kernel for Ls <= 256, the block-per-alignment kernel for wider
+    subjects, a dispatch on the shape alone."""
     cfg = dict(
         match=match, mismatch=mismatch, open_gap=open_gap, ext_gap=ext_gap,
         free_start1=free_start1, free_end1=free_end1,
         free_start2=free_start2, free_end2=free_end2,
     )
+    _check_args(query, qlen, subject, slen, free_end1, free_end2)
     if query.device.type == "cpu":
         return gotoh_forward_plane_ref(query, qlen, subject, slen, **cfg)
-    if query.device.type != "cuda":
-        raise ValueError(f"unsupported device {query.device}")
-    if free_start1 or free_end1:
-        raise NotImplementedError(
-            "free_start1/free_end1 (tier-2 STR alignment) on CUDA: "
-            "ROADMAP.md Queue 1, \"Tier-2 STR\""
-        )
-    B, Lq = query.shape
-    Ls = subject.shape[1]
-    if subject.shape[0] != B or qlen.shape != (B,) or slen.shape != (B,):
-        raise ValueError("query/subject/qlen/slen batch sizes differ")
-    if query.dtype != torch.int8 or subject.dtype != torch.int8:
-        raise TypeError("query and subject must be int8 codes")
-    if not 1 <= Ls <= 1024:
-        raise ValueError(f"subject width {Ls} outside the kernel's 1..1024")
-    dev = query.device
-    for t in (subject, qlen, slen):
-        if t.device != dev:
-            raise ValueError("all inputs must lie on one device")
-    query = query.contiguous()
-    subject = subject.contiguous()
-    qlen = qlen.to(torch.int32).contiguous()
-    slen = slen.to(torch.int32).contiguous()
-    plane = torch.empty((Lq, B, Ls), dtype=torch.int32, device=dev)
-    fin = torch.empty((3, B), dtype=torch.int32, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.gotoh_forward_launch(
-            query.data_ptr(), qlen.data_ptr(), subject.data_ptr(),
-            slen.data_ptr(), plane.data_ptr(), fin[0].data_ptr(),
-            fin[1].data_ptr(), fin[2].data_ptr(),
-            B, Lq, Ls, match, mismatch, open_gap, ext_gap,
-            int(free_start2), int(free_end2), stream,
-        )
-    check("gotoh_forward", rc)
-    gotoh_forward_plane.launches += 1
-    return plane, fin[0], qlen, fin[1], fin[2]
+    return _launch(query, qlen, subject, slen, cfg, block_kernel=False)
 
 
-gotoh_forward_plane.launches = 0
+gotoh_forward_plane.launches = 0  # launches of either kernel
+
+
+def gotoh_forward_plane_block(
+    query, qlen, subject, slen, *, match=1, mismatch=1, open_gap=3, ext_gap=1,
+    free_start2=True, free_end2=True,
+):
+    """The block-per-alignment kernel at any Ls <= 1024, CUDA tensors only:
+    lets a check or a timing reach it at shapes that gotoh_forward_plane
+    gives to the warp kernel."""
+    cfg = dict(
+        match=match, mismatch=mismatch, open_gap=open_gap, ext_gap=ext_gap,
+        free_start1=False, free_end1=False,
+        free_start2=free_start2, free_end2=free_end2,
+    )
+    _check_args(query, qlen, subject, slen, False, free_end2)
+    return _launch(query, qlen, subject, slen, cfg, block_kernel=True)

@@ -216,3 +216,322 @@ def test_dp_run_all_matches_jax():
     )
     for a, b in ((qt, qj), (lt, lj), (st, sj)):
         assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# edge shapes of the forward pass against the JAX package
+
+_CFGS = [
+    dict(free_start2=True, free_end2=True),
+    dict(free_start2=False, free_end2=False),
+    dict(free_start2=True, free_end2=False),
+]
+_CFG_IDS = ["free-free", "global", "free_start"]
+
+
+def _edge_case(name):
+    """Inputs at shapes the Pallas kernel accepts (B % 256 == 0,
+    Ls % 128 == 0) that are edges for the CUDA kernels."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "ls256":  # widest subject the warp-per-alignment kernel takes
+        return _noisy(rng, 256, 24, 256)
+    if name == "ls512":  # a width of the block-per-alignment kernel
+        return _noisy(rng, 256, 12, 512)
+    if name == "lq1":
+        q, ql, s, sl = _noisy(rng, 256, 16, 128)
+        return q[:, :1].copy(), np.ones(256, np.int32), s, sl
+    if name == "qlen0":  # rows frozen from the first query row on
+        q, ql, s, sl = _noisy(rng, 256, 16, 128)
+        ql[::3] = 0
+        sl[::5] = 0
+        return q, ql, s, sl
+    if name == "allN":  # N matches N
+        q, ql, s, sl = _noisy(rng, 256, 16, 128)
+        q[:] = 4
+        s[:] = 4
+        return q, ql, s, sl
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("cfg", _CFGS, ids=_CFG_IDS)
+@pytest.mark.parametrize("name", ["ls256", "ls512", "lq1", "qlen0", "allN"])
+def test_gotoh_plane_ref_edge_shapes_match_pallas(name, cfg):
+    """Integer outputs identical (tolerance 0); the plane on the cells the
+    Pallas kernel defines (rows <= qlen, columns <= slen)."""
+    q, ql, s, sl = _edge_case(name)
+    jplane, jscore, jend_j, jstart_k = gotoh_forward_plane_pallas(
+        q, ql, s, sl, interpret=True, **cfg
+    )
+    plane, score, end_i, end_j, start_k = gotoh_forward_plane_ref(
+        T(q), T(ql), T(s), T(sl), **cfg
+    )
+    mask = _plane_mask(q.shape[1], s.shape[1], ql, sl)
+    jp = np.asarray(jplane).view(np.int32)
+    assert np.array_equal(plane.numpy()[mask], jp[mask])
+    # an empty query or subject: the Pallas kernel leaves column 0 out of
+    # the best-column search and breaks an all-banned tie at column 0; the
+    # XLA scan, which the port follows, counts column 0 and takes the
+    # largest column (test_runs_edge_shapes_match_jax_scan has such rows)
+    rows = (ql > 0) & (sl > 0)
+    assert rows.sum() >= 130
+    assert np.array_equal(score.numpy()[rows], np.asarray(jscore)[rows])
+    assert np.array_equal(end_j.numpy()[rows], np.asarray(jend_j)[rows])
+    assert np.array_equal(start_k.numpy()[rows], np.asarray(jstart_k)[rows])
+    assert np.array_equal(end_i.numpy(), ql)
+
+
+@pytest.mark.parametrize("cfg", _CFGS, ids=_CFG_IDS)
+@pytest.mark.parametrize(
+    "B,Lq,Ls", [(1, 20, 33), (5, 12, 1), (7, 1, 40), (3, 30, 33)],
+    ids=["B1-Ls33", "Ls1", "Lq1", "B3-Ls33"],
+)
+def test_runs_edge_shapes_match_jax_scan(B, Lq, Ls, cfg):
+    """Shapes the Pallas kernel does not take (odd B, Ls 1 and 33) against
+    the JAX package's XLA scan, through the run-jump walk."""
+    rng = np.random.default_rng(B * 100 + Ls)
+    q = rng.integers(0, 5, (B, Lq)).astype(np.int8)
+    s = rng.integers(0, 5, (B, Ls)).astype(np.int8)
+    w = min(Lq, Ls)
+    s[:, :w] = np.where(rng.random((B, w)) < 0.2, s[:, :w], q[:, :w])
+    ql = rng.integers(0, Lq + 1, B).astype(np.int32)
+    sl = rng.integers(0, Ls + 1, B).astype(np.int32)
+    ql[0], sl[0] = Lq, Ls
+    j = _to_np(jpw.affine_gap_align_runs(q, ql, s, sl, **cfg))
+    t = tpw.affine_gap_align_runs(T(q), T(ql), T(s), T(sl), **cfg)
+    _assert_runs_equal(t, j)
+
+
+# ---------------------------------------------------------------------------
+# the decomposition the warp-per-alignment CUDA kernel relies on, in torch
+
+I32_MIN = -(2**31)
+
+
+def _shfl_up(v, o):
+    """__shfl_up_sync along the lane axis (dim 1): lanes below the offset
+    keep their own value."""
+    out = v.clone()
+    out[:, o:] = v[:, :-o]
+    return out
+
+
+def _warp_excl_max(v, seed):
+    """csrc/gotoh_forward.cu:warp_excl_max on (B, 32): lane l gets
+    max(seed, v[0..l-1])."""
+    for o in (1, 2, 4, 8, 16):
+        v = torch.maximum(v, _shfl_up(v, o))
+    up = _shfl_up(v, 1)
+    out = torch.maximum(up, seed[:, None])
+    out[:, 0] = seed
+    return out
+
+
+def _blocked_excl_max(x, seed, K, ownership):
+    """Exclusive running max of x (B, 32*K) seeded with seed (B,), computed
+    as a lane does: a pass over the lane's own columns, a warp scan of the
+    lane totals, the prefix applied."""
+    B = x.shape[0]
+    if ownership == "contiguous":  # lane l owns columns l*K .. l*K+K-1
+        v = x.reshape(B, 32, K)
+        run = torch.cummax(v, dim=2).values  # the sequential pass
+        pre = _warp_excl_max(run[:, :, K - 1], seed)
+        left = torch.cat([pre[:, :, None],
+                          torch.maximum(pre[:, :, None], run[:, :, :-1])], dim=2)
+        return left.reshape(B, 32 * K)
+    # interleaved: lane l owns columns l + 32*k; one warp scan per k, the
+    # total of slab k carried into slab k+1
+    v = x.reshape(B, K, 32)
+    out = []
+    carry = seed
+    for k in range(K):
+        out.append(_warp_excl_max(v[:, k], carry))
+        carry = torch.maximum(carry, v[:, k].amax(dim=1))
+    return torch.stack(out, dim=1).reshape(B, 32 * K)
+
+
+@pytest.mark.parametrize("ownership", ["contiguous", "interleaved"])
+@pytest.mark.parametrize("Ls", [1, 33, 160, 192, 256])
+def test_blocked_max_scan_equals_cummax(Ls, ownership):
+    rng = np.random.default_rng(Ls)
+    B, K = 64, (Ls + 31) // 32
+    x = torch.full((B, 32 * K), I32_MIN, dtype=torch.int32)
+    # few distinct values: ties and long flat stretches
+    x[:, :Ls] = T(rng.integers(-6, 6, (B, Ls)).astype(np.int32))
+    seed = T(rng.integers(-8, 4, B).astype(np.int32))
+    want = torch.cummax(torch.cat([seed[:, None], x], dim=1), dim=1).values[:, :-1]
+    got = _blocked_excl_max(x, seed, K, ownership)
+    assert torch.equal(got[:, :Ls], want[:, :Ls])
+
+
+def _warp_kernel_model(q, ql, s, sl, *, match=1, mismatch=1, open_gap=3,
+                       ext_gap=1, free_start2=True, free_end2=True):
+    """gotoh_forward_warp_kernel<K> of csrc/gotoh_forward.cu, statement by
+    statement on (B, 32, K) tensors: lane-contiguous columns, the run
+    carries as the masked previous plane word (cwm = sm | em<<8,
+    cwi = si<<2 | ei<<16), the diagonal hand-off, the two blocked
+    exclusive max-scans and the uncommitted rows past qlen."""
+    i32 = torch.int32
+    B, Lq = q.shape
+    Ls = s.shape[1]
+    K = (Ls + 31) // 32
+    W = 32 * K
+    NEG = -(10**7)
+    c = torch.arange(1, W + 1, dtype=i32)[None, :].expand(B, W)
+    s_ch = torch.zeros((B, W), dtype=i32)
+    s_ch[:, :Ls] = s.to(i32)
+    m = torch.full((B, W), NEG, dtype=i32)
+    i = m.clone()
+    d = torch.zeros((B, W), dtype=i32) if free_start2 else (
+        -open_gap - ext_gap * (c - 1)).to(i32)
+    cwm = torch.zeros((B, W), dtype=i32)
+    cwi = torch.zeros((B, W), dtype=i32)
+    m0 = torch.zeros(B, dtype=i32)
+    i0 = m0.clone()
+    d0 = m0.clone()
+    plane = torch.empty((Lq, B, Ls), dtype=i32)
+
+    def diag_out(m, i, d, cwm):
+        i_ge_d = i >= d
+        mx = torch.maximum(i, d)
+        m_ge = m >= mx
+        hd = torch.maximum(m, mx)
+        grown = torch.minimum(cwm + 0x100, cwm | 0xFF00)
+        alt = torch.where(i_ge_d, 0x101, 0x102).to(i32)
+        return hd, torch.where(m_ge, grown, alt)
+
+    def shift_in(x, x0):  # column c takes column c-1's value, column 1 x0
+        return torch.cat([x0[:, None], x[:, :-1]], dim=1)
+
+    for r in range(1, Lq + 1):
+        qc = q[:, r - 1].to(i32)[:, None]
+        active = (r <= ql)[:, None]
+        i0n = -open_gap - ext_gap * (r - 1)
+        am0 = NEG - open_gap
+        ai0 = i0n - open_gap
+        a0 = max(am0, ai0)
+        hd, mw = diag_out(m, i, d, cwm)
+        hd0, mw0 = diag_out(m0, i0, d0, torch.zeros(B, dtype=i32))
+        hd_in, mw_in = shift_in(hd, hd0), shift_in(mw, mw0)
+        m_row = hd_in + torch.where(s_ch == qc, match, -mismatch).to(i32)
+        cm, ci, cd = m - open_gap, i - ext_gap, d - open_gap
+        ci_ge_cd = ci >= cd
+        mx = torch.maximum(ci, cd)
+        cm_ge = cm >= mx
+        i_row = torch.maximum(cm, mx)
+        grown = torch.minimum(cwi + 0x10000, cwi | 0xFF0000)
+        cwi_row = torch.where(
+            cm_ge, 0x10000, torch.where(ci_ge_cd, grown, 0x10008)
+        ).to(i32)
+        m_ge_i = m_row >= i_row
+        a = torch.maximum(m_row, i_row) - open_gap
+        y = a + ext_gap * c
+        seed = torch.full((B,), a0, dtype=i32)
+        left = _blocked_excl_max(y, seed, K, "contiguous")
+        d_row = left - ext_gap * (c - 1)
+        z = torch.where(
+            y >= left, (c + 1) * 4 + torch.where(m_ge_i, 0, 1), -1
+        ).to(i32)
+        z0 = (4 + (0 if am0 >= ai0 else 1)) if a0 >= NEG - ext_gap else -1
+        zseed = torch.full((B,), max(z0, 0), dtype=i32)
+        orun = _blocked_excl_max(z, zseed, K, "contiguous")
+        m = torch.where(active, m_row, m)
+        i = torch.where(active, i_row, i)
+        d = torch.where(active, d_row, d)
+        cwm = torch.where(active, mw_in, cwm)
+        cwi = torch.where(active, cwi_row, cwi)
+        m0 = torch.where(active[:, 0], NEG, m0).to(i32)
+        i0 = torch.where(active[:, 0], i0n, i0).to(i32)
+        d0 = torch.where(active[:, 0], NEG, d0).to(i32)
+        sd = orun & 3
+        ed = torch.clamp(c - (orun >> 2) + 1, max=255)
+        plane[r - 1] = (cwm | cwi | (sd << 4) | (ed << 24))[:, :Ls]
+
+    sl = sl.to(i32)
+    if free_end2:
+        key = torch.where(c <= sl[:, None], m, NEG).long() * (1 << 32) + c
+        key = key[:, :Ls]
+        key0 = m0.long() * (1 << 32)
+        best = torch.maximum(key.amax(dim=1), key0)
+        end_j = best & 0xFFFFFFFF
+        score = (best - end_j) // (1 << 32)
+        return plane, score.to(i32), end_j.to(i32), torch.zeros(B, dtype=i32)
+    sc = sl.clamp(0, Ls).long()[:, None]
+    pick = lambda x, x0: torch.cat([x0[:, None], x], dim=1).gather(1, sc)[:, 0]
+    mc, ic, dc = pick(m, m0), pick(i, i0), pick(d, d0)
+    score = torch.where(ic > mc, ic, mc)
+    sk = torch.where(ic > mc, 1, 0)
+    score = torch.where(dc > score, dc, score)
+    sk = torch.where(dc > torch.maximum(mc, ic), 2, sk)
+    return plane, score, sl, sk.to(i32)
+
+
+@pytest.mark.parametrize("cfg", _CFGS, ids=_CFG_IDS)
+@pytest.mark.parametrize(
+    "B,Lq,Ls", [(48, 40, 64), (16, 24, 33), (6, 300, 260), (8, 6, 1), (6, 1, 70)],
+    ids=["ragged", "Ls33", "saturating-runs", "Ls1", "Lq1"],
+)
+def test_warp_kernel_decomposition_reproduces_plain_plane(B, Lq, Ls, cfg):
+    """Full plane (rows past qlen and columns past slen included) and the
+    final vectors, on ragged qlen with some qlen = 0 and N runs."""
+    rng = np.random.default_rng(B + Lq + Ls)
+    if Lq >= 16 and Ls >= Lq + 12:
+        q, ql, s, sl = _noisy(rng, B, Lq, Ls)
+    else:
+        q = rng.integers(0, 4, (B, Lq)).astype(np.int8)
+        s = rng.integers(0, 4, (B, Ls)).astype(np.int8)
+        ql = rng.integers(0, Lq + 1, B).astype(np.int32)
+        sl = rng.integers(0, Ls + 1, B).astype(np.int32)
+    if Lq >= 300:  # M and I runs longer than the 8-bit saturation
+        q[0] = 1
+        s[0] = 1
+        ql[0], sl[0] = Lq, Ls
+        q[1] = 4
+        ql[1] = Lq
+    ql[-1] = 0
+    q[2, Lq // 2 :] = 4
+    s[2, Ls // 2 :] = 4
+    want = gotoh_forward_plane_ref(T(q), T(ql), T(s), T(sl), **cfg)
+    got = _warp_kernel_model(T(q), T(ql), T(s), T(sl), **cfg)
+    if Lq >= 300:
+        # em and ei reach their 8-bit ceiling; ed where row 0 is not free
+        for shift in (8, 16) if cfg["free_start2"] else (8, 16, 24):
+            assert int(((want[0] >> shift) & 255).max()) == 255
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[3])
+    assert torch.equal(got[3], want[4])
+
+
+# ---------------------------------------------------------------------------
+# argument checks of the wrapper, made before the device branch
+
+def _valid_args(B=4, Lq=8, Ls=16):
+    return [
+        torch.zeros((B, Lq), dtype=torch.int8), torch.full((B,), Lq, dtype=torch.int32),
+        torch.zeros((B, Ls), dtype=torch.int8), torch.full((B,), Ls, dtype=torch.int32),
+    ]
+
+
+@pytest.mark.parametrize(
+    "case,exc",
+    [("wide", ValueError), ("empty", ValueError), ("dtype", TypeError),
+     ("subject_dtype", TypeError), ("batch", ValueError), ("qlen_shape", ValueError)],
+)
+def test_gotoh_wrapper_rejects_bad_arguments(case, exc):
+    q, ql, s, sl = _valid_args()
+    if case == "wide":
+        s = torch.zeros((4, 1025), dtype=torch.int8)
+    elif case == "empty":
+        s = torch.zeros((4, 0), dtype=torch.int8)
+    elif case == "dtype":
+        q = q.to(torch.int32)
+    elif case == "subject_dtype":
+        s = s.to(torch.uint8)
+    elif case == "batch":
+        s = torch.zeros((5, 16), dtype=torch.int8)
+    elif case == "qlen_shape":
+        ql = ql[:3]
+    with pytest.raises(exc):
+        gotoh_forward_plane(q, ql, s, sl)
+    # what the checks let through still runs
+    assert gotoh_forward_plane(*_valid_args())[0].shape == (8, 4, 16)
