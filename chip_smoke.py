@@ -12,11 +12,21 @@ genome with repeat families and tandem arrays, 345,000 x 150 bp reads,
 two-stage flow (phase 6) and the span-scatter genotyper (phase 7) on CUDA
 against the CPU at 50 kb, and runs the CLI (ReadsAligner -> SAM ->
 SingleSampleVariantsDetector -> VCF, as subprocesses) on phase 5's data
-with the same gates (phase 8).  Prints one line per phase and exits
-nonzero at the first failure.  The last lines are a JSON object of the
-kernels (launch counts from the timed runs of phases 5 and 6, errors and
-times measured here), the card's name and power limit, and the result
-line.  A kernel's bound is the least time the card could take: the
+with the same gates (phase 8).  The known-STR path follows: fused and
+classic with a catalogue of planted tandem arrays on CUDA against the CPU
+at 50 kb (phase 9), and phase 5's genome and reads again with its 153
+tandem arrays as the catalogue (phase 10), whose reads over an array take
+the tier-2 split alignment through the Gotoh kernel's free query ends;
+every shape that this run launched with a free query end is then checked
+and timed on its own, which gives the run's tier-2 kernel time.
+Phase 11 runs the k-mer commands of the CLI on phase 8's FASTQ and FASTA
+(KmersExtractor, k = 15, both strands, with its counting invariants and
+CUDA against CPU) and ReadsFileErrorsCorrector on the first 20,000 reads.
+Prints one line per phase and exits nonzero at the first failure.  The
+last lines are a JSON object of the kernels (launch counts from the timed
+runs of phases 5, 6 and 10, errors and times measured here; the tier-2
+entries at the launched shape that takes most of their time), the card's
+name and power limit, and the result line.  A kernel's bound is the least time the card could take: the
 larger of its bytes (inputs read once, outputs written once) over the
 memory rate and its integer operations over the INT32 issue rate.
 
@@ -30,6 +40,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -100,10 +111,57 @@ def bound(n_bytes: int, n_ops: int):
 
 def gotoh_bound(B: int, Lq: int, Ls: int):
     """Inputs int8 (B,Lq), (B,Ls) and two int32 (B,); outputs the int32
-    (Lq,B,Ls) plane and three int32 (B,); every cell computed (rows past
+    (Lq,B,Ls) plane and four int32 (B,); every cell computed (rows past
     qlen still get fresh D-run fields)."""
-    n_bytes = B * (Lq + Ls) + 8 * B + 4 * Lq * B * Ls + 12 * B
+    n_bytes = B * (Lq + Ls) + 8 * B + 4 * Lq * B * Ls + 16 * B
     return bound(n_bytes, GOTOH_OPS_PER_CELL * B * Lq * Ls)
+
+
+def reset_counts(counters) -> None:
+    """Set every kernel's launch count to 0."""
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "launch_shapes"):
+            c.launch_shapes.clear()
+
+
+def tier2_shapes(gotoh) -> dict:
+    """Gotoh launches with a free query end since the last reset_counts:
+    {flank side: Counter of (B, Lq, Ls, "warp" or "block")}."""
+    key = lambda cfg: tuple(bool(cfg.get(f, d)) for f, d in (
+        ("free_start1", False), ("free_end1", False),
+        ("free_start2", True), ("free_end2", True)))
+    sides = {key(TIER2_LEFT): "left", key(TIER2_RIGHT): "right"}
+    out = {"left": Counter(), "right": Counter()}
+    for (ends, *shape), n in gotoh.launch_shapes.items():
+        if ends in sides:
+            out[sides[ends]][tuple(shape)] += n
+    return out
+
+
+def tier2_launches(shapes: dict) -> dict:
+    return {side: sum(by.values()) for side, by in shapes.items()}
+
+
+def shapes_text(by: Counter) -> str:
+    """'n x BxLqxLs kernel' for every launched shape, widest subject last."""
+    return ", ".join(
+        f"{n} x {B}x{Lq}x{Ls} {kern}"
+        for (B, Lq, Ls, kern), n in sorted(by.items(), key=lambda kv: kv[0][2])
+    ) or "none"
+
+
+def false_snvs(records, truth_snv, arrays, near: int = 150):
+    """Positions of the SNV calls that bench.check_accuracy counts against
+    the precision, and how many lie within `near` bp of a tandem array
+    (0-based half-open (start, end))."""
+    called = {(r.variant.first, r.variant.alleles[1]) for r in records
+              if r.variant.is_snv and len(r.variant.alleles) > 1}
+    pos = np.array(sorted(p for p, _ in called - truth_snv), np.int64)
+    lo = np.array([a for a, _ in arrays], np.int64) + 1 - near
+    hi = np.array([b for _, b in arrays], np.int64) + near
+    at = (pos[:, None] >= lo[None, :]) & (pos[:, None] <= hi[None, :])
+    return pos, int(at.any(axis=1).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +247,33 @@ def _classic_chunk(rng, B, read_len=150, Lq=192, Ls=192):
             np.full(B, read_len + 6, np.int32))
 
 
+def _tier2_chunk(rng, B, side, Lq=160, Ls=224, read_len=150):
+    """Tier-2 STR flank jobs (align/str_tier2.Tier2STRAligner._run_flank):
+    a left flank's read segment matches the END of its reference window and
+    runs on into the repeat (free query end, free subject start); a right
+    flank's segment comes out of the repeat and matches the START of its
+    window.  Ragged lengths, 2% substitutions, N padding."""
+    q = np.full((B, Lq), 4, np.int8)
+    s = np.full((B, Ls), 4, np.int8)
+    read_len = min(read_len, Lq)
+    ql = rng.integers(read_len // 2, read_len + 1, B).astype(np.int32)
+    sl = rng.integers(Ls // 2, Ls + 1, B).astype(np.int32)
+    for b in range(B):
+        ref = rng.integers(0, 4, sl[b]).astype(np.int8)
+        seg = rng.integers(0, 4, ql[b]).astype(np.int8)
+        m = int(min(ql[b], sl[b]))
+        n = int(rng.integers(min(20, m // 2), max(m - 5, min(20, m // 2) + 1)))
+        flank = ref[sl[b] - n :] if side == "left" else ref[:n]
+        flank = np.where(rng.random(n) < 0.02, rng.integers(0, 4, n), flank)
+        if side == "left":
+            seg[:n] = flank
+        else:
+            seg[ql[b] - n :] = flank
+        q[b, : ql[b]] = seg
+        s[b, : sl[b]] = ref
+    return q, ql, s, sl
+
+
 def _random_jobs(rng, B, Lq, Ls, alphabet=5):
     """Unrelated query/subject codes (N included) with ragged lengths."""
     q = rng.integers(0, alphabet, (B, Lq)).astype(np.int8)
@@ -228,6 +313,7 @@ def _edge_cases(rng):
         ("Ls 256, runs past 255", _saturating(rng, 30, 300, 256)),
         ("Ls 288 (block kernel)", _noisy(rng, 130, 64, 288)),
         ("Ls 512 (block kernel)", _noisy(rng, 67, 96, 512)),
+        ("Ls 1024 (block kernel's widest)", _noisy(rng, 19, 64, 1024)),
         ("Ls 33", _random_jobs(rng, 37, 40, 33)),
         ("Ls 1", _random_jobs(rng, 9, 12, 1)),
         ("Lq 1", _random_jobs(rng, 50, 1, 70)),
@@ -237,10 +323,14 @@ def _edge_cases(rng):
     ]
 
 
+TIER2_LEFT = dict(free_end1=True, free_start2=True, free_end2=False)
+TIER2_RIGHT = dict(free_start1=True, free_start2=False, free_end2=True)
 _GOTOH_CFGS = (
     dict(free_start2=True, free_end2=True),
     dict(free_start2=False, free_end2=False),
     dict(free_start2=True, free_end2=False),
+    TIER2_LEFT,
+    TIER2_RIGHT,
 )
 
 
@@ -277,13 +367,18 @@ def phase_gotoh():
         ("classic tier-3 256x192x192", _classic_chunk(rng, 256)),
     ]
     cases = [(n, d, {}) for n, d in timed]
+    timed_t2 = [
+        ("tier-2 left flank 256x160x224", _tier2_chunk(rng, 256, "left"), TIER2_LEFT),
+        ("tier-2 right flank 256x160x224", _tier2_chunk(rng, 256, "right"), TIER2_RIGHT),
+    ]
+    cases += timed_t2
     cases.append(("ragged 1000x160x200", _noisy(rng, 1000, 160, 200), {}))
     for cfg in _GOTOH_CFGS:
         cases.append((f"pallas-test 256x48x128 {cfg}", _noisy(rng, 256, 48, 128), cfg))
     for name, data in _edge_cases(rng):
         for cfg in _GOTOH_CFGS:
             cases.append((f"{name} {cfg}", data, cfg))
-    timed_names = {n for n, _ in timed}
+    timed_names = {n for n, _ in timed} | {n for n, _, _ in timed_t2}
     timing = {}
     n_cells = 0
     for name, (q, ql, s, sl), cfg in cases:
@@ -406,15 +501,17 @@ def _simulate_50kb(seed: int = 3):
     return genome, reads
 
 
-def _make_pipeline(genome, device, batch_size, table=None):
+def _make_pipeline(genome, device, batch_size, table=None, known_strs=None):
     from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
     from ngsepcore_tpu_torch.call.fused_pipeline import AlignCallPipeline
     from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
 
+    detector = SingleSampleVariantsDetector(genome, sample_id="s1", device=device)
+    if known_strs:
+        detector.known_strs = known_strs  # the pipeline hands it to the aligner
     return AlignCallPipeline(
         genome, aligner=ReadsAligner(genome, table=table, device=device),
-        detector=SingleSampleVariantsDetector(genome, sample_id="s1", device=device),
-        batch_size=batch_size, device=device,
+        detector=detector, batch_size=batch_size, device=device,
     )
 
 
@@ -427,8 +524,7 @@ def phase_cuda_vs_cpu(counters):
     import torch
 
     genome, reads = _simulate_50kb()
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     _, rec_cuda = _run_pipeline(genome, reads, "cuda", 1024)
     torch.cuda.synchronize()
@@ -457,9 +553,11 @@ READ_LEN = 150
 def build_repeat_genome(rng, L: int, n_families: int, n_tandem: int):
     """bench.build_repeat_genome with its family and tandem-array counts as
     parameters: dispersed families at 92-99% identity plus short tandem
-    arrays.  Returns (codes, merged repeat intervals)."""
+    arrays.  Returns (codes, merged repeat intervals, the tandem arrays as
+    0-based half-open (start, end) in planting order)."""
     codes = rng.integers(0, 4, size=L).astype(np.int8)
     intervals = []
+    tandem = []
     for _fam in range(n_families):
         slen = int(rng.integers(500, 4000))
         src = int(rng.integers(0, L - slen))
@@ -484,6 +582,7 @@ def build_repeat_genome(rng, L: int, n_families: int, n_tandem: int):
             rng.integers(0, 4, size=mlen).astype(np.int8), ncopies
         )
         intervals.append((dst, dst + span))
+        tandem.append((dst, dst + span))
     intervals.sort()
     merged = [list(intervals[0])]
     for lo, hi in intervals[1:]:
@@ -491,7 +590,22 @@ def build_repeat_genome(rng, L: int, n_families: int, n_tandem: int):
             merged[-1][1] = max(merged[-1][1], hi)
         else:
             merged.append([lo, hi])
-    return codes, np.asarray(merged, dtype=np.int64)
+    return codes, np.asarray(merged, dtype=np.int64), tandem
+
+
+def str_catalogue(name: str, arrays):
+    """A known-STR catalogue {sequence name: sorted regions} from 0-based
+    half-open tandem arrays; an array that overlaps an earlier one is
+    merged into it, so the regions are disjoint."""
+    from ngsepcore_tpu_torch.core.regions import GenomicRegion
+
+    regions = []
+    for lo, hi in sorted(arrays):
+        if regions and lo + 1 <= regions[-1].last:
+            regions[-1].last = max(regions[-1].last, hi)
+        else:
+            regions.append(GenomicRegion(name, lo + 1, hi))
+    return {name: regions}
 
 
 def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS):
@@ -511,7 +625,7 @@ def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS):
     rng = np.random.default_rng(2024)
     L = int(mbp * 1e6)
     scale = mbp / 12.0  # bench.py's 12 Mbp genome: 30 families, 400 arrays
-    codes, repeat_iv = build_repeat_genome(
+    codes, repeat_iv, tandem = build_repeat_genome(
         rng, L, round(30 * scale), round(400 * scale)
     )
     seqs = QualifiedSequenceList()
@@ -555,8 +669,7 @@ def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS):
 
     profiling.enable()
     profiling.reset()
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     pipe, records = _run_pipeline(genome, reads, device, 65536, table=table)
     sync(device)
@@ -573,12 +686,14 @@ def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS):
         print(f"  stage {name:<28} {total:9.3f}s x{calls}", flush=True)
     acc = check_accuracy(records, truth_snv, truth_indel_pos, in_repeat)
     log(f"  accuracy: {json.dumps(acc['metrics'])}")
+    fp, fp_near = false_snvs(records, truth_snv, tandem)
+    log(f"  false SNV calls: {len(fp)}, of them {fp_near} within 150 bp of a tandem array")
     if acc["gates"]:
         fail("accuracy gates: " + "; ".join(acc["gates"]))
     if device == "cuda" and min(launches.values()) == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
     truth = (truth_snv, truth_indel_pos, in_repeat)
-    return launches, dt, records, genome, reads, truth
+    return launches, dt, records, genome, reads, truth, table, tandem, acc["metrics"]
 
 
 # ---------------------------------------------------------------------------
@@ -600,8 +715,7 @@ def _run_classic(genome, reads, device):
 
 def phase_classic(counters, fused_keys):
     genome, reads = _simulate_50kb()
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     sam_cuda, rec_cuda, al = _run_classic(genome, reads, "cuda")
     sync("cuda")
@@ -650,8 +764,7 @@ def phase_span(counters):
         took = []
         span = pipe._genotype_span
         pipe._genotype_span = lambda *a, _s=span: took.append(1) or _s(*a)
-        for c in counters:
-            c.launches = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         recs = pipe.run_reads(reads)
         sync(device)
@@ -696,45 +809,394 @@ def _cli(args, timeout):
     return dt, [l for l in prof if l.startswith("  ")], summary
 
 
-def phase_cli(genome, reads, truth, fused_records):
+def phase_cli(d, genome, reads, truth, fused_records):
+    """The classic CLI on phase 5's data; `d` is a scratch directory that
+    keeps genome.fa and reads.fastq for the phases after this one."""
     from bench import check_accuracy
     from ngsepcore_tpu_torch.vcf.io import VCFFileReader, VCFFileWriter
 
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        _write_inputs(d, genome, reads)
-        log(f"phase 8 CLI inputs: {len(reads)} reads -> FASTQ "
-            f"({time.perf_counter() - t0:.1f}s)")
-        g, fq = os.path.join(d, "genome.fa"), os.path.join(d, "reads.fastq")
-        sam, vcf = os.path.join(d, "alns.sam"), os.path.join(d, "calls")
-        t_al, prof_al, sum_al = _cli(
-            ["ReadsAligner", "-r", g, "-o", sam, "-s", "s1", fq], 900)
-        log(f"  ReadsAligner: {t_al:.3f}s = {len(reads) / t_al:.1f} reads/s "
-            f"(process wall, start-up included); {'; '.join(sum_al)}")
-        for line in prof_al:
-            print(f"  align {line.strip()}", flush=True)
-        t_vc, prof_vc, sum_vc = _cli(
-            ["SingleSampleVariantsDetector", "-r", g, "-i", sam, "-o", vcf,
-             "-sampleId", "s1"], 900)
-        log(f"  SingleSampleVariantsDetector: {t_vc:.3f}s; {'; '.join(sum_vc)}")
-        for line in prof_vc:
-            print(f"  call {line.strip()}", flush=True)
-        log(f"  classic CLI total {t_al + t_vc:.3f}s = "
-            f"{len(reads) / (t_al + t_vc):.1f} reads/s")
-        records = VCFFileReader(vcf + ".vcf").load_all()
-        with VCFFileWriter(os.path.join(d, "fused.vcf"), ["s1"]) as w:
-            for r in fused_records:
-                w.write(r)
-        body = lambda p: [l for l in open(p) if not l.startswith("#")]
-        cli_lines, fused_lines = body(vcf + ".vcf"), body(os.path.join(d, "fused.vcf"))
-        n_diff = len(set(cli_lines) ^ set(fused_lines))
-        log(f"  {len(records)} records; differing from phase 5's fused "
-            f"records: {n_diff} (of {len(cli_lines)} and {len(fused_lines)})")
+    t0 = time.perf_counter()
+    _write_inputs(d, genome, reads)
+    log(f"phase 8 CLI inputs: {len(reads)} reads -> FASTQ "
+        f"({time.perf_counter() - t0:.1f}s)")
+    g, fq = os.path.join(d, "genome.fa"), os.path.join(d, "reads.fastq")
+    sam, vcf = os.path.join(d, "alns.sam"), os.path.join(d, "calls")
+    t_al, prof_al, sum_al = _cli(
+        ["ReadsAligner", "-r", g, "-o", sam, "-s", "s1", fq], 900)
+    log(f"  ReadsAligner: {t_al:.3f}s = {len(reads) / t_al:.1f} reads/s "
+        f"(process wall, start-up included); {'; '.join(sum_al)}")
+    for line in prof_al:
+        print(f"  align {line.strip()}", flush=True)
+    t_vc, prof_vc, sum_vc = _cli(
+        ["SingleSampleVariantsDetector", "-r", g, "-i", sam, "-o", vcf,
+         "-sampleId", "s1"], 900)
+    log(f"  SingleSampleVariantsDetector: {t_vc:.3f}s; {'; '.join(sum_vc)}")
+    for line in prof_vc:
+        print(f"  call {line.strip()}", flush=True)
+    log(f"  classic CLI total {t_al + t_vc:.3f}s = "
+        f"{len(reads) / (t_al + t_vc):.1f} reads/s")
+    records = VCFFileReader(vcf + ".vcf").load_all()
+    with VCFFileWriter(os.path.join(d, "fused.vcf"), ["s1"]) as w:
+        for r in fused_records:
+            w.write(r)
+    body = lambda p: [l for l in open(p) if not l.startswith("#")]
+    cli_lines, fused_lines = body(vcf + ".vcf"), body(os.path.join(d, "fused.vcf"))
+    n_diff = len(set(cli_lines) ^ set(fused_lines))
+    log(f"  {len(records)} records; differing from phase 5's fused "
+        f"records: {n_diff} (of {len(cli_lines)} and {len(fused_lines)})")
     acc = check_accuracy(records, *truth)
     log(f"  accuracy: {json.dumps(acc['metrics'])}")
     if acc["gates"]:
         fail("CLI accuracy gates: " + "; ".join(acc["gates"]))
     return t_al, t_vc
+
+
+# ---------------------------------------------------------------------------
+def _simulate_str_50kb(seed: int = 31):
+    """A 50 kb genome with 14 planted tandem arrays (motifs of 2-6 bp, 8-20
+    copies), an individual whose arrays differ from the reference by one or
+    two whole units (homozygous) and that carries a few SNVs, and 6,000
+    reads of 100 bp with 0.4% substitutions, half of them placed to
+    straddle an array.  Returns (genome, reads, catalogue)."""
+    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
+    from ngsepcore_tpu_torch.core.sequences import (
+        QualifiedSequence,
+        QualifiedSequenceList,
+        RawRead,
+        decode_dna,
+    )
+
+    rng = np.random.default_rng(seed)
+    L = 50_000
+    codes = rng.integers(0, 4, size=L).astype(np.int8)
+    arrays = []
+    for a in range(14):
+        mlen = int(rng.integers(2, 7))
+        unit = rng.integers(0, 4, size=mlen).astype(np.int8)
+        while len(set(unit.tolist())) == 1:
+            unit = rng.integers(0, 4, size=mlen).astype(np.int8)
+        ncopies = int(rng.integers(8, 21))
+        dst = 2000 + a * 3300 + int(rng.integers(0, 500))
+        codes[dst : dst + mlen * ncopies] = np.tile(unit, ncopies)
+        arrays.append((dst, dst + mlen * ncopies, unit))
+    # the individual, built right to left so that coordinates stay valid
+    ind = codes.copy()
+    snv = rng.choice(L, size=60, replace=False)
+    ind[snv] = (ind[snv] + rng.integers(1, 4, size=60)) % 4
+    centres = []
+    for lo, hi, unit in reversed(arrays):
+        delta = int(rng.choice([-2, -1, 1, 2]))
+        ncopies = (hi - lo) // len(unit) + delta
+        ind = np.concatenate([ind[:lo], np.tile(unit, ncopies), ind[hi:]])
+        centres.append((lo + hi) // 2)
+    starts = [int(rng.integers(0, len(ind) - 100)) for _ in range(3000)]
+    starts += [max(0, min(len(ind) - 100, int(c + rng.integers(-110, 10))))
+               for c in rng.choice(centres, size=3000)]
+    reads = []
+    for i, st in enumerate(starts):
+        rc = ind[st : st + 100].copy()
+        err = rng.random(100) < 0.004
+        rc[err] = (rc[err] + rng.integers(1, 4, size=int(err.sum()))) % 4
+        if rng.random() < 0.5:
+            rc = (3 - rc[::-1]).astype(np.int8)
+        reads.append(RawRead(name=f"r_{i}", sequence=decode_dna(rc), qualities="F" * 100))
+    seqs = QualifiedSequenceList()
+    seqs.add(QualifiedSequence(name="chrS", codes=codes))
+    return ReferenceGenome(seqs), reads, str_catalogue("chrS", [a[:2] for a in arrays])
+
+
+def _run_str(genome, reads, strs, device):
+    """Classic then fused with a known-STR catalogue: (SAM lines, classic
+    record keys, fused record keys, tier-2 candidate cells of each flow)."""
+    from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
+    from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
+
+    aligner = ReadsAligner(genome, known_strs=strs, device=device)
+    alns = []
+    for i in range(0, len(reads), 1024):
+        for per_read in aligner.align_batch(reads[i : i + 1024]):
+            alns.extend(per_read)
+    sam = ["\t".join(a.to_sam_fields()) for a in alns]
+    det = SingleSampleVariantsDetector(genome, sample_id="s1", device=device)
+    det.known_strs = strs
+    classic = [record_key(r) for r in det.find_variants(alns)]
+    pipe = _make_pipeline(genome, device, 1024, table=aligner.table, known_strs=strs)
+    fused = [record_key(r) for r in pipe.run_reads(reads)]
+    return sam, classic, fused, aligner.tier2_reads, pipe.aligner.tier2_reads
+
+
+def phase_str_50kb(counters):
+    genome, reads, strs = _simulate_str_50kb()
+    gotoh = counters[0]
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    sam_c, cl_c, fu_c, t2_classic, t2_fused = _run_str(genome, reads, strs, "cuda")
+    sync("cuda")
+    t_cuda = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    shapes = tier2_shapes(gotoh)
+    t2 = tier2_launches(shapes)
+    t0 = time.perf_counter()
+    sam_p, cl_p, fu_p, _, _ = _run_str(genome, reads, strs, "cpu")
+    t_cpu = time.perf_counter() - t0
+    n_sam_diff = sum(a != b for a, b in zip(sam_c, sam_p))
+    n_indel = sum(len(k[2][0]) != len(k[2][1]) for k in fu_c)
+    log(f"phase 9 known STRs 50 kb, {len(strs['chrS'])} arrays: {len(sam_c)} SAM "
+        f"lines (differing {n_sam_diff}), {len(cl_c)} classic and {len(fu_c)} fused "
+        f"records ({n_indel} indels) on CUDA ({t_cuda:.2f}s) and CPU ({t_cpu:.2f}s); "
+        f"tier-2 cells classic {t2_classic}, fused {t2_fused}; launches {launches}, "
+        f"of them tier-2 flanks {t2}")
+    for side, by in shapes.items():
+        log(f"  tier-2 {side} flank launches: {shapes_text(by)}")
+    if len(sam_c) != len(sam_p) or n_sam_diff:
+        fail("known-STR classic CUDA and CPU SAM lines differ")
+    if len(fu_c) <= 10 or fu_c != fu_p or cl_c != cl_p:
+        fail("known-STR CUDA and CPU records differ")
+    if cl_c != fu_c:
+        fail("known-STR classic and fused records differ")
+    if n_indel < 5 or not any(("I" in l.split("\t")[5] or "D" in l.split("\t")[5])
+                              for l in sam_c):
+        fail("the repeat-length differences were not called")
+    if min(t2_classic, t2_fused) == 0 or min(t2.values()) == 0:
+        fail(f"the tier-2 flanks did not launch the Gotoh kernel: {t2}")
+
+
+def phase_str_real_size(counters, genome, reads, truth, table, tandem, metrics5,
+                        device="cuda"):
+    """Phase 5's genome and reads with its tandem arrays as the known-STR
+    catalogue, through AlignCallPipeline.run_reads."""
+    from bench import check_accuracy
+    from ngsepcore_tpu_torch.utils import profiling
+
+    strs = str_catalogue("chr1", tandem)
+    pipe = _make_pipeline(genome, device, 65536, table=table, known_strs=strs)
+    profiling.enable()
+    profiling.reset()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    records = pipe.run_reads(reads)
+    sync(device)
+    dt = time.perf_counter() - t0
+    profiling.enable(False)
+    launches = {c.__name__: c.launches for c in counters}
+    shapes = tier2_shapes(counters[0])
+    t2 = tier2_launches(shapes)
+    al = pipe.aligner
+    log(f"phase 10 known STRs at {GENOME_MBP} Mbp, {len(strs['chr1'])} arrays "
+        f"({len(tandem)} planted): {dt:.3f}s = {len(reads) / dt:.1f} reads/s (first "
+        f"run with the catalogue); {len(records)} records; tier-2 cells "
+        f"{al.tier2_reads} (skipped for a region too long: {al.tier2_skipped}); "
+        f"tier-3 jobs {al.complete_alns}; launches {launches}, of them tier-2 "
+        f"flanks {t2}")
+    for side, by in shapes.items():
+        log(f"  tier-2 {side} flank launches: {shapes_text(by)}")
+    for name, (total, calls) in sorted(
+        profiling._stages.items(), key=lambda kv: -kv[1][0]
+    ):
+        print(f"  stage {name:<28} {total:9.3f}s x{calls}", flush=True)
+    acc = check_accuracy(records, *truth)
+    log(f"  accuracy: {json.dumps(acc['metrics'])}")
+    for k in ("indel_recall", "indel_recall_unique", "indel_precision"):
+        if k in acc["metrics"] and k in metrics5:
+            log(f"  {k}: {acc['metrics'][k]} with the catalogue, {metrics5[k]} in phase 5")
+    fp, fp_near = false_snvs(records, truth[0], tandem)
+    log(f"  false SNV calls: {len(fp)}, of them {fp_near} within 150 bp of a tandem "
+        f"array; SNV precision {acc['metrics']['snv_precision']} with the catalogue, "
+        f"{metrics5['snv_precision']} in phase 5; positions {fp[:60].tolist()}")
+    if acc["gates"]:
+        fail("known-STR accuracy gates: " + "; ".join(acc["gates"]))
+    if al.tier2_reads == 0 or (
+        device == "cuda" and min(list(t2.values()) + list(launches.values())) == 0
+    ):
+        fail(f"the known-STR run did not launch every kernel: {launches}, {t2}")
+    return launches, shapes
+
+
+def _tier2_args(side, shape):
+    """Flank jobs of one launched shape on the card, made from the shape."""
+    import torch
+
+    B, Lq, Ls, _ = shape
+    rng = np.random.default_rng([B, Lq, Ls, side == "left"])
+    return [torch.from_numpy(a).cuda() for a in _tier2_chunk(rng, B, side, Lq, Ls)]
+
+
+def phase_tier2_shapes(shapes):
+    """The Gotoh kernel at EVERY shape that the known-STR run at full width
+    launched with a free query end: bit for bit against the plain version
+    and timed, so that launches x ms is the run's tier-2 kernel time.  The
+    shape that takes most of that time on each side, and the widest one,
+    also get the plain version's time and the bound; the first is the
+    side's entry in the kernels line.  Then the run-jump walk of
+    affine_gap_align_batch at the left side's shape, with and without its
+    early exit."""
+    import torch
+
+    from ngsepcore_tpu_torch.kernels import pairwise
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
+        gotoh_forward_plane,
+        gotoh_forward_plane_ref,
+    )
+
+    entries = {}
+    for side, cfg in (("left", TIER2_LEFT), ("right", TIER2_RIGHT)):
+        per = {}
+        for shape, n in sorted(shapes[side].items(), key=lambda kv: kv[0][2]):
+            args = _tier2_args(side, shape)
+            ref = gotoh_forward_plane_ref(*args, **cfg)
+            got = gotoh_forward_plane(*args, **cfg)
+            torch.cuda.synchronize()
+            full, vec_bad, err = _gotoh_mismatches(got, ref)
+            if full or any(vec_bad):
+                fail(f"gotoh disagrees with its plain version at the tier-2 {side} "
+                     f"shape {shape}: plane {full}, vectors {vec_bad}")
+            del got, ref
+            ms = cuda_ms(lambda: gotoh_forward_plane(*args, **cfg), calls=20)
+            per[shape] = (n, ms, err)
+        total = sum(n * ms for n, ms, _ in per.values())
+        by_kernel = Counter()
+        for shape, (n, _, _) in per.items():
+            by_kernel[shape[3]] += n
+        log(f"phase 10 tier-2 {side} flank kernel: {sum(by_kernel.values())} launches "
+            f"({dict(by_kernel)}) over {len(per)} shapes, each bit-exact; launches x "
+            f"ms = {total:.4f} ms in all; " + ", ".join(
+                f"{n} x {B}x{Lq}x{Ls} {kern} {ms:.4f} ms"
+                for (B, Lq, Ls, kern), (n, ms, _) in per.items()))
+        top = max(per, key=lambda sh: per[sh][0] * per[sh][1])
+        widest = max(per, key=lambda sh: (sh[2], sh[0]))
+        for label, shape in (("most of the time", top), ("widest", widest)):
+            if label == "widest" and shape == top:
+                continue
+            B, Lq, Ls, kern = shape
+            args = _tier2_args(side, shape)
+            plain = cuda_ms(lambda: gotoh_forward_plane_ref(*args, **cfg))
+            b_ms, b_by = gotoh_bound(B, Lq, Ls)
+            ms = per[shape][1]
+            log(f"  {side} flank, {label}: {B}x{Lq}x{Ls} {kern} kernel {ms:.4f} ms "
+                f"(median of 5 x 20 calls), plain {plain:.3f} ms (median of 5); bound "
+                f"{b_ms:.4f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it")
+            if label == "most of the time":
+                entries[side] = dict(
+                    ms=ms, plain_ms=plain, max_abs_err=per[shape][2], bound_ms=b_ms,
+                    bound_by=b_by,
+                    shape=f"{B}x{Lq}x{Ls}", kernel=kern, total_ms=total)
+        if side == "left":
+            args = _tier2_args(side, top)
+
+            def walk_s():
+                times = []
+                for _ in range(6):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pairwise.affine_gap_align_batch(*args, **cfg)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                return float(np.median(times[1:]))
+
+            with_exit = walk_s()
+            keep = pairwise.WALK_CHECK_FROM
+            pairwise.WALK_CHECK_FROM = 1 << 30  # never ask: walk the whole budget
+            try:
+                without = walk_s()
+            finally:
+                pairwise.WALK_CHECK_FROM = keep
+            log(f"  affine_gap_align_batch at {top[0]}x{top[1]}x{top[2]} (kernel, "
+                f"walk of up to {top[1] + top[2]} steps, ops): {1e3 * with_exit:.2f} ms "
+                f"a call with the walk's early exit, {1e3 * without:.2f} ms without "
+                "(host wall, medians of 5)")
+    return entries
+
+
+def _valid_windows(codes, lengths, k):
+    """Number of length-k windows inside the reads that hold ACGT only."""
+    acgt = (codes < 4) & (np.arange(codes.shape[1])[None, :] < lengths[:, None])
+    csum = np.cumsum(acgt, axis=1, dtype=np.int32)
+    full = csum[:, k - 1 :] - np.concatenate(
+        [np.zeros((len(codes), 1), np.int32), csum[:, : -k]], axis=1)
+    return int((full == k).sum())
+
+
+def _cli_plain(args, device, timeout):
+    """Run a command of the port's CLI to its end; returns seconds."""
+    cmd = [sys.executable, "-m", "ngsepcore_tpu_torch", "--device", device] + args
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        print(out.stderr[-4000:], flush=True)
+        fail(f"CLI {args[0]} on {device} exited {out.returncode}")
+    return time.perf_counter() - t0
+
+
+def _read_distribution(path):
+    with open(path) as fh:
+        rows = [line.split() for line in fh.read().splitlines()[1:]]
+    return np.array([int(r[1]) for r in rows], np.int64)
+
+
+def phase_kmers(d, genome, reads, device="cuda"):
+    """KmersExtractor (k = 15, both strands) on phase 8's FASTQ and FASTA
+    and ReadsFileErrorsCorrector on the first 20,000 reads, through the
+    CLI on the card; counting invariants, and CUDA against the CPU."""
+    from ngsepcore_tpu_torch.io.fastq import write_fastq
+
+    k = 15
+    g, fq = os.path.join(d, "genome.fa"), os.path.join(d, "reads.fastq")
+    # reads: every valid window counted once on each strand
+    t = _cli_plain(["KmersExtractor", "-k", str(k), "-o", os.path.join(d, "kr"), fq],
+                   device, 600)
+    with np.load(os.path.join(d, "kr_kmers.npz")) as z:
+        codes, counts = z["codes"], z["counts"]
+    want = 2 * _valid_windows(reads.codes, reads.lengths, k)
+    dist = _read_distribution(os.path.join(d, "kr_kmers_distribution.txt"))
+    log(f"phase 11 KmersExtractor k={k} on {len(reads)} reads: {t:.2f}s (process "
+        f"wall); {int(counts.sum(dtype=np.int64))} k-mers counted, {want} expected; "
+        f"{len(codes)} distinct, distribution sums to {int(dist.sum())}; "
+        f"largest count {int(counts.max())}")
+    if int(counts.sum(dtype=np.int64)) != want:
+        fail("k-mer total of the reads differs from 2 * valid windows")
+    if int(dist.sum()) != len(codes) or np.any(np.diff(codes) <= 0):
+        fail("k-mer distribution or map of the reads is inconsistent")
+    # genome: the same invariants, and CUDA against the CPU
+    times = {}
+    for dev in (device, "cpu"):
+        times[dev] = _cli_plain(
+            ["KmersExtractor", "-k", str(k), "-o", os.path.join(d, f"kg_{dev}"), g],
+            dev, 600)
+    with np.load(os.path.join(d, f"kg_{device}_kmers.npz")) as a, \
+            np.load(os.path.join(d, "kg_cpu_kmers.npz")) as b:
+        same = all(np.array_equal(a[key], b[key]) for key in ("k", "codes", "counts"))
+        gcodes, gcounts = a["codes"], a["counts"]
+    want_g = sum(
+        2 * _valid_windows(sq.codes[None, :], np.array([len(sq.codes)]), k)
+        for sq in genome.sequences)
+    dist_c = _read_distribution(os.path.join(d, f"kg_{device}_kmers_distribution.txt"))
+    dist_p = _read_distribution(os.path.join(d, "kg_cpu_kmers_distribution.txt"))
+    log(f"  genome {genome.total_length} bp: {device} {times[device]:.2f}s, CPU "
+        f"{times['cpu']:.2f}s (process wall); {int(gcounts.sum(dtype=np.int64))} "
+        f"k-mers counted, {want_g} expected; {len(gcodes)} distinct; map equal "
+        f"{same}, distribution equal {bool(np.array_equal(dist_c, dist_p))}")
+    if int(gcounts.sum(dtype=np.int64)) != want_g or int(dist_c.sum()) != len(gcodes):
+        fail("k-mer total or distribution of the genome is inconsistent")
+    if not same or not np.array_equal(dist_c, dist_p):
+        fail("KmersExtractor CUDA and CPU outputs differ on the genome")
+    # error correction of the first 20,000 reads
+    sub = os.path.join(d, "first.fastq")
+    write_fastq(reads[:20000], sub)
+    for dev in (device, "cpu"):
+        times[dev] = _cli_plain(
+            ["ReadsFileErrorsCorrector", sub, os.path.join(d, f"corr_{dev}.fastq")],
+            dev, 900)
+    with open(os.path.join(d, f"corr_{device}.fastq")) as a, \
+            open(os.path.join(d, "corr_cpu.fastq")) as b, open(sub) as c:
+        out_cuda, out_cpu, src = a.read(), b.read(), c.read()
+    n_changed = sum(x != y for x, y in zip(out_cuda.splitlines()[1::4],
+                                           src.splitlines()[1::4]))
+    log(f"  ReadsFileErrorsCorrector on 20000 reads: {device} {times[device]:.2f}s, CPU "
+        f"{times['cpu']:.2f}s (process wall); {n_changed} reads changed; outputs "
+        f"equal {out_cuda == out_cpu}")
+    if out_cuda != out_cpu or out_cuda.count("\n") != src.count("\n"):
+        fail("ReadsFileErrorsCorrector CUDA and CPU outputs differ")
 
 
 # ---------------------------------------------------------------------------
@@ -750,21 +1212,33 @@ def main() -> None:
     gotoh_t = phase_gotoh()
     shear_t = phase_shear()
     fused_keys = phase_cuda_vs_cpu(counters)
-    launches, _, fused_records, genome, reads, truth = phase_real_size(counters)
+    (launches, _, fused_records, genome, reads, truth, table, tandem,
+     metrics5) = phase_real_size(counters)
     classic_launches = phase_classic(counters, fused_keys)
     phase_span(counters)
+    phase_str_50kb(counters)
+    str_launches, str_shapes = phase_str_real_size(
+        counters, genome, reads, truth, table, tandem, metrics5)
+    str_t2 = tier2_launches(str_shapes)
+    t2_t = phase_tier2_shapes(str_shapes)
+    del table
     torch.cuda.empty_cache()  # the CLI subprocesses share the card
-    phase_cli(genome, reads, truth, fused_records)
+    with tempfile.TemporaryDirectory() as d:
+        phase_cli(d, genome, reads, truth, fused_records)
+        phase_kmers(d, genome, reads)
 
     def entry(name, source, replaces, n_launches, t):
         # no one PyTorch call computes either function (the Gotoh plane
         # with packed run pointers; the sheared per-position histogram)
-        return {
+        out = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n_launches, "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
         }
+        # where the shape came from the run: which one, and which kernel
+        out.update({k: t[k] for k in ("shape", "kernel") if k in t})
+        return out
 
     gotoh_src = "ngsepcore_tpu_torch/csrc/gotoh_forward.cu"
     gotoh_tpu = "ngsepcore_tpu/kernels/pairwise_pallas.py:243"
@@ -778,6 +1252,13 @@ def main() -> None:
             entry("gotoh_forward_classic", gotoh_src, gotoh_tpu,
                   classic_launches["gotoh_forward_plane"],
                   gotoh_t["classic tier-3 2048x192x192"]),
+            # the same kernels with free query ends: the tier-2 STR flanks
+            # of the known-STR run at full width (phase 10), each side timed
+            # at the launched shape that takes most of its kernel time
+            entry("gotoh_forward_tier2_left", gotoh_src, gotoh_tpu,
+                  str_t2["left"], t2_t["left"]),
+            entry("gotoh_forward_tier2_right", gotoh_src, gotoh_tpu,
+                  str_t2["right"], t2_t["right"]),
             entry("shear_hist", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
                   "ngsepcore_tpu/kernels/shear_pileup.py:227",
                   launches["shear_hist"], shear_t[1]),

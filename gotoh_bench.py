@@ -5,9 +5,10 @@
 Each source (default: ngsepcore_tpu_torch/csrc/gotoh_forward.cu; a variant
 exports the same `gotoh_forward_launch`) is built alone with the package's
 nvcc flags, held bit for bit against the plain PyTorch version on ragged
-inputs in the three free-end configurations, and timed at the shapes the
-fused and classic tier-3 paths use, together with its block-per-alignment
-kernel.  All sources are timed in one process, in rounds A B .. B A, so
+inputs in the five free-end configurations (free subject ends for tier 3,
+free query ends for the tier-2 STR flanks), and timed at the shapes the
+fused and classic tier-3 paths and the tier-2 flanks use, together with its
+block-per-alignment kernel.  All sources are timed in one process, in rounds A B .. B A, so
 that two versions are compared on one card under one power limit.  Prints
 ptxas' registers and spills, the median times with their bounds, and the
 card's name and power limit.
@@ -21,11 +22,14 @@ import numpy as np
 import torch
 
 from chip_smoke import (
+    TIER2_LEFT,
+    TIER2_RIGHT,
     _GOTOH_CFGS,
     _bench_chunk,
     _classic_chunk,
     _gotoh_mismatches,
     _noisy,
+    _tier2_chunk,
     fail,
     gotoh_bound,
     nvidia_smi,
@@ -41,16 +45,18 @@ def run(lib, args, cfg, block_kernel=False):
     B, Lq = q.shape
     Ls = s.shape[1]
     plane = torch.empty((Lq, B, Ls), dtype=torch.int32, device=q.device)
-    fin = torch.empty((3, B), dtype=torch.int32, device=q.device)
+    fin = torch.empty((4, B), dtype=torch.int32, device=q.device)
     rc = lib.gotoh_forward_launch(
         q.data_ptr(), ql.data_ptr(), s.data_ptr(), sl.data_ptr(),
-        plane.data_ptr(), fin[0].data_ptr(), fin[1].data_ptr(), fin[2].data_ptr(),
+        plane.data_ptr(), *(f.data_ptr() for f in fin),
         B, Lq, Ls, 1, 1, 3, 1,
+        int(cfg.get("free_start1", False)), int(cfg.get("free_end1", False)),
         int(cfg.get("free_start2", True)), int(cfg.get("free_end2", True)),
         int(block_kernel), torch.cuda.current_stream().cuda_stream,
     )
     cuda_build.check("gotoh_forward", rc)
-    return plane, fin[0], ql, fin[1], fin[2]
+    # the kernels write end_i only with a free query end; else it is qlen
+    return plane, fin[0], fin[1] if cfg.get("free_end1") else ql, fin[2], fin[3]
 
 
 def event_ms(fn, reps):
@@ -84,12 +90,20 @@ def main() -> None:
     checks = [(f"ragged {cfg}", to_dev(_noisy(rng, 301, 64, Ls)), cfg)
               for Ls in (33, 160, 200, 256, 288) for cfg in _GOTOH_CFGS]
     shapes = [
-        ("2048x192x192", to_dev(_classic_chunk(rng, 2048))),
-        ("2048x160x160", to_dev(_bench_chunk(rng, 2048, 160, 160))),
-        ("2048x160x256", to_dev(_bench_chunk(rng, 2048, 160, 256))),
-        ("256x192x192", to_dev(_classic_chunk(rng, 256))),
+        ("2048x192x192", to_dev(_classic_chunk(rng, 2048)), {}),
+        ("2048x160x160", to_dev(_bench_chunk(rng, 2048, 160, 160)), {}),
+        ("2048x160x256", to_dev(_bench_chunk(rng, 2048, 160, 256)), {}),
+        ("256x192x192", to_dev(_classic_chunk(rng, 256)), {}),
+        ("256x160x224 tier-2 left", to_dev(_tier2_chunk(rng, 256, "left")), TIER2_LEFT),
+        ("256x160x224 tier-2 right", to_dev(_tier2_chunk(rng, 256, "right")), TIER2_RIGHT),
+        # the known-STR path's full chunks: wider than 256 columns, so both
+        # columns of the report are the block kernel
+        ("256x160x384 tier-2 left", to_dev(_tier2_chunk(rng, 256, "left", 160, 384)),
+         TIER2_LEFT),
+        ("256x160x352 tier-2 right", to_dev(_tier2_chunk(rng, 256, "right", 160, 352)),
+         TIER2_RIGHT),
     ]
-    checks += [(name, args, {}) for name, args in shapes]
+    checks += shapes
     for name, args, cfg in checks:
         ref = gotoh_forward_plane_ref(*args, **cfg)
         for src, lib in libs:
@@ -103,14 +117,14 @@ def main() -> None:
 
     order = list(range(len(libs)))
     order += order[::-1]
-    for name, args in shapes:
+    for name, args, cfg in shapes:
         B, Lq, Ls = args[0].shape[0], args[0].shape[1], args[2].shape[1]
         b_ms, b_by = gotoh_bound(B, Lq, Ls)
         times = {(i, blk): [] for i in range(len(libs)) for blk in (False, True)}
         for _round in range(3):
             for i in order:
                 for blk in (False, True):
-                    fn = lambda: run(libs[i][1], args, {}, blk)
+                    fn = lambda: run(libs[i][1], args, cfg, blk)
                     fn()
                     times[(i, blk)].append(event_ms(fn, 20))
         for i, (src, _) in enumerate(libs):

@@ -10,15 +10,13 @@ decode:
 
 - the classic `align_batch`: one device pass (seed -> cluster -> tier-1
   screen, kernels/seeding.seed_cluster_screen) per read batch, host-side
-  candidate selection, the tier-3 affine-gap DP over host-packed query and
+  candidate selection, the tier-2 STR split alignment for candidates over
+  a known STR (align/str_tier2.py), the tier-3 affine-gap DP over host-packed query and
   subject rows (kernels/pairwise.affine_gap_align_runs, whose forward pass
   is the CUDA Gotoh kernel on the card), then select_final_alignments;
 - the fused align+call pipeline (call/fused_pipeline.py), which drives the
   tier-3 sweep over device-gathered inputs (kernels/pairwise.dp_run_all)
   and decodes into an array store.
-
-Tier-2 STR alignment (known STRs) is not ported yet (ROADMAP.md Queue 1,
-"Tier-2 STR").
 """
 from __future__ import annotations
 
@@ -202,15 +200,12 @@ class ReadsAligner:
         max_alns_per_read: int = DEF_MAX_ALNS_PER_READ,
         read_pad: int = 16,  # pad_multiple for packed read rows (the
         # packed-word tier-1 screen needs L % 16 == 0)
-        known_strs: dict[str, list] | None = None,
+        known_strs: dict[str, list] | None = None,  # tier-2 STR regions per
+        # sequence name (ref: ReadsAligner -knownSTRs; same dict shape as
+        # SingleSampleVariantsDetector.known_strs)
         *,
         device,
     ):
-        if known_strs:
-            raise NotImplementedError(
-                "known STRs (tier-2 STR alignment): ROADMAP.md Queue 1, "
-                "\"Tier-2 STR\""
-            )
         self.genome = genome
         self.device = torch.device(device)
         self.kmer_length = kmer_length
@@ -222,13 +217,86 @@ class ReadsAligner:
                 genome, kmer_length, window_length, device=self.device
             )
         self.table = table
-        self.known_strs = None
+        self.known_strs = known_strs
+        self._tier2 = None
         # stats (ref: ReadsAligner printStatistics)
         self.total_reads = 0
         self.aligned_reads = 0
         self.few_mismatches_alns = 0
         self.complete_alns = 0
         self.dp_cells = 0  # DP cell updates issued to the device
+        self.tier2_reads = 0  # candidate cells that tried the tier-2 STR split
+        self.tier2_skipped = 0  # cells whose STR is too long for tier 2
+
+    @property
+    def tier2(self):
+        """Lazy tier-2 STR split aligner (align/str_tier2.py); rebuilt when
+        known_strs is (re)assigned after construction."""
+        if self.known_strs and (
+            self._tier2 is None or self._tier2.known_strs is not self.known_strs
+        ):
+            from .str_tier2 import Tier2STRAligner
+
+            self._tier2 = Tier2STRAligner(
+                self.genome, self.known_strs, device=self.device
+            )
+        return self._tier2 if self.known_strs else None
+
+    def _tier2_pass(
+        self,
+        cells,  # iterable of (ridx, c, si, pred, strand, weight) records
+        lengths: np.ndarray,
+        fwd_mat: np.ndarray,
+        rev_mat: np.ndarray | None,
+    ) -> dict:
+        """Tier-2 attempt for every candidate cell whose predicted span
+        overlaps a known STR (ref buildAlignment:71-80: the repeat check
+        runs BEFORE the tier-1 mismatch accept).  Returns
+        {(ridx, c): _Candidate-with-aln} for successes plus the set of
+        attempted cells under key None (failures fall through to
+        tier-1/tier-3 exactly like the reference's null return)."""
+        t2 = self.tier2
+        result: dict = {None: set()}
+        if t2 is None:
+            return result
+        from .str_tier2 import _Tier2Job
+
+        offs = self.genome.offsets
+        jobs = []
+        skipped_before = t2.skipped_long
+        for ridx, c, si, pred, strand, weight in cells:
+            if not t2.has_strs(si):
+                continue
+            qlen = int(lengths[ridx])
+            first = pred - int(offs[si]) + 1
+            region = t2.region_for(si, first, first + qlen - 1)
+            if region is None:
+                continue
+            if strand:
+                if rev_mat is not None:
+                    qcodes = rev_mat[ridx, :qlen]
+                else:
+                    r = fwd_mat[ridx, :qlen][::-1]
+                    qcodes = np.where(r < 4, 3 - r, r).astype(np.int8)
+            else:
+                qcodes = fwd_mat[ridx, :qlen]
+            cand = _Candidate(
+                read_idx=ridx,
+                reverse=bool(strand),
+                seq_idx=si,
+                pred_start=pred,
+                weight=float(weight),
+            )
+            jobs.append(((ridx, c), _Tier2Job(cand, qcodes, first, region, si)))
+            result[None].add((ridx, c))
+        self.tier2_skipped += t2.skipped_long - skipped_before
+        if jobs:
+            self.tier2_reads += len(jobs)
+            t2.align_batch([j for _, j in jobs])
+            for cell, job in jobs:
+                if job.cand.aln is not None:
+                    result[cell] = job.cand
+        return result
 
     def align_batch(self, reads: list[RawRead]) -> list[list[ReadAlignment]]:
         """One device pass (seed -> cluster -> tier-1 screen) for the whole
@@ -280,12 +348,32 @@ class ReadsAligner:
             dp = keep & in_b & ~t1
 
             # candidate order is part of the result (select_final_alignments
-            # breaks quality ties by it): tier-1 cells, then DP jobs, each in
-            # row-major np.nonzero order
+            # breaks quality ties by it): tier-2 hits, tier-1 cells, then DP
+            # jobs, each in row-major np.nonzero order
             selected: list[_Candidate] = []
             strand_b = strand[:B]
+            # tier-2: STR-overlapping candidates try the split aligner FIRST
+            t2_hits: dict = {None: set()}
+            if self.tier2 is not None:
+                with stage("align.tier2_str"):
+                    t2_hits = self._tier2_pass(
+                        (
+                            (
+                                int(r), int(c), int(seq_idx_m[r, c]),
+                                int(pred_b[r, c]), int(strand_b[r, c]),
+                                float(w[r, c]),
+                            )
+                            for r, c in zip(*np.nonzero(keep & in_b))
+                        ),
+                        lengths_h, fwd_mat, rev_mat,
+                    )
+                for cell, cand in t2_hits.items():
+                    if cell is not None:
+                        selected.append(cand)
             names = [self.genome.sequence_name(i) for i in range(self.genome.num_sequences)]
             for ridx, c in zip(*np.nonzero(t1)):
+                if (int(ridx), int(c)) in t2_hits:
+                    continue  # replaced by the tier-2 alignment
                 # tier-1 accept straight from the screen
                 si = int(seq_idx_m[ridx, c])
                 p = int(pred_b[ridx, c])
@@ -325,6 +413,7 @@ class ReadsAligner:
                     weight=float(w[ridx, c]),
                 )
                 for ridx, c in zip(*np.nonzero(dp))
+                if (int(ridx), int(c)) not in t2_hits
             ]
         # affine-gap DP for candidates the screen did not accept
         with stage("align.tier3_dp"):

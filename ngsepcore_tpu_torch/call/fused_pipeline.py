@@ -20,11 +20,14 @@ other settings run the classic two-stage flow (ReadsAligner.align_batch
 then SingleSampleVariantsDetector.find_variants).  Runs with at most 29
 distinct base qualities genotype through the shear histogram; runs with
 more, or with no device-path reads, through the span-scatter genotyper
-(kernels/genotyping.genotype_window_span).  Known STRs raise
-NotImplementedError (ROADMAP.md Queue 1, "Tier-2 STR").
+(kernels/genotyping.genotype_window_span).  With a known-STR catalogue
+on the detector, reads near an STR take the host path: the tier-2 split
+alignment (align/str_tier2.py, Gotoh launches with free query ends) and
+the realigner's STR conciliation.
 
 Host syncs on CUDA (each a device->host copy): the seeding/classify
-fetch per batch, the tier-3 stats fetch per group, nonzero in the
+fetch per batch, the tier-2 flank fetch per 256 jobs, the tier-3 stats
+fetch per group, nonzero in the
 genotyper, the per-sequence window bounds and the per-window result
 fetch.
 """
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from ..align.read_alignment import ReadAlignment
-from ..align.reads_aligner import ReadsAligner, _row_bucket
+from ..align.reads_aligner import ReadsAligner, _Candidate, _row_bucket
 from ..core.genome import ReferenceGenome
 from ..core.sequences import RawRead, pack_reads
 from ..utils.profiling import enabled as profiling_enabled, stage
@@ -72,6 +75,7 @@ class _BatchState:
     strand: np.ndarray
     fused: np.ndarray  # bool: unique tier-1 accept, candidate for device path
     host_alns: list[list[ReadAlignment]] = field(default_factory=list)
+    cand_t2: list = field(default_factory=list)  # tier-2 STR candidates
     t1_cells: dict | None = None  # tier-1 host-cell arrays
     dp_meta: dict | None = None  # deferred tier-3 job arrays (device gather)
     read0: int = 0  # global index of this batch's first read (chunks vary)
@@ -252,10 +256,20 @@ class AlignCallPipeline:
         # per-run distinct base qualities (raw ASCII histogram; clamped and
         # folded at compaction) for the adaptive shear-histogram binning
         self._qual_ascii_counts = np.zeros(256, np.int64)
-        if self.detector.known_strs:
-            raise NotImplementedError(
-                "known STRs (tier-2 STR alignment and STR realignment): "
-                "ROADMAP.md Queue 1, \"Tier-2 STR\""
+        # known STRs drive both the aligner's tier-2 split alignment and
+        # the realigner; the pipeline shares the detector's region lists
+        # into the aligner so fused and classic flows see the same tiers
+        if self.detector.known_strs and self.aligner.known_strs is None:
+            self.aligner.known_strs = self.detector.known_strs
+        # concat-coordinate STR neighborhoods: fused reads overlapping them
+        # are demoted to the exact host path (tier-2 alignment + realigner
+        # STR conciliation both need host alignment objects)
+        self._str_iv_lo, self._str_iv_hi = self._build_str_intervals()
+        self._str_iv_dev = None
+        if len(self._str_iv_lo):
+            self._str_iv_dev = (
+                torch.from_numpy(self._str_iv_lo).to(self.device),
+                torch.from_numpy(self._str_iv_hi).to(self.device),
             )
         # fused path preconditions: default single best alignment and a
         # mapping-quality threshold that multi-placement reads (MAPQ<=15)
@@ -431,8 +445,8 @@ class AlignCallPipeline:
                       j0: int) -> int:
         """Array-native candidate selection for one batch: the per-read
         combine+filter of select_final_alignments (ref:
-        SingleReadsAligner.filterAlignments:118-143) over the tier-1 cell
-        arrays and the DP result store —
+        SingleReadsAligner.filterAlignments:118-143) over the tier-2
+        object lane, the tier-1 cell arrays and the DP result store —
         then DIRECT fusion of single gapless winners onto the device
         pileup path (the role _late_fuse played), so candidate/alignment
         objects exist only for winners that genuinely need the host path
@@ -446,29 +460,36 @@ class AlignCallPipeline:
         al = self.aligner
         det = self.detector
         offs = self.genome.offsets
+        nt2 = len(st.cand_t2)
         t1 = st.t1_cells
         nt1 = len(t1["ridx"]) if t1 else 0
         ndp = len(st.dp_meta["row"]) if st.dp_meta else 0
         j1 = j0 + ndp
         st.dp_meta = None
-        if nt1 + ndp == 0:
+        if nt2 + nt1 + ndp == 0:
             return j1
         z = np.zeros(0, np.int64)
+        t2_ridx = np.fromiter((c.read_idx for c in st.cand_t2), np.int64, nt2)
+        t2_q = np.fromiter((c.quality for c in st.cand_t2), np.int64, nt2)
         ridx = np.concatenate([
-            t1["ridx"] if t1 else z, dp_store["ridx"][j0:j1] if ndp else z,
+            t2_ridx, t1["ridx"] if t1 else z,
+            dp_store["ridx"][j0:j1] if ndp else z,
         ])
         q = np.concatenate([
-            t1["q"] if t1 else z, dp_store["q"][j0:j1] if ndp else z,
+            t2_q, t1["q"] if t1 else z,
+            dp_store["q"][j0:j1] if ndp else z,
         ])
         valid = np.concatenate([
-            np.ones(nt1, bool),
+            np.ones(nt2, bool), np.ones(nt1, bool),
             dp_store["acc"][j0:j1] if ndp else np.zeros(0, bool),
         ])
-        # kind 1 = tier-1 cell, 2 = DP job
+        # kind 0 = tier-2 candidate, 1 = tier-1 cell, 2 = DP job
         kind = np.concatenate([
-            np.ones(nt1, np.int8), np.full(ndp, 2, np.int8),
+            np.zeros(nt2, np.int8), np.ones(nt1, np.int8),
+            np.full(ndp, 2, np.int8),
         ])
         pay = np.concatenate([
+            np.arange(nt2, dtype=np.int64),
             np.arange(nt1, dtype=np.int64),
             j0 + np.arange(ndp, dtype=np.int64),
         ])
@@ -506,6 +527,7 @@ class AlignCallPipeline:
         # ---- direct fusion of single gapless winners --------------------
         single = (nkg[w] == 1) & (qf[w] >= det.min_mq)
         wk, wp, wr = ks[w], ps[w], rs[w]
+        ln_w = st.lengths[wr].astype(np.int64)
         pred_w = np.zeros(len(w), np.int64)
         cs_w = np.zeros(len(w), np.int64)
         ce_w = np.zeros(len(w), np.int64)
@@ -538,6 +560,13 @@ class AlignCallPipeline:
                 cs2 + dp_store["mlen"][p2] + ce2 == dp_store["qlen"][p2]
             )
         fusable &= single
+        if len(self._str_iv_lo):
+            first = pred_w
+            last = pred_w + ln_w
+            k = np.searchsorted(self._str_iv_lo, last, side="right") - 1
+            k = np.clip(k, 0, len(self._str_iv_lo) - 1)
+            overl = (self._str_iv_lo[k] <= last) & (self._str_iv_hi[k] >= first)
+            fusable &= ~overl  # STR conciliation needs the host object
         fsel = np.nonzero(fusable)[0]
         if len(fsel):
             fr = wr[fsel]
@@ -561,7 +590,11 @@ class AlignCallPipeline:
             for t in rest:
                 wi = w[t]
                 k_, p_, r_ = int(ks[wi]), int(ps[wi]), int(rs[wi])
-                if k_ == 1:
+                if k_ == 0:
+                    cand = st.cand_t2[p_]
+                    aln = cand.aln
+                    rev = cand.reverse
+                elif k_ == 1:
                     tcs = int(t1["cs"][p_])
                     tce = int(t1["ce"][p_])
                     ql = int(st.lengths[r_])
@@ -611,8 +644,39 @@ class AlignCallPipeline:
                 st.host_alns[r_].append(aln)
                 mat_jobs.append((aln, r_, rev))
             _materialize_sequences(st.reads, mat_jobs, None, is_block)
+        st.cand_t2 = []
         st.t1_cells = None
         return j1
+
+    # ------------------------------------------------------------------
+    def _build_str_intervals(self):
+        """Merged concat-coordinate [lo, hi] neighborhoods of the known STR
+        regions (padded like the indel demotion intervals)."""
+        strs = self.detector.known_strs
+        if not strs:
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        offs = self.genome.offsets
+        ivs = []
+        for si in range(self.genome.num_sequences):
+            regions = strs.get(self.genome.sequence_name(si))
+            if not regions:
+                continue
+            base = int(offs[si])
+            for r in regions:
+                ivs.append(
+                    (base + r.first - 1 - INDEL_PAD, base + r.last + INDEL_PAD)
+                )
+        ivs.sort()
+        merged = [list(ivs[0])]
+        for lo, hi in ivs[1:]:
+            if lo <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], hi)
+            else:
+                merged.append([lo, hi])
+        return (
+            np.array([m[0] for m in merged], np.int64),
+            np.array([m[1] for m in merged], np.int64),
+        )
 
     # ------------------------------------------------------------------
     def _seed_batch(self, reads):
@@ -710,14 +774,15 @@ class AlignCallPipeline:
             res_dev["pred_start"], res_dev["weight"], res_dev["strand"],
             res_dev["mismatches"], res_dev["clip_start"], res_dev["clip_end"],
             lengths_dev, self._offs_dev, int(self.detector.min_mq),
+            *(self._str_iv_dev or ()),
         )
 
     # ------------------------------------------------------------------
     def _classify_batch(self, reads, fwd_mat, lengths_h, pq_dev, clf) -> _BatchState:
         """Build the batch state from the device classifier's output
-        (`clf`, already fetched).  Host work reduces to compacting the
-        tier-1 cells and DP jobs of the host cells, in row-major cell
-        order."""
+        (`clf`, already fetched).  Host work reduces to the tier-2 jobs of
+        the host cells over a known STR and to compacting the tier-1 cells
+        and DP jobs of the rest, in row-major cell order."""
         al = self.aligner
         B = len(reads)
         offs = self.genome.offsets
@@ -732,6 +797,7 @@ class AlignCallPipeline:
         C = clf["cell_mask"].shape[0] // clf["fused"].shape[0]
         sel = np.nonzero(clf["cell_mask"])[0]
         n_cells = len(sel)
+        cand_t2: list[_Candidate] = []
         t1_cells = None
         dp_meta = None
         if n_cells:
@@ -739,6 +805,8 @@ class AlignCallPipeline:
             l3 = clf["cell_l3"][sel]
             ridx_a = (sel // C).astype(np.int64)
             pred_a = clf["cell_pred"][sel].astype(np.int64)
+            w_a = l2 & 0xFFFF
+            col_a = (l2 >> 16) & 15
             t1_a = ((l2 >> 20) & 1).astype(bool)
             strand_a = (l2 >> 21) & 1
             mm_a = l3 & 0x3FF
@@ -749,11 +817,39 @@ class AlignCallPipeline:
                 0,
                 self.genome.num_sequences - 1,
             )
+            t2_hits: dict = {None: set()}
+            if al.tier2 is not None:
+                with stage("align.tier2_str"):
+                    t2_hits = al._tier2_pass(
+                        (
+                            (
+                                int(ridx_a[i]), int(col_a[i]), int(si_a[i]),
+                                int(pred_a[i]), int(strand_a[i]), float(w_a[i]),
+                            )
+                            for i in range(n_cells)
+                        ),
+                        lengths_h, fwd_mat, None,
+                    )
+                for cell, cand in t2_hits.items():
+                    if cell is not None:
+                        cand_t2.append(cand)
             # tier-1 / DP cells stay ARRAYS: per-cell alignments
             # materialize only for selection winners that need the host
             # path (_select_batch)
             t1sel = np.nonzero(t1_a)[0]
             dpsel = np.nonzero(~t1_a)[0]
+            if len(t2_hits) > 1:  # only the None sentinel when no STRs hit
+                hitset = t2_hits.keys()
+                t1sel = np.array(
+                    [i for i in t1sel
+                     if (int(ridx_a[i]), int(col_a[i])) not in hitset],
+                    dtype=np.int64,
+                )
+                dpsel = np.array(
+                    [i for i in dpsel
+                     if (int(ridx_a[i]), int(col_a[i])) not in hitset],
+                    dtype=np.int64,
+                )
             if len(t1sel):
                 t1_cells = {
                     "ridx": ridx_a[t1sel].astype(np.int64),
@@ -796,6 +892,7 @@ class AlignCallPipeline:
             strand=((sel_ab >> 10) & 1).astype(np.int32),
             fused=fused,
             host_alns=[[] for _ in range(B)],
+            cand_t2=cand_t2,
             t1_cells=t1_cells,
             dp_meta=dp_meta,
         )
@@ -936,7 +1033,9 @@ class AlignCallPipeline:
             alns = [a for _, a in tagged]
             go = np.fromiter((g for g, _ in tagged), np.int64, len(tagged))
             arr = arr_by_seq.get(si)
-            realigner = IndelRealigner(self.genome, si, None)
+            realigner = IndelRealigner(
+                self.genome, si, det.known_strs.get(name)
+            )
             with stage("call.realign"):
                 sites = realigner.realign(alns, array_reads=arr) if alns else []
             # one columnar table per sequence (built AFTER realignment so

@@ -13,8 +13,10 @@ positions (kernels/genotyping.py); only interesting sites come back to
 the host to become VCF records.  Indel sites come from the realigner and
 are genotyped on the host (call/indel_batch.py).
 
+A known-STR catalogue (-knownSTRs) feeds the realigner's STR conciliation
+and, through the fused pipeline, the aligner's tier-2 split alignment.
 Read-depth CNVs, read-pair SVs and long-read SVs (ROADMAP.md Queue 1
-items 11 and 12) and known STRs ("Tier-2 STR") raise NotImplementedError.
+items 11 and 12) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -109,8 +111,6 @@ class SingleSampleVariantsDetector:
             (find_svs, "read-pair SVs (-svs): ROADMAP.md Queue 1 item 11"),
             (run_long_read_svs,
              "long-read SVs (-runLongReadSVs): ROADMAP.md Queue 1 item 12"),
-            (known_strs_file,
-             "known STRs (-knownSTRs): ROADMAP.md Queue 1, \"Tier-2 STR\""),
         ):
             if flag:
                 raise NotImplementedError(what)
@@ -134,6 +134,13 @@ class SingleSampleVariantsDetector:
         # progressNotifier.keepRunning at :600,614,624,641)
         self.progress_notifier = None
         self.known_strs: dict[str, list] = {}
+        if known_strs_file:
+            from ..genome.builders import load_regions_file
+
+            for r in load_regions_file(known_strs_file):
+                self.known_strs.setdefault(r.sequence_name, []).append(r)
+            for lst in self.known_strs.values():
+                lst.sort(key=lambda r: r.first)
         self._contribution = snv_contribution_table(4, 0.5)
 
     # ------------------------------------------------------------------
@@ -256,7 +263,9 @@ class SingleSampleVariantsDetector:
         # listener #1: conciliate indel placements across reads and derive
         # the spanning-call sites (IndelRealignerPileupListener analog)
         with stage("call.realign"):
-            sites = IndelRealigner(self.genome, seq_idx, None).realign(alns)
+            sites = IndelRealigner(
+                self.genome, seq_idx, self.known_strs.get(seq_name)
+            ).realign(alns)
         with stage("call.aln_table"):
             table = AlnTable(alns)
             pos, allele, qual, strand = table.expand_calls()

@@ -2,8 +2,9 @@
 
 Command ids, groups, flags and former ids are those of
 ngsepcore_tpu/cli/commands.py (the reference's CommandsDescriptor.xml).
-Three commands are ported: GenomeIndexer, ReadsAligner (short reads) and
-SingleSampleVariantsDetector.  Every other id is registered as pending:
+Five commands are ported: KmersExtractor, GenomeIndexer, ReadsAligner
+(short reads), ReadsFileErrorsCorrector and SingleSampleVariantsDetector.
+Every other id is registered as pending:
 running it exits with an error naming the ROADMAP.md item that ports it.
 Runners take the device the CLI's --device flag names.
 """
@@ -15,6 +16,66 @@ from .registry import Command, Option, register
 
 
 # ---- Reads group ---------------------------------------------------------
+
+def _run_kmers_extractor(opts: dict, args: list[str], device) -> None:
+    from ..index.kmers_extractor import KmersExtractor
+
+    out = opts.pop("output_prefix", None) or (args[0] + "_out" if args else "kmers")
+    text = opts.pop("text_output", False)
+    ex = KmersExtractor(**opts, device=device)
+    ex.run(args, out, text_output=bool(text))
+    print(f"Processed {len(args)} file(s); distinct {ex.kmers_map.size} kmers")
+
+
+register(
+    Command(
+        id="KmersExtractor",
+        former_id="KmersCounter",
+        group="Reads",
+        description="Counts k-mers from sequencing reads or assembled sequences",
+        runner=_run_kmers_extractor,
+        options=[
+            Option("k", "kmer_length", "int", 15, "K-mer length (default 15)"),
+            Option("m", "min_kmer_count", "int", 5, "Minimum count to report"),
+            Option("s", "only_forward_strand", "bool", False, "Only forward strand"),
+            Option("o", "output_prefix", "str", None, "Output prefix"),
+            Option("t", "text_output", "bool", False, "Write kmers as text"),
+        ],
+    )
+)
+
+
+def _run_errors_corrector(opts: dict, args: list[str], device) -> None:
+    from ..index.error_correction import ReadsFileErrorsCorrector
+
+    if len(args) < 2:
+        raise SystemExit("Usage: ReadsFileErrorsCorrector <in.fastq> <out.fastq>")
+    c = ReadsFileErrorsCorrector(**opts, device=device)
+    c.run(args[0], args[1])
+    print(
+        f"Corrected {c.corrected_errors} errors in {c.corrected_reads} reads",
+        file=sys.stderr,
+    )
+
+
+register(
+    Command(
+        id="ReadsFileErrorsCorrector",
+        group="Reads",
+        description="K-mer spectrum read error correction",
+        runner=_run_errors_corrector,
+        options=[
+            Option("k", "kmer_length", "int", 15, "K-mer length"),
+            Option("m", "min_kmer_count", "int", 5, "Min k-mer count"),
+            Option(
+                "a", "algorithm", "str", "debruijn",
+                "Correction algorithm: debruijn (k-mer-graph walks, fixes"
+                " indels; reference default) or snp",
+            ),
+        ],
+    )
+)
+
 
 def _run_genome_indexer(opts: dict, args: list[str], device) -> None:
     from ..core.genome import ReferenceGenome
@@ -174,7 +235,7 @@ register(
             Option("minSVQuality", "min_sv_quality", "int", 0,
                    "Min genotype quality for SV calls"),
             Option("knownSTRs", "known_strs_file", "str", None,
-                   "Known STRs file (not ported)"),
+                   "Known STRs file"),
             Option("querySeq", "query_seq", "str", None,
                    "Restrict calling to this sequence (indexed BAM reads)"),
             Option("first", "query_first", "int", 0,
@@ -192,7 +253,6 @@ register(
 
 # ---- command ids not ported yet -----------------------------------------
 
-_K_MERS = "ROADMAP.md Queue 1 item 10 (k-mers)"
 _DEPTH = "ROADMAP.md Queue 1 item 11 (multisample and read-depth stages)"
 _ASSEMBLY = "ROADMAP.md Queue 1 item 13 (assembly)"
 _HMM = "ROADMAP.md Queue 1 item 14 (HMM consumers)"
@@ -200,9 +260,7 @@ _TAIL = "ROADMAP.md Queue 1 item 17 (the long tail)"
 
 # id -> (group, description, former id, hidden, ROADMAP item)
 _PENDING: dict[str, tuple[str, str, str | None, bool, str]] = {
-    "KmersExtractor": ("Reads", "Counts k-mers from sequencing reads or assembled sequences", "KmersCounter", False, _K_MERS),
     "Assembler": ("Reads", "De-novo long-read assembly (minimizer overlap graph)", None, False, _ASSEMBLY),
-    "ReadsFileErrorsCorrector": ("Reads", "K-mer spectrum read error correction", None, False, _K_MERS),
     "TillingIndividualVCF2PoolVCF": ("Benchmark", "Convert an individuals VCF to the pooled-sample VCF a TILLING run would produce", None, False, _TAIL),
     "Demultiplex": ("Reads", "Demultiplexes pooled reads by barcodes", None, False, _TAIL),
     "IndividualGenomeBuilder": ("Reads", "Applies VCF variants to a genome FASTA", None, False, _TAIL),

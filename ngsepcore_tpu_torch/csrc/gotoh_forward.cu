@@ -61,6 +61,19 @@
 // one thread per column, previous row and scans through shared memory
 // with block barriers.  gotoh_forward_launch picks the kernel BY SHAPE
 // (Ls); nothing falls back from one to the other.
+//
+// Free QUERY ends (the tier-2 STR flank alignments), both kernels:
+//   * free_start1: column 0 of the I state is 0 in every row instead of
+//     -open - ext*(r-1); everything derived from it (the column-0 D-open
+//     test, lane 0's diagonal hand-off) follows unchanged.
+//   * free_end1: the result is the best M[r][slen] over rows 0..qlen, ties
+//     to the largest row.  The thread that owns column slen keeps a running
+//     (value, row) maximum in two registers while the row is active; there
+//     is no second pass over the plane.  end_i is written only here; in
+//     the other configurations it is qlen and the wrapper returns that.
+//   Both flags are template parameters of both kernels, so the tier-3
+//   instantiations carry none of this (as a runtime select on column 0
+//   alone the 256-row tier-3 shape ran 8% slower: 0.0871 against 0.0807 ms).
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
@@ -113,12 +126,13 @@ __device__ __forceinline__ long long warp_max64(long long v) {
   return v;
 }
 
-template <int K>
+template <int K, bool kFreeStart1, bool kFreeEnd1>
 __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_kernel(
     const int8_t* __restrict__ query, const int* __restrict__ qlen,
     const int8_t* __restrict__ subject, const int* __restrict__ slen,
     int* __restrict__ plane, int* __restrict__ score_out,
-    int* __restrict__ endj_out, int* __restrict__ startk_out,
+    int* __restrict__ endi_out, int* __restrict__ endj_out,
+    int* __restrict__ startk_out,
     int B, int Lq, int Ls, int match, int mismatch, int open_gap,
     int ext_gap, int free_start2, int free_end2) {
   // word i of a row sits at tile[i + i/32]
@@ -146,6 +160,12 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
     cwi[k] = 0;
   }
   int m0 = 0, i0 = 0, d0 = 0;  // column 0 (its run carries stay 0)
+  // free_end1: running best M[r][sl] of the lane that owns column sl, ties
+  // to the largest row.  Row 0 counts (as 0) only when sl == 0; rows past
+  // qlen count as kNeg, so an alignment with no active row ends at Lq.
+  const int own = sl - c0;  // index of column sl among the owned columns
+  int best = sl == 0 ? 0 : kNeg;
+  int brow = sl == 0 ? 0 : Lq;
 
   const int8_t* qrow = query + (size_t)b * Lq;
   const size_t row_stride = (size_t)B * Ls;
@@ -157,7 +177,8 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
     const int q = q_next;
     if (r < Lq) q_next = qrow[r];  // in flight during this row
     const bool active = r <= ql;   // warp-uniform
-    const int i0n = -open_gap - ext_gap * (r - 1);  // column 0 of row r
+    // column 0 of row r
+    const int i0n = kFreeStart1 ? 0 : -open_gap - ext_gap * (r - 1);
     const int am0 = kNeg - open_gap;
     const int ai0 = i0n - open_gap;
     const int a0 = max(am0, ai0);
@@ -217,6 +238,15 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
       m0 = kNeg;
       i0 = i0n;
       d0 = kNeg;
+      if (kFreeEnd1) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (k == own && m[k] >= best) {
+            best = m[k];
+            brow = r;
+          }
+        }
+      }
     }
 
 #pragma unroll
@@ -238,6 +268,15 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
     prow += row_stride;
   }
 
+  if (kFreeEnd1) {
+    if ((own >= 0 && own < K) || (sl == 0 && lane == 0)) {
+      score_out[b] = best;
+      endi_out[b] = brow;
+      endj_out[b] = sl;
+      startk_out[b] = 0;
+    }
+    return;
+  }
   if (free_end2) {
     // best M over columns 0..Ls (columns past slen count as kNeg); ties go
     // to the largest column: maximise (value, column) packed in 64 bits
@@ -326,11 +365,13 @@ __device__ __forceinline__ int block_incl_max(int v, int* warp_tot) {
   return v;
 }
 
+template <bool kFreeStart1, bool kFreeEnd1>
 __global__ void gotoh_forward_block_kernel(
     const int8_t* __restrict__ query, const int* __restrict__ qlen,
     const int8_t* __restrict__ subject, const int* __restrict__ slen,
     int* __restrict__ plane, int* __restrict__ score_out,
-    int* __restrict__ endj_out, int* __restrict__ startk_out,
+    int* __restrict__ endi_out, int* __restrict__ endj_out,
+    int* __restrict__ startk_out,
     int B, int Lq, int Ls, int match, int mismatch, int open_gap,
     int ext_gap, int free_start2, int free_end2) {
   extern __shared__ int smem[];
@@ -359,6 +400,10 @@ __global__ void gotoh_forward_block_kernel(
   int m_p = kNeg, i_p = kNeg;
   int d_p = free_start2 ? 0 : -open_gap - ext_gap * (c - 1);
   int em_p = 0, ei_p = 0, sm_p = 0, si_p = 0;
+  // free_end1: running best M[r][sl] of the thread of column sl, as in
+  // the warp kernel
+  int best = sl == 0 ? 0 : kNeg;
+  int brow = sl == 0 ? 0 : Lq;
   if (col) {
     pM[c] = m_p; pI[c] = i_p; pD[c] = d_p; pEM[c] = 0; pSM[c] = 0;
   }
@@ -370,7 +415,8 @@ __global__ void gotoh_forward_block_kernel(
   for (int r = 1; r <= Lq; ++r) {
     const int q = qrow[r - 1];
     const bool active = r <= ql;
-    const int i0n = -open_gap - ext_gap * (r - 1);  // column 0 of row r
+    // column 0 of row r
+    const int i0n = kFreeStart1 ? 0 : -open_gap - ext_gap * (r - 1);
     const int am0 = kNeg - open_gap;
     const int ai0 = i0n - open_gap;
     const int a0 = max(am0, ai0);
@@ -431,11 +477,24 @@ __global__ void gotoh_forward_block_kernel(
     if (t == 0 && active) {
       pM[0] = kNeg; pI[0] = i0n; pD[0] = kNeg;
     }
+    if (kFreeEnd1 && active && c == sl && m_row >= best) {
+      best = m_row;
+      brow = r;
+    }
     m_p = m_row; i_p = i_row; d_p = d_row;
     em_p = em_row; ei_p = ei_row; sm_p = sm_row; si_p = si_row;
     __syncthreads();
   }
 
+  if (kFreeEnd1) {
+    if (c == sl || (sl == 0 && t == 0)) {
+      score_out[b] = best;
+      endi_out[b] = brow;
+      endj_out[b] = sl;
+      startk_out[b] = 0;
+    }
+    return;
+  }
   if (free_end2) {
     // best M over columns 0..Ls, as in the warp kernel
     constexpr long long kCol = 1LL << 32;
@@ -472,37 +531,52 @@ __global__ void gotoh_forward_block_kernel(
 
 #define GOTOH_ARGS                                                          \
   (const int8_t*)query, (const int*)qlen, (const int8_t*)subject,           \
-      (const int*)slen, (int*)plane, (int*)score, (int*)end_j,              \
+      (const int*)slen, (int*)plane, (int*)score, (int*)end_i, (int*)end_j, \
       (int*)start_k, B, Lq, Ls, match, mismatch, open_gap, ext_gap,         \
       free_start2, free_end2
+// picks the <.., kFreeStart1, kFreeEnd1> instantiation of a launch
+#define GOTOH_BY_QUERY_ENDS(LAUNCH)                                         \
+  if (free_start1 && free_end1) { LAUNCH(true, true); }                     \
+  else if (free_start1) { LAUNCH(true, false); }                            \
+  else if (free_end1) { LAUNCH(false, true); }                              \
+  else { LAUNCH(false, false); }
 
 }  // namespace
 
 // Launches the warp-per-alignment kernel for Ls <= 256 and the
 // block-per-alignment kernel for 256 < Ls <= 1024; `block_kernel` != 0
 // asks for the block kernel at any Ls <= 1024 (to check and time it at
-// narrow shapes).
+// narrow shapes).  The four free-end flags are those of the plain version;
+// free_end1 with free_end2 is refused.
 extern "C" int gotoh_forward_launch(
     const void* query, const void* qlen, const void* subject,
-    const void* slen, void* plane, void* score, void* end_j, void* start_k,
-    int B, int Lq, int Ls, int match, int mismatch, int open_gap,
-    int ext_gap, int free_start2, int free_end2, int block_kernel,
-    void* stream_ptr) {
+    const void* slen, void* plane, void* score, void* end_i, void* end_j,
+    void* start_k, int B, int Lq, int Ls, int match, int mismatch,
+    int open_gap, int ext_gap, int free_start1, int free_end1,
+    int free_start2, int free_end2, int block_kernel, void* stream_ptr) {
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
   if (Ls < 1 || Ls > 1024) return (int)cudaErrorInvalidValue;
+  if (free_end1 && free_end2) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (block_kernel || Ls > 32 * kMaxLaneCols) {
     const int threads = ((Ls + 31) / 32) * 32;
     const size_t shmem = (size_t)9 * (Ls + 1) * sizeof(int);
-    gotoh_forward_block_kernel<<<B, threads, shmem, stream>>>(GOTOH_ARGS);
+#define GOTOH_BLOCK(FS1, FE1) \
+  gotoh_forward_block_kernel<FS1, FE1><<<B, threads, shmem, stream>>>(GOTOH_ARGS)
+    GOTOH_BY_QUERY_ENDS(GOTOH_BLOCK)
+#undef GOTOH_BLOCK
     return (int)cudaGetLastError();
   }
   const int blocks = (B + kWarps - 1) / kWarps;
+#define GOTOH_WARP(FS1, FE1)         \
+  gotoh_forward_warp_kernel<KK, FS1, FE1> \
+      <<<blocks, kWarps * 32, 0, stream>>>(GOTOH_ARGS)
 #define GOTOH_WARP_CASE(K)                                                  \
-  case K:                                                                   \
-    gotoh_forward_warp_kernel<K>                                            \
-        <<<blocks, kWarps * 32, 0, stream>>>(GOTOH_ARGS);                   \
-    break;
+  case K: {                                                                 \
+    constexpr int KK = K;                                                   \
+    GOTOH_BY_QUERY_ENDS(GOTOH_WARP)                                         \
+    break;                                                                  \
+  }
   switch ((Ls + 31) / 32) {
     GOTOH_WARP_CASE(1)
     GOTOH_WARP_CASE(2)
@@ -514,6 +588,8 @@ extern "C" int gotoh_forward_launch(
     GOTOH_WARP_CASE(8)
   }
 #undef GOTOH_WARP_CASE
+#undef GOTOH_WARP
+#undef GOTOH_BY_QUERY_ENDS
 #undef GOTOH_ARGS
   return (int)cudaGetLastError();
 }

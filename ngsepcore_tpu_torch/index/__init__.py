@@ -1,1 +1,1 @@
-"""Minimizer seed index."""
+"""Seed and k-mer indexes."""

@@ -36,10 +36,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gotoh_forward_launch": [
         _P, _P, _P, _P,  # query, qlen, subject, slen
-        _P, _P, _P, _P,  # plane, score, end_j, start_k
+        _P, _P, _P, _P, _P,  # plane, score, end_i, end_j, start_k
         _I, _I, _I,  # B, Lq, Ls
         _I, _I, _I, _I,  # match, mismatch, open_gap, ext_gap
-        _I, _I,  # free_start2, free_end2
+        _I, _I, _I, _I,  # free_start1, free_end1, free_start2, free_end2
         _I,  # block_kernel
         _P,  # stream
     ],

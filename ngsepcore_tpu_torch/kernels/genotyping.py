@@ -220,10 +220,10 @@ def _exact_sites(csub, Cd, refs, ref_codes_f, total_f, het_rate: float,
         )
     ).to(dev)
     ev = logcond + prior[None, :, :]
-    logmax = torch.amax(ev.reshape(F, -1), dim=1)[:, None, None]
+    logmax = torch.amax(ev.reshape(F, n * n), dim=1)[:, None, None]
     rel = ev - logmax
     p = torch.where(rel < -20.0, 0.0, torch.pow(10.0, rel))
-    post = p / p.reshape(F, -1).sum(dim=1)[:, None, None]
+    post = p / p.reshape(F, n * n).sum(dim=1)[:, None, None]
     frows = torch.arange(F, device=dev)
     best = post[frows, refs, refs]
     bi = refs

@@ -9,11 +9,14 @@ The forward pass (kernels/pairwise_cuda.gotoh_forward_plane: the CUDA
 kernel on the card, its plain version on the CPU) emits a packed
 run/pointer plane; a run-jump traceback walks it emitting one CIGAR run
 per step, a post-pass derives the tier-3 statistics and left-aligns the
-gap runs.  Every integer tensor here has its dtype written out; the plane
-is int32 holding uint32 bits, so every right shift is masked.
+gap runs.  The tier-2 STR flanks (align/str_tier2.py) take per-column ops
+from the same plane and walk (affine_gap_align_batch).  Every integer
+tensor here has its dtype written out; the plane is int32 holding uint32
+bits, so every right shift is masked.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .pairwise_cuda import gotoh_forward_plane
@@ -28,6 +31,12 @@ LA_LMAX = 16  # max indel length left-aligned on device; longer runs (and
 # RLE overflows) raise la_fallback and the host runs the exact pass
 
 _I32 = torch.int32
+
+# the run-jump walk asks whether every row is done (a host sync on CUDA)
+# from this step on, every so many steps: the tier-3 budget (28 steps for
+# 160 rows) never gets there, the tier-2 one (Lq + Ls) ends after a few asks
+WALK_CHECK_FROM = 32
+WALK_CHECK_EVERY = 8
 
 
 def _walk_runs_for(Lq: int) -> int:
@@ -78,11 +87,114 @@ def affine_gap_align_runs(
     return _runs_from_plane(plane, score, end_i, end_j, start_k, B, R, free_start2)
 
 
+def affine_gap_align_batch(
+    query: torch.Tensor,  # (B, Lq) int8 codes, padded
+    qlen: torch.Tensor,  # (B,) int32
+    subject: torch.Tensor,  # (B, Ls) int8 codes, padded
+    slen: torch.Tensor,  # (B,) int32
+    match: int = 1,
+    mismatch: int = 1,
+    open_gap: int = 3,
+    ext_gap: int = 1,
+    free_start1: bool = False,
+    free_end1: bool = False,
+    free_start2: bool = True,
+    free_end2: bool = True,
+):
+    """Gotoh alignment emitting one op per alignment column, the contract
+    of ngsepcore_tpu.kernels.pairwise.affine_gap_align_batch (the tier-2
+    STR flank aligners, ShortReadsUngappedSearchHitsClusterAligner.java
+    :338-349, use it with free QUERY ends).
+
+    The forward pass is the same plane as affine_gap_align_runs (the CUDA
+    kernel on the card); the ops are the run-jump walk's runs expanded, with
+    a walk budget of Lq + Ls runs, which no path exceeds, so the walk is
+    exact.  With free_end1 the unaligned query tail [end_i, qlen) is NOT
+    emitted; with free_start1 the unaligned head IS, as leading OP_INS.
+
+    Returns dict with:
+      score   (B,) int32
+      ops     (B, Lq+Ls) uint8 — forward order, the first n_ops entries;
+              OP_NONE after them
+      n_ops   (B,) int32
+      start_j (B,) int32 — 0-based subject offset where the alignment begins
+      end_j   (B,) int32 — 0-based subject offset one past its end
+      end_i   (B,) int32 — query length consumed (== qlen unless free_end1)
+    """
+    B, Lq = query.shape
+    Ls = subject.shape[1]
+    out = affine_gap_align_runs(
+        query, qlen, subject, slen,
+        match=match, mismatch=mismatch, open_gap=open_gap, ext_gap=ext_gap,
+        free_start1=free_start1, free_end1=free_end1,
+        free_start2=free_start2, free_end2=free_end2,
+        walk_runs=Lq + Ls,
+    )
+    # expand (rop, rlen) into per-column ops: column t belongs to the run
+    # whose cumulative length first exceeds t
+    ends = torch.cumsum(out["rlen"], dim=1, dtype=_I32)
+    t = torch.arange(Lq + Ls, dtype=_I32, device=query.device)[None, :]
+    run_of = torch.searchsorted(ends, t.expand(B, -1).contiguous(), right=True)
+    run_of = torch.clamp(run_of, max=ends.shape[1] - 1)
+    ops = torch.where(t < out["n_ops"][:, None], out["rop"].gather(1, run_of), OP_NONE)
+    return {
+        "score": out["score"],
+        "ops": ops.to(torch.uint8),
+        "n_ops": out["n_ops"],
+        "start_j": out["start_j"],
+        "end_j": out["end_j"],
+        "end_i": out["end_i"],
+    }
+
+
+def ops_to_cigar_and_strings(
+    ops: np.ndarray, n_ops: int, query: np.ndarray, subject: np.ndarray, start_j: int
+) -> tuple[list[tuple[int, str]], int]:
+    """Host: run-length encode ops into CIGAR tuples and count mismatches.
+
+    Mismatch counting follows the reference's countMismatches(String[])
+    (ShortReadsUngappedSearchHitsClusterAligner.java:140-156): +1 per
+    mismatched pair, +2 per *internal* gap run (leading/trailing free).
+    Returns ([(length, op_char)...], mismatches).
+    """
+    ops = ops[:n_ops]
+    cigar: list[tuple[int, str]] = []
+    mismatches = 0
+    qi = 0
+    sj = start_j
+    last_is_gap = True
+    for op in ops:
+        ch = "M" if op == OP_MATCH else ("I" if op == OP_INS else "D")
+        if cigar and cigar[-1][1] == ch:
+            cigar[-1] = (cigar[-1][0] + 1, ch)
+        else:
+            cigar.append((1, ch))
+        if op == OP_MATCH:
+            if query[qi] != subject[sj]:
+                mismatches += 1
+            qi += 1
+            sj += 1
+            last_is_gap = False
+        else:
+            if not last_is_gap:
+                mismatches += 2
+            last_is_gap = True
+            if op == OP_INS:
+                qi += 1
+            else:
+                sj += 1
+    if last_is_gap and cigar:
+        mismatches -= 2
+    return cigar, mismatches
+
+
 def _runs_from_plane(plane, score, end_i, end_j, start_k, B, R, free_start2):
     """Run-jump traceback + merge over a (Lq, B, Ls) int32 pointer/run
     plane.  Each step reads one plane cell per row: the current matrix's
     run length (saturated runs jump 254 cells and continue in the same
-    matrix) and the pointer to the matrix the run came from."""
+    matrix) and the pointer to the matrix the run came from.  The walk
+    stops early once every row is done (WALK_CHECK_FROM, WALK_CHECK_EVERY);
+    the steps left would emit nothing."""
     dev = plane.device
     emit_lead_del = not free_start2
     bb = torch.arange(B, device=dev)
@@ -91,7 +203,11 @@ def _runs_from_plane(plane, score, end_i, end_j, start_k, B, R, free_start2):
     k = start_k.to(_I32)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     lns, ops = [], []
-    for _ in range(R):
+    for step in range(R):
+        if step >= WALK_CHECK_FROM and step % WALK_CHECK_EVERY == 0 and bool(
+            (done | ((i == 0) & ((j == 0) | (not emit_lead_del)))).all()
+        ):
+            break
         in_aln = (i > 0) & (j > 0) & ~done
         w = plane[
             torch.clamp(i - 1, min=0).long(), bb, torch.clamp(j - 1, min=0).long()
@@ -118,6 +234,10 @@ def _runs_from_plane(plane, score, end_i, end_j, start_k, B, R, free_start2):
         j = j - dj
         lns.append(ln)
         ops.append(op)
+    if len(lns) < R:
+        zero = torch.zeros(B, dtype=_I32, device=dev)
+        lns.extend([zero] * (R - len(lns)))
+        ops.extend([zero] * (R - len(ops)))
     rlen_rev = torch.stack(lns, dim=1).to(_I32)  # (B, R)
     rop_rev = torch.stack(ops, dim=1).to(_I32)
     start_j = j

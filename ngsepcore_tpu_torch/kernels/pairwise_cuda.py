@@ -43,15 +43,27 @@ CUDA design (csrc/gotoh_forward.cu), two kernels picked by Ls:
                 row and scans in shared memory with block barriers (the
                 port's first kernel); reached by shape only.
 
+Both kernels take the four free-end flags.  The tier-2 STR flank
+alignments (align/str_tier2.py) use the free QUERY ends: free_start1 sets
+column 0 of the I state to 0 in every row; with free_end1 the thread that
+owns column slen keeps a running (best M, row) maximum in registers, ties
+to the largest row, and the launch returns it as (score, end_i).
+
 The walk reads the plane back from L2/HBM.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from .cuda_build import check, library
 
 NEG = -(10**7)  # "banned" score
+FREE_END_FLAGS = ("free_start1", "free_end1", "free_start2", "free_end2")
+# widest subject of the warp-per-alignment kernel (32 lanes x kMaxLaneCols
+# of csrc/gotoh_forward.cu); wider ones take the block-per-alignment kernel
+WARP_KERNEL_MAX_LS = 256
 
 
 def gotoh_forward_plane_ref(
@@ -224,11 +236,6 @@ def _launch(query, qlen, subject, slen, cfg, block_kernel: bool):
     dev = query.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    if cfg["free_start1"] or cfg["free_end1"]:
-        raise NotImplementedError(
-            "free_start1/free_end1 (tier-2 STR alignment) on CUDA: "
-            "ROADMAP.md Queue 1, \"Tier-2 STR\""
-        )
     B, Lq = query.shape
     Ls = subject.shape[1]
     query = query.contiguous()
@@ -236,21 +243,28 @@ def _launch(query, qlen, subject, slen, cfg, block_kernel: bool):
     qlen = qlen.to(torch.int32).contiguous()
     slen = slen.to(torch.int32).contiguous()
     plane = torch.empty((Lq, B, Ls), dtype=torch.int32, device=dev)
-    fin = torch.empty((3, B), dtype=torch.int32, device=dev)
+    fin = torch.empty((4, B), dtype=torch.int32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.gotoh_forward_launch(
             query.data_ptr(), qlen.data_ptr(), subject.data_ptr(),
             slen.data_ptr(), plane.data_ptr(), fin[0].data_ptr(),
-            fin[1].data_ptr(), fin[2].data_ptr(),
+            fin[1].data_ptr(), fin[2].data_ptr(), fin[3].data_ptr(),
             B, Lq, Ls, cfg["match"], cfg["mismatch"], cfg["open_gap"],
-            cfg["ext_gap"], int(cfg["free_start2"]), int(cfg["free_end2"]),
+            cfg["ext_gap"], int(cfg["free_start1"]), int(cfg["free_end1"]),
+            int(cfg["free_start2"]), int(cfg["free_end2"]),
             int(block_kernel), stream,
         )
     check("gotoh_forward", rc)
     gotoh_forward_plane.launches += 1
-    return plane, fin[0], qlen, fin[1], fin[2]
+    gotoh_forward_plane.launch_shapes[(
+        tuple(bool(cfg[f]) for f in FREE_END_FLAGS), B, Lq, Ls,
+        "block" if block_kernel or Ls > WARP_KERNEL_MAX_LS else "warp",
+    )] += 1
+    # the kernels write end_i only with a free query end; else it is qlen
+    end_i = fin[1] if cfg["free_end1"] else qlen
+    return plane, fin[0], end_i, fin[2], fin[3]
 
 
 def gotoh_forward_plane(
@@ -272,10 +286,10 @@ def gotoh_forward_plane(
     int8 codes and 1 <= Ls <= 1024.
 
     CPU tensors run the plain version.  CUDA tensors launch a CUDA kernel
-    (which covers the free_start2/free_end2 configurations the tier-3
-    aligner and the long-read segments use) or raise: the warp-per-alignment
-    kernel for Ls <= 256, the block-per-alignment kernel for wider
-    subjects, a dispatch on the shape alone."""
+    (every free-end configuration: free subject ends for the tier-3 aligner,
+    free query ends for the tier-2 STR flanks) or raise: the
+    warp-per-alignment kernel for Ls <= 256, the block-per-alignment kernel
+    for wider subjects, a dispatch on the shape alone."""
     cfg = dict(
         match=match, mismatch=mismatch, open_gap=open_gap, ext_gap=ext_gap,
         free_start1=free_start1, free_end1=free_end1,
@@ -288,19 +302,22 @@ def gotoh_forward_plane(
 
 
 gotoh_forward_plane.launches = 0  # launches of either kernel
+# the same launches by ((free_start1, free_end1, free_start2, free_end2), B,
+# Lq, Ls, "warp" or "block"): what a path asked of which kernel
+gotoh_forward_plane.launch_shapes = Counter()
 
 
 def gotoh_forward_plane_block(
     query, qlen, subject, slen, *, match=1, mismatch=1, open_gap=3, ext_gap=1,
-    free_start2=True, free_end2=True,
+    free_start1=False, free_end1=False, free_start2=True, free_end2=True,
 ):
     """The block-per-alignment kernel at any Ls <= 1024, CUDA tensors only:
     lets a check or a timing reach it at shapes that gotoh_forward_plane
     gives to the warp kernel."""
     cfg = dict(
         match=match, mismatch=mismatch, open_gap=open_gap, ext_gap=ext_gap,
-        free_start1=False, free_end1=False,
+        free_start1=free_start1, free_end1=free_end1,
         free_start2=free_start2, free_end2=free_end2,
     )
-    _check_args(query, qlen, subject, slen, False, free_end2)
+    _check_args(query, qlen, subject, slen, free_end1, free_end2)
     return _launch(query, qlen, subject, slen, cfg, block_kernel=True)

@@ -333,11 +333,13 @@ def classify_candidates(
     lengths: torch.Tensor,  # (B,) int32
     offs: torch.Tensor,  # (S+1,) int64 sequence concat offsets
     min_mq: int,
+    iv_lo: torch.Tensor | None = None,  # (R,) int64 known-STR neighborhood
+    iv_hi: torch.Tensor | None = None,  # bounds, sorted and merged
 ):
     """Device-side candidate classification for the fused pipeline:
-    fused/unique tier-1 accept, multi-candidate resolution and the dense
-    host-cell lanes.  Known-STR demotion is not part of this slice (the
-    pipeline refuses known STRs).
+    fused/unique tier-1 accept, multi-candidate resolution, known-STR
+    demotion (when iv_lo/iv_hi are given: reads with a kept candidate near
+    a known STR go to the host tier-2 path) and the dense host-cell lanes.
 
     Mirrored thresholds: MIN_PROPORTION_BEST=0.2, MIN_WEIGHTED_COUNT=1
     (SingleReadsAligner.java:16-18), tier-1 accept mm<5%/clip<10%
@@ -372,11 +374,27 @@ def classify_candidates(
     thr = torch.trunc(0.8 * best.to(torch.float64)).to(torch.int32)
     n_final = (q > thr[:, None]).sum(dim=1)
     win = torch.argmax(q, dim=1)
+    has_strs = iv_lo is not None and iv_lo.numel() > 0
+
+    def near_str(first, last):
+        k = torch.clamp(
+            torch.searchsorted(iv_lo, last.to(iv_lo.dtype), right=True) - 1,
+            0,
+            iv_lo.shape[0] - 1,
+        )
+        return (iv_lo[k] <= last) & (iv_hi[k] >= first)
+
+    if has_strs:
+        # any kept candidate near a known STR forces the host tier-2 path
+        multi = multi & ~(keep & near_str(pred, pred + qlen)).any(dim=1)
     one = multi & (n_final == 1) & (best >= minq)
     resolved_drop = multi & ~one
     sel_col = torch.where(one, win, 0)
     fused = fused | one
     aligned_extra = (resolved_drop & ((n_final >= 2) | (best > 0))).sum()
+    if has_strs:
+        spred = pred.gather(1, sel_col[:, None])[:, 0]
+        fused = fused & ~near_str(spred, spred + qlen[:, 0])
     fused_count = fused.sum()
 
     def take(a):

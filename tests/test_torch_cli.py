@@ -127,7 +127,7 @@ def test_device_cuda_without_card_exits_nonzero(files):
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["KmersExtractor", "x.fa"], "Queue 1 item 10"),
+        (["Assembler", "x.fastq"], "Queue 1 item 13"),
         (["VCFFilter", "-i", "x.vcf"], "Queue 1 item 17"),
         (["ReadsAligner", "-r", "g.fa", "-p", "ONT", "x.fastq"], "Queue 1 item 12"),
     ],
@@ -145,7 +145,6 @@ def test_unported_detector_options_name_their_roadmap_item():
         ({"find_cnvs": True}, "item 11"),
         ({"find_svs": True}, "item 11"),
         ({"run_long_read_svs": True}, "item 12"),
-        ({"known_strs_file": "strs.txt"}, "Tier-2 STR"),
     ):
         with pytest.raises(NotImplementedError, match=item):
             SingleSampleVariantsDetector(None, device="cpu", **kw)

@@ -364,12 +364,16 @@ def test_blocked_max_scan_equals_cummax(Ls, ownership):
 
 
 def _warp_kernel_model(q, ql, s, sl, *, match=1, mismatch=1, open_gap=3,
-                       ext_gap=1, free_start2=True, free_end2=True):
-    """gotoh_forward_warp_kernel<K> of csrc/gotoh_forward.cu, statement by
-    statement on (B, 32, K) tensors: lane-contiguous columns, the run
-    carries as the masked previous plane word (cwm = sm | em<<8,
+                       ext_gap=1, free_start1=False, free_end1=False,
+                       free_start2=True, free_end2=True):
+    """gotoh_forward_warp_kernel<K, kFreeStart1, kFreeEnd1> of csrc/gotoh_forward.cu,
+    statement by statement on (B, 32, K) tensors: lane-contiguous columns,
+    the run carries as the masked previous plane word (cwm = sm | em<<8,
     cwi = si<<2 | ei<<16), the diagonal hand-off, the two blocked
-    exclusive max-scans and the uncommitted rows past qlen."""
+    exclusive max-scans, the uncommitted rows past qlen, the free query
+    start (column 0 of I is 0) and the free query end (the owner of column
+    slen keeps a running best M and its row).  Returns (plane, score,
+    end_j, start_k, end_i)."""
     i32 = torch.int32
     B, Lq = q.shape
     Ls = s.shape[1]
@@ -389,6 +393,10 @@ def _warp_kernel_model(q, ql, s, sl, *, match=1, mismatch=1, open_gap=3,
     i0 = m0.clone()
     d0 = m0.clone()
     plane = torch.empty((Lq, B, Ls), dtype=i32)
+    sl = sl.to(i32)
+    best = torch.where(sl == 0, 0, NEG).to(i32)
+    brow = torch.where(sl == 0, 0, Lq).to(i32)
+    own = (sl.long() - 1).clamp(min=0)[:, None]  # column slen, 0-based
 
     def diag_out(m, i, d, cwm):
         i_ge_d = i >= d
@@ -405,7 +413,7 @@ def _warp_kernel_model(q, ql, s, sl, *, match=1, mismatch=1, open_gap=3,
     for r in range(1, Lq + 1):
         qc = q[:, r - 1].to(i32)[:, None]
         active = (r <= ql)[:, None]
-        i0n = -open_gap - ext_gap * (r - 1)
+        i0n = 0 if free_start1 else -open_gap - ext_gap * (r - 1)
         am0 = NEG - open_gap
         ai0 = i0n - open_gap
         a0 = max(am0, ai0)
@@ -442,11 +450,18 @@ def _warp_kernel_model(q, ql, s, sl, *, match=1, mismatch=1, open_gap=3,
         m0 = torch.where(active[:, 0], NEG, m0).to(i32)
         i0 = torch.where(active[:, 0], i0n, i0).to(i32)
         d0 = torch.where(active[:, 0], NEG, d0).to(i32)
+        if free_end1:
+            at = m.gather(1, own)[:, 0]
+            upd = active[:, 0] & (sl >= 1) & (at >= best)
+            best = torch.where(upd, at, best)
+            brow = torch.where(upd, r, brow).to(i32)
         sd = orun & 3
         ed = torch.clamp(c - (orun >> 2) + 1, max=255)
         plane[r - 1] = (cwm | cwi | (sd << 4) | (ed << 24))[:, :Ls]
 
-    sl = sl.to(i32)
+    zeros = torch.zeros(B, dtype=i32)
+    if free_end1:
+        return plane, best, sl, zeros, brow
     if free_end2:
         key = torch.where(c <= sl[:, None], m, NEG).long() * (1 << 32) + c
         key = key[:, :Ls]
@@ -454,7 +469,7 @@ def _warp_kernel_model(q, ql, s, sl, *, match=1, mismatch=1, open_gap=3,
         best = torch.maximum(key.amax(dim=1), key0)
         end_j = best & 0xFFFFFFFF
         score = (best - end_j) // (1 << 32)
-        return plane, score.to(i32), end_j.to(i32), torch.zeros(B, dtype=i32)
+        return plane, score.to(i32), end_j.to(i32), zeros, ql.to(i32)
     sc = sl.clamp(0, Ls).long()[:, None]
     pick = lambda x, x0: torch.cat([x0[:, None], x], dim=1).gather(1, sc)[:, 0]
     mc, ic, dc = pick(m, m0), pick(i, i0), pick(d, d0)
@@ -462,7 +477,7 @@ def _warp_kernel_model(q, ql, s, sl, *, match=1, mismatch=1, open_gap=3,
     sk = torch.where(ic > mc, 1, 0)
     score = torch.where(dc > score, dc, score)
     sk = torch.where(dc > torch.maximum(mc, ic), 2, sk)
-    return plane, score, sl, sk.to(i32)
+    return plane, score, sl, sk.to(i32), ql.to(i32)
 
 
 @pytest.mark.parametrize("cfg", _CFGS, ids=_CFG_IDS)
