@@ -22,13 +22,23 @@ and timed on its own, which gives the run's tier-2 kernel time.
 Phase 11 runs the k-mer commands of the CLI on phase 8's FASTQ and FASTA
 (KmersExtractor, k = 15, both strands, with its counting invariants and
 CUDA against CPU) and ReadsFileErrorsCorrector on the first 20,000 reads.
+The population and read-depth callers follow.  Phase 2b holds the Viterbi
+kernel bit for bit against its plain version (shared and per-step
+transitions, -inf entries, a tie, T = 1 to 120,000) and times it at the
+46,000 bins of the 4.6 Mbp genome.  Phase 12 checks, CUDA against CPU at
+50 kb, MultisampleVariantsDetector on 3 samples, the four read-depth CNV
+algorithms, the detector's read-pair SV stage and the four new CLI
+commands.  Phase 13 calls 3 individuals of phase 5's genome jointly (6x
+each, 552,000 reads) and runs the four CNV algorithms on the one that
+carries a 20 kb duplication and a 10 kb deletion, with accuracy gates.
 Prints one line per phase and exits nonzero at the first failure.  The
 last lines are a JSON object of the kernels (launch counts from the timed
-runs of phases 5, 6 and 10, errors and times measured here; the tier-2
+runs of phases 5, 6, 10 and 13, errors and times measured here; the tier-2
 entries at the launched shape that takes most of their time), the card's
 name and power limit, and the result line.  A kernel's bound is the least time the card could take: the
 larger of its bytes (inputs read once, outputs written once) over the
-memory rate and its integer operations over the INT32 issue rate.
+memory rate and its integer operations over the INT32 issue rate (for the
+Viterbi kernel: its serial chain of dependent instructions over the clock).
 
 Imports torch, numpy and the port only (bench.py's gates are numpy).
 """
@@ -115,6 +125,25 @@ def gotoh_bound(B: int, Lq: int, Ls: int):
     qlen still get fresh D-run fields)."""
     n_bytes = B * (Lq + Ls) + 8 * B + 4 * Lq * B * Ls + 16 * B
     return bound(n_bytes, GOTOH_OPS_PER_CELL * B * Lq * Ls)
+
+
+SM_CLOCK_HZ = 1.98e9
+# one Viterbi step cannot take less than three dependent instructions (the
+# shuffle that brings delta[i], the f64 add of the transition, the
+# compare-select) at the 4 cycles between dependent issues of Hopper's
+# fixed-latency pipes; the real shuffle and DADD latencies are several times
+# that, so no kernel reaches this bound
+VITERBI_CHAIN_CYCLES = 3 * 4
+
+
+def viterbi_bound(T: int, S: int):
+    """(bound_ms, bound_by, bytes ms, chain ms): emissions f64 read and int8
+    back pointers written once (T*S*9 bytes), the int32 path (4*T); the
+    serial chain of T steps."""
+    t_bytes = (T * S * 9 + 4 * T) / HBM_BYTES_PER_S * 1e3
+    t_chain = T * VITERBI_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+    ms, by = (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "operations")
+    return ms, by, t_bytes, t_chain
 
 
 def reset_counts(counters) -> None:
@@ -456,6 +485,100 @@ def phase_shear():
         timing[nq] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
                           bound_ms=b_ms, bound_by=b_by)
         del stage, kern, ref
+    return timing
+
+
+# ---------------------------------------------------------------------------
+def _depth_vector(rng, T, mean=4.0):
+    """Reads per 100 bp bin at 6x of 150 bp reads, with a 2x and a 0x
+    segment planted where T leaves room."""
+    depth = rng.poisson(mean, size=T).astype(np.float64)
+    if T >= 1000:
+        a = T // 4
+        depth[a : a + 200] = rng.poisson(2 * mean, size=200)
+        b = (2 * T) // 3
+        depth[b : b + 100] = 0.0
+    return depth
+
+
+def _poisson_hmm(rng, T, S=5, mean=4.0, p=0.001):
+    """(log_start, log_trans (1,S,S), log_emit (T,S)) as
+    PoissonHMMReadDepthAlgorithm.call_cnvs makes them."""
+    import math
+
+    from ngsepcore_tpu_torch.call.read_depth import _poisson_log10
+
+    trans = np.full((S, S), p / (S - 1))
+    np.fill_diagonal(trans, 1 - p)
+    lam = np.maximum(mean * np.arange(S)[None, :] / 2, mean * 0.05)
+    emit = _poisson_log10(np.round(_depth_vector(rng, T, mean))[:, None], lam)
+    return np.full(S, -math.log10(S)), np.log10(trans)[None], emit
+
+
+def _random_hmm(rng, T, S, per_step=False, neg_inf=False):
+    start = np.log10(rng.dirichlet(np.ones(S)))
+    n = T - 1 if per_step else 1
+    trans = rng.dirichlet(np.ones(S), size=(n, S))
+    if neg_inf:
+        forbid = rng.random((n, S, S)) < 0.3
+        forbid[:, np.arange(S), np.arange(S)] = False
+        trans = np.where(forbid, 0.0, trans)
+    with np.errstate(divide="ignore"):
+        trans = np.log10(trans)
+    return start, trans, np.log10(rng.random((T, S)))
+
+
+def phase_viterbi():
+    """The Viterbi kernel against the plain step loop on the card: path
+    and best score bit for bit."""
+    import torch
+
+    from ngsepcore_tpu_torch.kernels.hmm import viterbi_log, viterbi_log_ref
+
+    rng = np.random.default_rng(5)
+    cases = [(f"Poisson S=5 T={T}", _poisson_hmm(rng, T))
+             for T in (1, 2, 33, 46_000, 120_000)]
+    cases += [
+        ("random S=32 T=2000", _random_hmm(rng, 2000, 32)),
+        ("random S=1 T=50", _random_hmm(rng, 50, 1)),
+        ("per-step transitions S=5 T=5000", _random_hmm(rng, 5000, 5, per_step=True)),
+        ("per-step transitions S=32 T=300", _random_hmm(rng, 300, 32, per_step=True)),
+        ("-inf transitions S=6 T=3000", _random_hmm(rng, 3000, 6, neg_inf=True)),
+        ("-inf per-step transitions S=6 T=1000",
+         _random_hmm(rng, 1000, 6, per_step=True, neg_inf=True)),
+        # every path scores the same: each argmax is a tie, state 0 must win
+        ("tie S=4 T=500", (np.zeros(4), np.zeros((1, 4, 4)), -np.ones((500, 4)))),
+    ]
+    timing = None
+    for name, arrays in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).cuda()
+                for a in arrays]
+        path, best = viterbi_log(*args)
+        torch.cuda.synchronize()
+        want_path, want_best = viterbi_log_ref(*args)
+        bad = int((path != want_path).sum())
+        same_best = bool(best.view(torch.int64) == want_best.view(torch.int64))
+        err = 0.0 if same_best else abs(float(best) - float(want_best))
+        states = torch.bincount(path.long(), minlength=args[2].shape[1]).tolist()
+        log(f"phase 2b viterbi {name}: path mismatches {bad} of {path.numel()}, best "
+            f"{float(best):.6f} bit-equal {same_best}; states used {states}")
+        if bad or not same_best:
+            fail(f"the Viterbi kernel disagrees with its plain version on {name}")
+        if name.startswith("tie") and int(path.abs().sum()) != 0:
+            fail("a tie did not go to the first state")
+        if name == "Poisson S=5 T=46000":
+            if min(states[0], states[4]) == 0:
+                fail("the planted 0x and 2x segments were not decoded")
+            T, S = args[2].shape
+            ms = cuda_ms(lambda: viterbi_log(*args), calls=20)
+            plain = cuda_ms(lambda: viterbi_log_ref(*args), reps=3)
+            b_ms, b_by, t_bytes, t_chain = viterbi_bound(T, S)
+            log(f"  time T={T} S={S}: kernel {ms:.4f} ms (median of 5 x 20 calls), "
+                f"plain {plain:.1f} ms (median of 3); bound {b_ms:.4f} ms by {b_by} "
+                f"(chain {t_chain:.4f}, bytes {t_bytes:.6f}), kernel at "
+                f"{100 * b_ms / ms:.1f}% of it")
+            timing = dict(ms=ms, plain_ms=plain, max_abs_err=err + bad,
+                          bound_ms=b_ms, bound_by=b_by, shape=f"T={T} S={S}")
     return timing
 
 
@@ -1128,6 +1251,17 @@ def _cli_plain(args, device, timeout):
     return time.perf_counter() - t0
 
 
+def _cli_both(args_for, device, timeout):
+    """Run one command on `device` and on the CPU side by side (the CPU run
+    only serves the comparison); returns {device: seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        runs = {dev: pool.submit(_cli_plain, args_for(dev), dev, timeout)
+                for dev in dict.fromkeys((device, "cpu"))}
+        return {dev: run.result() for dev, run in runs.items()}
+
+
 def _read_distribution(path):
     with open(path) as fh:
         rows = [line.split() for line in fh.read().splitlines()[1:]]
@@ -1158,11 +1292,9 @@ def phase_kmers(d, genome, reads, device="cuda"):
     if int(dist.sum()) != len(codes) or np.any(np.diff(codes) <= 0):
         fail("k-mer distribution or map of the reads is inconsistent")
     # genome: the same invariants, and CUDA against the CPU
-    times = {}
-    for dev in (device, "cpu"):
-        times[dev] = _cli_plain(
-            ["KmersExtractor", "-k", str(k), "-o", os.path.join(d, f"kg_{dev}"), g],
-            dev, 600)
+    times = _cli_both(
+        lambda dev: ["KmersExtractor", "-k", str(k), "-o", os.path.join(d, f"kg_{dev}"), g],
+        device, 600)
     with np.load(os.path.join(d, f"kg_{device}_kmers.npz")) as a, \
             np.load(os.path.join(d, "kg_cpu_kmers.npz")) as b:
         same = all(np.array_equal(a[key], b[key]) for key in ("k", "codes", "counts"))
@@ -1173,9 +1305,9 @@ def phase_kmers(d, genome, reads, device="cuda"):
     dist_c = _read_distribution(os.path.join(d, f"kg_{device}_kmers_distribution.txt"))
     dist_p = _read_distribution(os.path.join(d, "kg_cpu_kmers_distribution.txt"))
     log(f"  genome {genome.total_length} bp: {device} {times[device]:.2f}s, CPU "
-        f"{times['cpu']:.2f}s (process wall); {int(gcounts.sum(dtype=np.int64))} "
-        f"k-mers counted, {want_g} expected; {len(gcodes)} distinct; map equal "
-        f"{same}, distribution equal {bool(np.array_equal(dist_c, dist_p))}")
+        f"{times['cpu']:.2f}s (process wall, side by side); "
+        f"{int(gcounts.sum(dtype=np.int64))} k-mers counted, {want_g} expected; "
+        f"{len(gcodes)} distinct; map equal {same}, distribution equal {bool(np.array_equal(dist_c, dist_p))}")
     if int(gcounts.sum(dtype=np.int64)) != want_g or int(dist_c.sum()) != len(gcodes):
         fail("k-mer total or distribution of the genome is inconsistent")
     if not same or not np.array_equal(dist_c, dist_p):
@@ -1183,20 +1315,417 @@ def phase_kmers(d, genome, reads, device="cuda"):
     # error correction of the first 20,000 reads
     sub = os.path.join(d, "first.fastq")
     write_fastq(reads[:20000], sub)
-    for dev in (device, "cpu"):
-        times[dev] = _cli_plain(
-            ["ReadsFileErrorsCorrector", sub, os.path.join(d, f"corr_{dev}.fastq")],
-            dev, 900)
+    times = _cli_both(
+        lambda dev: ["ReadsFileErrorsCorrector", sub, os.path.join(d, f"corr_{dev}.fastq")],
+        device, 900)
     with open(os.path.join(d, f"corr_{device}.fastq")) as a, \
             open(os.path.join(d, "corr_cpu.fastq")) as b, open(sub) as c:
         out_cuda, out_cpu, src = a.read(), b.read(), c.read()
     n_changed = sum(x != y for x, y in zip(out_cuda.splitlines()[1::4],
                                            src.splitlines()[1::4]))
     log(f"  ReadsFileErrorsCorrector on 20000 reads: {device} {times[device]:.2f}s, CPU "
-        f"{times['cpu']:.2f}s (process wall); {n_changed} reads changed; outputs "
-        f"equal {out_cuda == out_cpu}")
+        f"{times['cpu']:.2f}s (process wall, side by side); {n_changed} reads changed; "
+        f"outputs equal {out_cuda == out_cpu}")
     if out_cuda != out_cpu or out_cuda.count("\n") != src.count("\n"):
         fail("ReadsFileErrorsCorrector CUDA and CPU outputs differ")
+
+
+# ---------------------------------------------------------------------------
+ALL_CNV_ALGORITHMS = "CNVnator,EWT,PoissonHMM,MAXIMUMLIKELIHOOD"
+# -minQuality of the 6x population run.  At 6x a heterozygous site seldom
+# reaches the default 40 (about half of the true sites would be called), so
+# a low-coverage population is called at 10; the share of the records that
+# the default keeps is printed beside it.
+POP_MIN_QUALITY = 10
+
+
+def _vcf_body(records, samples):
+    """The records as the lines VCFFileWriter prints for them."""
+    import io
+
+    from ngsepcore_tpu_torch.vcf.io import VCFFileWriter
+
+    buf = io.StringIO()
+    w = VCFFileWriter(buf, samples)
+    for r in records:
+        w.write(r)
+    return [l for l in buf.getvalue().splitlines() if not l.startswith("#")]
+
+
+def _genome_of(name, codes):
+    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
+    from ngsepcore_tpu_torch.core.sequences import QualifiedSequence, QualifiedSequenceList
+
+    seqs = QualifiedSequenceList()
+    seqs.add(QualifiedSequence(name=name, codes=codes))
+    return ReferenceGenome(seqs)
+
+
+def _with_svs(hap_genome, dup, dele):
+    """The haplotype genome with a tandem duplication of [dup) and without
+    [dele) (0-based half-open, dup left of dele; both homozygous when every
+    haplotype gets them)."""
+    c = hap_genome.sequences[0].codes
+    assert dup[1] <= dele[0]
+    c = np.concatenate([c[: dup[1]], c[dup[0] : dele[0]], c[dele[1] :]])
+    return _genome_of(hap_genome.sequence_name(0), c)
+
+
+def _align_all(aligner, reads, batch):
+    alns = []
+    for i in range(0, len(reads), batch):
+        for per_read in aligner.align_batch(reads[i : i + batch]):
+            alns.extend(per_read)
+    return alns
+
+
+def _sample_reads(genome, seed, n_reads, read_len, error, svs=None):
+    """A diploid individual of `genome` (SNV 0.001, indel 0.0001) and its
+    reads, half from each haplotype: (truth calls, ReadBlock)."""
+    from ngsepcore_tpu_torch.core.sequences import ReadBlock
+    from ngsepcore_tpu_torch.simulation.individual_simulator import SingleIndividualSimulator
+    from ngsepcore_tpu_torch.simulation.reads_simulator import SingleReadsSimulator
+
+    sim = SingleIndividualSimulator(genome, snv_rate=0.001, indel_rate=0.0001, seed=seed)
+    sim.simulate()
+    haps = sim.build_haplotype_genomes()
+    if svs:
+        haps = [_with_svs(hg, *svs) for hg in haps]
+    reads = ReadBlock.concatenate([
+        SingleReadsSimulator(
+            hg, read_length=read_len, substitution_error_rate=error,
+            seed=seed + 1000 * (h + 1),
+        ).simulate_block(n_reads // 2)
+        for h, hg in enumerate(haps)
+    ])
+    return sim.calls, reads
+
+
+def _covering(calls, lo, hi, want):
+    """Largest share of [lo, hi) (0-based) that one call with want(copy
+    number) covers."""
+    best = 0.0
+    for c in calls:
+        if want(c.copy_number):
+            ov = min(c.last, hi) - max(c.first - 1, lo)
+            best = max(best, ov / (hi - lo))
+    return best
+
+
+def _call_fields(calls):
+    import dataclasses
+
+    return [dataclasses.asdict(c) for c in calls]
+
+
+def _cli_pairs(jobs, device, timeout=600):
+    """Run every CLI command of `jobs` ({label: (args, outputs)}) on `device`
+    and on the CPU, all processes side by side (`{dev}` in an argument is
+    "dev" for the first and "ref" for the second); fail unless all exit 0
+    and every output file is byte-equal.  Returns {label: output sizes}."""
+    procs = {}
+    try:
+        for label, (args, _) in jobs.items():
+            for dev, name in ((device, "dev"), ("cpu", "ref")):
+                cmd = [sys.executable, "-m", "ngsepcore_tpu_torch", "--device", dev] + [
+                    a.format(dev=name) for a in args]
+                procs[label, dev] = subprocess.Popen(
+                    cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                    stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for (label, dev), proc in procs.items():
+            _, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                print(err[-4000:], flush=True)
+                fail(f"CLI {label} on {dev} exited {proc.returncode}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    sizes = {}
+    for label, (_, outputs) in jobs.items():
+        sizes[label] = []
+        for out in outputs:
+            with open(out.format(dev="dev"), "rb") as fa, open(out.format(dev="ref"), "rb") as fb:
+                da, db = fa.read(), fb.read()
+            if da != db or not da:
+                fail(f"CLI {label}: {out} differs between {device} and cpu (or is empty)")
+            sizes[label].append(len(da))
+    return sizes
+
+
+def phase_population_small(counters, device="cuda"):
+    """Phase 12, CUDA against CPU on a 50 kb genome: joint calling of 3
+    samples, the four CNV algorithms, the read-pair SV stage of the
+    detector, and the four new CLI commands."""
+    import copy
+
+    from ngsepcore_tpu_torch.align.paired import PairedReadsAligner
+    from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
+    from ngsepcore_tpu_torch.call.multisample import MultisampleVariantsDetector
+    from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
+    from ngsepcore_tpu_torch.core.sequences import RawRead, decode_dna
+    from ngsepcore_tpu_torch.io.fasta import save_fasta
+    from ngsepcore_tpu_torch.io.sam import ReadAlignmentFileWriter
+
+    L = 50_000
+    rng = np.random.default_rng(12)
+    genome = _genome_of("chrP", rng.integers(0, 4, size=L).astype(np.int8))
+    aligner = ReadsAligner(genome, device=device)
+    samples = ["s0", "s1", "s2"]
+    dup, dele = (12_000, 18_000), (30_000, 34_000)
+    t0 = time.perf_counter()
+    alns = []
+    for i in range(3):
+        _, reads = _sample_reads(genome, 300 + i, 6000, 100, 0.003,
+                                 svs=(dup, dele) if i == 2 else None)
+        alns.append(_align_all(aligner, reads, 4096))
+    t_align = time.perf_counter() - t0
+
+    # joint calling: the realigner edits alignments, so each run gets copies
+    reset_counts(counters)
+    out = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        recs = MultisampleVariantsDetector(genome, device=dev).find_variants(
+            copy.deepcopy(alns), samples)
+        sync(dev)
+        out[dev] = (_vcf_body(recs, samples), time.perf_counter() - t0)
+    n_diff = sum(a != b for a, b in zip(out[device][0], out["cpu"][0]))
+    log(f"phase 12 population 50 kb, 3 samples x {len(alns[0])} alignments (aligned on "
+        f"{device} in {t_align:.2f}s): {len(out[device][0])} records on {device} "
+        f"({out[device][1]:.2f}s), {len(out['cpu'][0])} on CPU ({out['cpu'][1]:.2f}s), "
+        f"lines differing {n_diff}")
+    if len(out[device][0]) < 50 or out[device][0] != out["cpu"][0]:
+        for a, b in zip(out[device][0], out["cpu"][0]):
+            if a != b:
+                print(f"  {device}:", a, "\n  cpu: ", b, flush=True)
+        fail("population records differ between {device} and CPU")
+    if not all(l.count("\t") == 8 + 3 for l in out[device][0]):
+        fail("a population record lacks a sample column")
+
+    # read-depth CNVs of the sample that carries the duplication and deletion
+    calls = {}
+    for dev in (device, "cpu"):
+        det = SingleSampleVariantsDetector(
+            genome, sample_id="s2", alg_cnv=ALL_CNV_ALGORITHMS, device=dev)
+        calls[dev] = det.find_cnv_calls(alns[2])
+    n_launch = counters[-1].launches
+    log(f"  CNV calls of s2, {ALL_CNV_ALGORITHMS}: {len(calls[device])} on {device}, "
+        f"{len(calls['cpu'])} on CPU; duplication covered "
+        f"{_covering(calls[device], *dup, lambda cn: cn >= 3):.2f}, deletion "
+        f"{_covering(calls[device], *dele, lambda cn: cn <= 1):.2f}; viterbi "
+        f"launches {n_launch}")
+    if not calls[device] or _call_fields(calls[device]) != _call_fields(calls["cpu"]):
+        fail("CNV calls differ between {device} and CPU")
+    if device == "cuda" and n_launch != 2:
+        fail(f"the two HMM algorithms launched the Viterbi kernel {n_launch} times")
+
+    with tempfile.TemporaryDirectory() as d:
+        # paired reads over a 2 kb deletion through PairedReadsAligner
+        pdel = (24_000, 26_000)
+        ref = genome.sequences[0].codes
+        ind = np.concatenate([ref[: pdel[0]], ref[pdel[1] :]])
+        r1, r2 = [], []
+        for i in range(4000):
+            s0 = int(rng.integers(0, len(ind) - 400))
+            frag = ind[s0 : s0 + 400]
+            r1.append(RawRead(f"p{i}/1", decode_dna(frag[:100]), "I" * 100))
+            r2.append(RawRead(f"p{i}/2", decode_dna((3 - frag[-100:][::-1]).astype(np.int8)),
+                              "I" * 100))
+        pa = PairedReadsAligner(aligner)
+        sam = os.path.join(d, "pairs.sam")
+        with ReadAlignmentFileWriter(genome.sequences, sam, sample_id="pairs") as w:
+            for i in range(0, len(r1), 1024):
+                for per_pair in pa.align_batch(r1[i : i + 1024], r2[i : i + 1024]):
+                    for a in per_pair:
+                        w.write(a)
+        body = lambda path: [l for l in open(path) if not l.startswith("#")]
+        for dev in (device, "cpu"):
+            SingleSampleVariantsDetector(
+                genome, sample_id="pairs", find_svs=True, device=dev,
+            ).run(sam, os.path.join(d, f"sv_{dev}.vcf"))
+        vcf = body(os.path.join(d, f"sv_{device}.vcf"))
+        gff = body(os.path.join(d, f"sv_{device}_SV.gff"))
+        dels = [l.split("\t") for l in vcf if "SVTYPE=DEL" in l]
+        log(f"  read-pair SVs, {pa.proper_pairs}/{pa.pairs} proper pairs: {len(vcf)} VCF "
+            f"lines, {len(gff)} GFF lines, deletions at {[int(f[1]) for f in dels]}")
+        if vcf != body(os.path.join(d, "sv_cpu.vcf")) or gff != body(
+                os.path.join(d, "sv_cpu_SV.gff")):
+            fail("-svs outputs differ between {device} and CPU")
+        if not gff or not any(abs(int(f[1]) - pdel[0]) < 500 for f in dels):
+            fail("the planted deletion was not called from the read pairs")
+
+        # the four new CLI commands, cuda beside cpu
+        g = os.path.join(d, "g.fa")
+        save_fasta(genome.sequences, g)
+        sams = []
+        for name, sample_alns in zip(samples, alns):
+            sams.append(os.path.join(d, name + ".sam"))
+            with ReadAlignmentFileWriter(genome.sequences, sams[-1], sample_id=name) as w:
+                for a in sample_alns:
+                    w.write(a)
+        t0 = time.perf_counter()
+        out_of = lambda name: os.path.join(d, name)
+        sizes = _cli_pairs({
+            "MultisampleVariantsDetector": (
+                ["MultisampleVariantsDetector", "-r", g, "-o", out_of("pop_{dev}.vcf"), *sams],
+                [out_of("pop_{dev}.vcf")]),
+            "ReadDepthComparator": (
+                ["ReadDepthComparator", "-r", g, "-o", out_of("rd_{dev}.txt"),
+                 sams[2], sams[0]],
+                [out_of("rd_{dev}.txt")]),
+            "CoverageStats": (
+                ["CoverageStats", "-r", g, "-i", sams[1], "-o", out_of("cov_{dev}.txt")],
+                [out_of("cov_{dev}.txt")]),
+            "BasePairQualStats": (
+                ["BasePairQualStats", "-r", g, "-i", sams[1], "-o", out_of("bq_{dev}.txt")],
+                [out_of("bq_{dev}.txt")]),
+            "SingleSampleVariantsDetector -cnvs -svs": (
+                ["SingleSampleVariantsDetector", "-r", g, "-i", sams[2], "-o",
+                 out_of("cnv_{dev}"), "-sampleId", "s2", "-cnvs", "-svs", "-algCNV",
+                 ALL_CNV_ALGORITHMS],
+                [out_of("cnv_{dev}.vcf"), out_of("cnv_{dev}_SV.gff")]),
+        }, device)
+        cli_pop = body(os.path.join(d, "pop_dev.vcf"))
+        log(f"  CLI {device} against cpu, outputs byte-equal (bytes): {sizes} "
+            f"({time.perf_counter() - t0:.1f}s)")
+        if [l.rstrip("\n") for l in cli_pop] != out[device][0]:
+            fail("the CLI's population VCF differs from find_variants' records")
+
+
+def phase_population_real_size(counters, genome, table, in_repeat, device="cuda",
+                               n_reads=184_000, dup_len=20_000, del_len=10_000,
+                               batch=32_768):
+    """Phase 13: 3 diploid individuals of phase 5's genome at 6x each,
+    aligned in 32,768-read batches, called jointly; then the four CNV
+    algorithms on the individual that carries a homozygous tandem
+    duplication and a homozygous deletion in unique sequence."""
+    import torch
+
+    from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
+    from ngsepcore_tpu_torch.call.multisample import MultisampleVariantsDetector
+    from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
+    from ngsepcore_tpu_torch.utils import profiling
+
+    L = genome.sequence_length(0)
+
+    def unique_window(start, length):
+        """First window of `length` at or after `start` that touches no
+        repeat (with its read-length margin)."""
+        step = 1000
+        for lo in range(start, L - length, step):
+            if not in_repeat[lo : lo + length].any():
+                return lo, lo + length
+        fail(f"no unique window of {length} bp after {start}")
+
+    dup = unique_window(L // 5, dup_len)
+    dele = unique_window((3 * L) // 5, del_len)
+    samples = ["ind0", "ind1", "ind2"]
+    t0 = time.perf_counter()
+    truths, blocks = [], []
+    for i in range(3):
+        calls, reads = _sample_reads(genome, 101 + i, n_reads, READ_LEN, 0.003,
+                                     svs=(dup, dele) if i == 2 else None)
+        truths.append({c.first: c for c in calls if c.is_snv})
+        blocks.append(reads)
+    t_sim = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aligner = ReadsAligner(genome, table=table, device=device)
+    alns = [_align_all(aligner, reads, batch) for reads in blocks]
+    sync(device)
+    t_align = time.perf_counter() - t0
+    n_total = sum(len(b) for b in blocks)
+    log(f"phase 13 inputs: {L} bp, 3 individuals x {len(blocks[0])} reads of {READ_LEN} bp "
+        f"({len(blocks[0]) * READ_LEN / L:.2f}x each, {n_total} in all), SNVs "
+        f"{[len(t) for t in truths]}; ind2 with a duplication at {dup} and a deletion at "
+        f"{dele} (0-based); simulated in {t_sim:.1f}s, aligned in {batch}-read batches on "
+        f"{device} in {t_align:.2f}s = {n_total / t_align:.1f} reads/s, "
+        f"{[len(a) for a in alns]} alignments")
+
+    profiling.enable()
+    profiling.reset()
+    reset_counts(counters)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    records = MultisampleVariantsDetector(
+        genome, min_quality=POP_MIN_QUALITY, device=device,
+    ).find_variants(alns, samples)
+    sync(device)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    stages = sorted(profiling._stages.items(), key=lambda kv: -kv[1][0])
+    profiling.reset()
+    log(f"  MultisampleVariantsDetector(min_quality={POP_MIN_QUALITY}).find_variants "
+        f"(first run): {dt:.3f}s = "
+        f"{n_total / dt:.1f} reads/s; {len(records)} records "
+        f"({sum(r.variant.is_snv for r in records)} SNV, the rest indel and STR); peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    for name, (total, calls) in stages:
+        print(f"  stage {name:<28} {total:9.3f}s x{calls}", flush=True)
+
+    t0 = time.perf_counter()
+    det = SingleSampleVariantsDetector(
+        genome, sample_id="ind2", alg_cnv=ALL_CNV_ALGORITHMS, device=device)
+    cnvs = det.find_cnv_calls(alns[2])
+    sync(device)
+    dt_cnv = time.perf_counter() - t0
+    profiling.enable(False)
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"  find_cnv_calls of ind2, {ALL_CNV_ALGORITHMS}: {dt_cnv:.3f}s, {len(cnvs)} calls; "
+        f"launches {launches}")
+    for name, (total, calls) in sorted(profiling._stages.items(), key=lambda kv: -kv[1][0]):
+        print(f"  stage {name:<28} {total:9.3f}s x{calls}", flush=True)
+
+    # gates
+    if not records or not all(len(r.calls) == 3 for r in records):
+        fail("a population record does not carry 3 calls")
+    all_truth = set().union(*truths)
+    called = {r.variant.first for r in records if r.variant.is_snv}
+    tp = called & all_truth
+    unique_truth = {p for p in all_truth if not in_repeat[p]}
+    precision = len(tp) / max(1, len(called))
+    recall_unique = len(called & unique_truth) / max(1, len(unique_truth))
+    checked = [0, 0, 0]
+    concordant = [0, 0, 0]
+    for r in records:
+        p = r.variant.first
+        if not r.variant.is_snv or p not in all_truth:
+            continue
+        for si, call in enumerate(r.calls):
+            if call.is_undecided:
+                continue
+            t = truths[si].get(p)
+            checked[si] += 1
+            concordant[si] += call.genotype_state == (0 if t is None else t.genotype_state)
+    conc = [c / max(1, n) for c, n in zip(concordant, checked)]
+    # a record's quality is the best GQ of its non-reference calls: those of
+    # 40 and more are the records of a run at the default -minQuality
+    called40 = {r.variant.first for r in records
+                if r.variant.is_snv and r.variant.quality >= 40}
+    log(f"  accuracy: SNV records {len(called)}, truth sites {len(all_truth)} "
+        f"({len(unique_truth)} unique), precision {precision:.4f}, recall in unique "
+        f"regions {recall_unique:.4f}, genotype concordance per sample "
+        f"{[round(c, 4) for c in conc]} over {checked} decided calls; at quality >= 40: "
+        f"{len(called40)} SNV records, precision "
+        f"{len(called40 & all_truth) / max(1, len(called40)):.4f}, recall in unique regions "
+        f"{len(called40 & unique_truth) / max(1, len(unique_truth)):.4f}")
+    if precision < 0.90 or recall_unique < 0.85 or min(conc) < 0.95:
+        fail("population accuracy gates missed")
+    # a call does not name its algorithm: each HMM algorithm runs again alone
+    for alg in ("PoissonHMM", "MAXIMUMLIKELIHOOD"):
+        det.alg_cnv = alg
+        own = det.find_cnv_calls(alns[2])
+        cov_dup = _covering(own, *dup, lambda cn: cn >= 3)
+        cov_del = _covering(own, *dele, lambda cn: cn <= 1)
+        log(f"  {alg}: {len(own)} calls; duplication covered {cov_dup:.3f} by a call of "
+            f"copy number >= 3, deletion {cov_del:.3f} by one of copy number <= 1")
+        if cov_dup < 0.80 or cov_del < 0.80:
+            fail(f"{alg} missed the planted duplication or deletion")
+    if device == "cuda" and launches["viterbi_log"] == 0:
+        fail(f"the CNV stage did not launch the Viterbi kernel: {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1204,12 +1733,14 @@ def main() -> None:
     smi = phase_device()
     import torch
 
+    from ngsepcore_tpu_torch.kernels.hmm import viterbi_log
     from ngsepcore_tpu_torch.kernels.pairwise_cuda import gotoh_forward_plane
     from ngsepcore_tpu_torch.kernels.shear_pileup import shear_hist
 
     counters = (gotoh_forward_plane, shear_hist)
     phase_build()
     gotoh_t = phase_gotoh()
+    viterbi_t = phase_viterbi()
     shear_t = phase_shear()
     fused_keys = phase_cuda_vs_cpu(counters)
     (launches, _, fused_records, genome, reads, truth, table, tandem,
@@ -1221,6 +1752,10 @@ def main() -> None:
         counters, genome, reads, truth, table, tandem, metrics5)
     str_t2 = tier2_launches(str_shapes)
     t2_t = phase_tier2_shapes(str_shapes)
+    # the population and read-depth callers count their own three kernels
+    pop_counters = (gotoh_forward_plane, shear_hist, viterbi_log)
+    phase_population_small(pop_counters)
+    pop_launches = phase_population_real_size(pop_counters, genome, table, truth[2])
     del table
     torch.cuda.empty_cache()  # the CLI subprocesses share the card
     with tempfile.TemporaryDirectory() as d:
@@ -1262,6 +1797,11 @@ def main() -> None:
             entry("shear_hist", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
                   "ngsepcore_tpu/kernels/shear_pileup.py:227",
                   launches["shear_hist"], shear_t[1]),
+            # a lax.scan in the JAX package, no Pallas counterpart; launches
+            # of the read-depth HMM callers at full width (phase 13)
+            entry("viterbi_log", "ngsepcore_tpu_torch/csrc/viterbi.cu",
+                  "ngsepcore_tpu/kernels/hmm.py:85",
+                  pop_launches["viterbi_log"], viterbi_t),
         ]
     }
     print(json.dumps(kernels), flush=True)

@@ -15,8 +15,10 @@ are genotyped on the host (call/indel_batch.py).
 
 A known-STR catalogue (-knownSTRs) feeds the realigner's STR conciliation
 and, through the fused pipeline, the aligner's tier-2 split alignment.
-Read-depth CNVs, read-pair SVs and long-read SVs (ROADMAP.md Queue 1
-items 11 and 12) raise NotImplementedError.
+Read-depth CNVs (-cnvs, call/read_depth.py; the HMM callers decode on the
+detector's device) and read-pair SVs (-svs, call/read_pair_sv.py) join the
+VCF with END/SVTYPE/SVLEN and land in a GFF next to it.  Long-read SVs
+(ROADMAP.md Queue 1 item 12) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -106,14 +108,12 @@ class SingleSampleVariantsDetector:
         device=None,  # where find_variants/run genotype; the fused
         # pipeline genotypes on its own device and needs none here
     ):
-        for flag, what in (
-            (find_cnvs, "read-depth CNVs (-cnvs): ROADMAP.md Queue 1 item 11"),
-            (find_svs, "read-pair SVs (-svs): ROADMAP.md Queue 1 item 11"),
-            (run_long_read_svs,
-             "long-read SVs (-runLongReadSVs): ROADMAP.md Queue 1 item 12"),
-        ):
-            if flag:
-                raise NotImplementedError(what)
+        if run_long_read_svs:
+            raise NotImplementedError(
+                "long-read SVs (-runLongReadSVs): ROADMAP.md Queue 1 item 12"
+            )
+        self.find_cnvs = find_cnvs
+        self.find_svs = find_svs
         self.device = None if device is None else torch.device(device)
         self.query_seq = query_seq
         self.query_first = int(query_first or 0)
@@ -146,9 +146,9 @@ class SingleSampleVariantsDetector:
     # ------------------------------------------------------------------
     def run(self, alignments_file: str, output_vcf: str) -> int:
         """Orchestration mirrors SingleSampleVariantsDetector.run
-        (:589-656): repeat masking (optional), then SNV/indel pileup
-        genotyping; repeat regions additionally land in a GFF next to the
-        VCF."""
+        (:589-656): SNV/indel pileup genotyping, repeat masking
+        (optional), read-pair SVs and read-depth CNVs (optional); SVs
+        additionally land in a GFF next to the VCF."""
         region = None
         if self.query_seq:
             first = self.query_first or 1
@@ -207,6 +207,36 @@ class SingleSampleVariantsDetector:
                     for f, l in by_seq.get(r.variant.sequence_name, [])
                 )
             ]
+        if self.find_svs:
+            from .read_pair_sv import ReadPairAnalyzer
+
+            with stage("call.read_pair_svs"):
+                pair_svs = ReadPairAnalyzer(genome=self.genome).find_variants(alns)
+            for c in pair_svs:
+                c.sample_id = self.sample_id
+                svs.append(c)
+                records.append(
+                    VCFRecord(
+                        variant=c,
+                        calls=[c],
+                        info={
+                            "END": c.last,
+                            "SVTYPE": c.variant_type,
+                            "SVLEN": c.length(),
+                        },
+                    )
+                )
+        if self.find_cnvs:
+            with stage("call.read_depth_cnvs"):
+                cnvs = self.find_cnv_calls(alns)
+            svs.extend(cnvs)
+            for c in cnvs:
+                c.sample_id = self.sample_id
+                records.append(VCFRecord(variant=c, calls=[c], info={
+                    "END": c.last,
+                    "SVTYPE": "DUP" if c.copy_number > self.ploidy else "DEL",
+                    "SVLEN": c.length(),
+                }))
         if svs:
             records.sort(key=lambda r: (r.variant.sequence_name, r.variant.first))
         with stage("call.write_vcf"), VCFFileWriter(
@@ -219,6 +249,44 @@ class SingleSampleVariantsDetector:
 
             write_sv_gff(svs, output_vcf.rsplit(".", 1)[0] + "_SV.gff")
         return len(records)
+
+    # ------------------------------------------------------------------
+    def find_cnv_calls(self, alns: list[ReadAlignment]):
+        """Read-depth CNV analysis (ref: runRDAnalysis :615-623; algorithm
+        list parsed from algCNV like :739).  The HMM algorithms decode on
+        the detector's device."""
+        from .read_depth import (
+            CNV_ALGORITHMS,
+            PoissonHMMReadDepthAlgorithm,
+            ReadDepthDistribution,
+        )
+
+        by_lower = {k.lower(): v for k, v in CNV_ALGORITHMS.items()}
+        algorithms = []
+        for alg in self.alg_cnv.split(","):
+            cls = by_lower.get(alg.strip().lower())
+            if cls is None:
+                raise ValueError(
+                    f"Unknown CNV algorithm {alg!r}; options: "
+                    + ", ".join(CNV_ALGORITHMS)
+                )
+            if issubclass(cls, PoissonHMMReadDepthAlgorithm):
+                if self.device is None:
+                    raise ValueError(
+                        f"CNV algorithm {alg.strip()} needs the detector's device="
+                    )
+                algorithms.append(cls(normal_ploidy=self.ploidy, device=self.device))
+            else:
+                algorithms.append(cls(normal_ploidy=self.ploidy))
+        dist = ReadDepthDistribution(self.genome)
+        dist.process_alignments(alns)
+        dist.correct_depth_by_gc_content()
+        dist.fit()
+        calls = []
+        for algorithm in algorithms:
+            with stage("cnv." + type(algorithm).__name__):
+                calls.extend(algorithm.call_cnvs(dist))
+        return calls
 
     # ------------------------------------------------------------------
     def find_variants(self, alignments: list[ReadAlignment]) -> list[VCFRecord]:

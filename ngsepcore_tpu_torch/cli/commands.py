@@ -2,9 +2,10 @@
 
 Command ids, groups, flags and former ids are those of
 ngsepcore_tpu/cli/commands.py (the reference's CommandsDescriptor.xml).
-Five commands are ported: KmersExtractor, GenomeIndexer, ReadsAligner
-(short reads), ReadsFileErrorsCorrector and SingleSampleVariantsDetector.
-Every other id is registered as pending:
+Nine commands are ported: KmersExtractor, GenomeIndexer, ReadsAligner
+(short reads), ReadsFileErrorsCorrector, SingleSampleVariantsDetector,
+MultisampleVariantsDetector, ReadDepthComparator, CoverageStats and
+BasePairQualStats.  Every other id is registered as pending:
 running it exits with an error naming the ROADMAP.md item that ports it.
 Runners take the device the CLI's --device flag names.
 """
@@ -189,6 +190,161 @@ register(
 
 # ---- Discovery group -----------------------------------------------------
 
+def _run_multisample_detector(opts: dict, args: list[str], device) -> None:
+    from ..call.multisample import MultisampleVariantsDetector
+    from ..core.genome import ReferenceGenome
+    from ..utils.profiling import stage
+
+    genome_path = opts.pop("genome", None)
+    out = opts.pop("output_file", None)
+    if not genome_path or not out or not args:
+        raise SystemExit(
+            "Usage: MultisampleVariantsDetector -r <genome.fa> -o <out.vcf> <s1.sam> <s2.sam> ..."
+        )
+    with stage("cli.load_genome"):
+        genome = ReferenceGenome.load(genome_path)
+    det = MultisampleVariantsDetector(genome, **opts, device=device)
+    n = det.run(args, out)
+    print(f"Called {n} population variants -> {out}", file=sys.stderr)
+
+
+register(
+    Command(
+        id="MultisampleVariantsDetector",
+        group="Discovery",
+        description="Joint population variant calling from multiple samples",
+        runner=_run_multisample_detector,
+        options=[
+            Option("r", "genome", "str", None, "Reference genome FASTA"),
+            Option("o", "output_file", "str", None, "Output VCF"),
+            Option("h", "heterozygosity_rate", "float", 0.001, "Heterozygosity rate"),
+            Option("minQuality", "min_quality", "int", 40, "Min variant quality"),
+            Option("minMQ", "min_mq", "int", 20, "Min mapping quality"),
+            Option("ploidy", "ploidy", "int", 2, "Sample ploidy"),
+        ],
+    )
+)
+
+
+def _write_report(out: str | None, write) -> None:
+    """Call write(fh) on the output file, or on stdout without one."""
+    if out:
+        with open(out, "w") as fh:
+            write(fh)
+    else:
+        write(sys.stdout)
+
+
+# The three commands below are host numpy in the JAX package too: they take
+# the CLI's device like every runner and start nothing on it.
+
+def _run_read_depth_comparator(opts: dict, args: list[str], device) -> None:
+    from ..call.read_depth import cnv_seq_compare
+    from ..core.genome import ReferenceGenome
+    from ..io.sam import ReadAlignmentFileReader
+
+    genome_path = opts.pop("genome", None)
+    out = opts.pop("output_file", None)
+    if not genome_path or len(args) < 2:
+        raise SystemExit(
+            "Usage: ReadDepthComparator -r <genome.fa> <case.sam> <control.sam> [-o out]"
+        )
+    genome = ReferenceGenome.load(genome_path)
+    case = list(ReadAlignmentFileReader(args[0]))
+    control = list(ReadAlignmentFileReader(args[1]))
+    cnvs = cnv_seq_compare(genome, case, control, **opts)
+
+    def write(fh):
+        fh.write("CHROM\tFIRST\tLAST\tCOPY_NUMBER\tQUALITY\n")
+        for c in cnvs:
+            fh.write(
+                f"{c.sequence_name}\t{c.first}\t{c.last}\t{c.copy_number}\t{c.quality}\n"
+            )
+
+    _write_report(out, write)
+    print(f"Called {len(cnvs)} CNVs", file=sys.stderr)
+
+
+register(
+    Command(
+        id="ReadDepthComparator",
+        former_id="CompareRD",
+        group="Discovery",
+        description="Case-control read-depth CNV detection (CNV-seq)",
+        runner=_run_read_depth_comparator,
+        options=[
+            Option("r", "genome", "str", None, "Reference genome FASTA"),
+            Option("o", "output_file", "str", None, "Output file"),
+            Option("b", "bin_size", "int", 100, "Bin size"),
+            Option("x", "min_ratio", "float", 2.0, "Minimum depth ratio"),
+        ],
+    )
+)
+
+
+def _run_alignment_statistics(calculator, usage: str, opts: dict,
+                              args: list[str]) -> None:
+    """Shared body of CoverageStats and BasePairQualStats: feed every
+    alignment of the input to a call/coverage.py calculator, print its
+    report."""
+    from ..core.genome import ReferenceGenome
+    from ..io.sam import ReadAlignmentFileReader
+
+    genome_path = opts.pop("genome", None)
+    inp = opts.pop("input_file", None) or (args[0] if args else None)
+    if not genome_path or not inp:
+        raise SystemExit(usage)
+    calc = calculator(ReferenceGenome.load(genome_path))
+    calc.process_alignments(list(ReadAlignmentFileReader(inp)))
+    _write_report(opts.pop("output_file", None), calc.print_report)
+
+
+def _run_coverage_stats(opts: dict, args: list[str], device) -> None:
+    from ..call.coverage import CoverageStatisticsCalculator
+
+    _run_alignment_statistics(
+        CoverageStatisticsCalculator,
+        "Usage: CoverageStats -r <genome.fa> -i <alns.sam> [-o out]", opts, args,
+    )
+
+
+def _run_bpqual_stats(opts: dict, args: list[str], device) -> None:
+    from ..call.coverage import BasePairQualityStatisticsCalculator
+
+    _run_alignment_statistics(
+        BasePairQualityStatisticsCalculator,
+        "Usage: BasePairQualStats -r <genome.fa> -i <alns.sam>", opts, args,
+    )
+
+
+_STATS_OPTIONS = [
+    Option("r", "genome", "str", None, "Reference genome FASTA"),
+    Option("i", "input_file", "str", None, "Input SAM"),
+    Option("o", "output_file", "str", None, "Output file"),
+]
+
+register(
+    Command(
+        id="CoverageStats",
+        group="Discovery",
+        description="Coverage uniformity statistics from alignments",
+        runner=_run_coverage_stats,
+        options=_STATS_OPTIONS,
+    )
+)
+
+register(
+    Command(
+        id="BasePairQualStats",
+        former_id="QualStats",
+        group="Discovery",
+        description="Per-read-position mismatch rates vs the genome",
+        runner=_run_bpqual_stats,
+        options=_STATS_OPTIONS,
+    )
+)
+
+
 def _run_single_sample_detector(opts: dict, args: list[str], device) -> None:
     from ..call.single_sample import SingleSampleVariantsDetector
     from ..core.genome import ReferenceGenome
@@ -225,11 +381,11 @@ register(
             Option("minMQ", "min_mq", "int", 20, "Min mapping quality"),
             Option("ploidy", "ploidy", "int", 2, "Sample ploidy"),
             Option("cnvs", "find_cnvs", "bool", False,
-                   "Read-depth CNV detection (not ported)"),
+                   "Run read-depth CNV detection"),
             Option("algCNV", "alg_cnv", "str", "CNVnator",
-                   "Comma-separated CNV algorithms (with -cnvs)"),
+                   "Comma-separated CNV algorithms: CNVnator,EWT,PoissonHMM,MAXIMUMLIKELIHOOD"),
             Option("svs", "find_svs", "bool", False,
-                   "Read-pair SV detection (not ported)"),
+                   "Run read-pair SV detection"),
             Option("runLongReadSVs", "run_long_read_svs", "bool", False,
                    "Long-read SV detection (not ported)"),
             Option("minSVQuality", "min_sv_quality", "int", 0,
@@ -253,7 +409,6 @@ register(
 
 # ---- command ids not ported yet -----------------------------------------
 
-_DEPTH = "ROADMAP.md Queue 1 item 11 (multisample and read-depth stages)"
 _ASSEMBLY = "ROADMAP.md Queue 1 item 13 (assembly)"
 _HMM = "ROADMAP.md Queue 1 item 14 (HMM consumers)"
 _TAIL = "ROADMAP.md Queue 1 item 17 (the long tail)"
@@ -265,10 +420,6 @@ _PENDING: dict[str, tuple[str, str, str | None, bool, str]] = {
     "Demultiplex": ("Reads", "Demultiplexes pooled reads by barcodes", None, False, _TAIL),
     "IndividualGenomeBuilder": ("Reads", "Applies VCF variants to a genome FASTA", None, False, _TAIL),
     "GenomeAssemblyMask": ("Genomes", "Masks genome regions with N", None, False, _TAIL),
-    "MultisampleVariantsDetector": ("Discovery", "Joint population variant calling from multiple samples", None, False, _DEPTH),
-    "ReadDepthComparator": ("Discovery", "Case-control read-depth CNV detection (CNV-seq)", "CompareRD", False, _DEPTH),
-    "CoverageStats": ("Discovery", "Coverage uniformity statistics from alignments", None, False, _DEPTH),
-    "BasePairQualStats": ("Discovery", "Per-read-position mismatch rates vs the genome", "QualStats", False, _TAIL),
     "SingleReadsSimulator": ("Benchmark", "Simulates sequencing reads from a genome", None, False, _TAIL),
     "SingleIndividualSimulator": ("Benchmark", "Simulates a mutated individual genome with truth VCF", None, False, _TAIL),
     "VCFImpute": ("VariantsDownstream", "Imputes missing genotypes with a haplotype-cluster HMM", "ImputeVCF", False, _HMM),

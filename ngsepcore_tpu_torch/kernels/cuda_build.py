@@ -49,6 +49,12 @@ _SIGNATURES = {
         _P,  # out
         _P,  # stream
     ],
+    "viterbi_launch": [
+        _P, _P, _P,  # log_start, log_trans, log_emit
+        _I, _I, _I, _I,  # batch, T, S, per_step
+        _P, _P, _P,  # back, path, best
+        _P,  # stream
+    ],
 }
 
 _lock = threading.Lock()

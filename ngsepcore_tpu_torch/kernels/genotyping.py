@@ -201,17 +201,30 @@ def _screen_flag(ev32, ref, depth, total, het_rate: float, n: int):
     return (best_ev >= ref_ev - slack) & (total > 0)
 
 
-def _exact_sites(csub, Cd, refs, ref_codes_f, total_f, het_rate: float,
-                 min_quality: int, n: int):
-    """Stage 2 on the F flagged positions: float64 logcond = csub @ Cd,
-    posteriors with the 1e-20 truncation, the genotype decision with +0.01
-    margins (VariantDiscoverySNVQAlgorithm.getIndexesMaxGenotype), GQ, and
-    the interesting sites (decided non-homoref, ACGT reference, GQ >=
-    min_quality).  Returns (sidx, bi, bj, gq, ref_prob, logcond), sidx
-    indexing the flagged rows and the rest already taken at sidx."""
-    dev = csub.device
-    F = csub.shape[0]
-    logcond = (csub @ Cd).reshape(F, n, n)
+def _sum_genotypes(flat: torch.Tensor) -> torch.Tensor:
+    """Row sums of (F, G >= 4) in a fixed order of elementwise additions:
+    four running sums over columns g, g+4, g+8, ... then ((s0+s1)+s2)+s3,
+    then any columns left over.  From GQ ~120 up the last bits of this
+    sum decide 1 - best, and a library reduction orders its additions by
+    device; written out, the CPU and the card round alike (and for G = 16
+    the order is the one torch.sum takes on the CPU)."""
+    G = flat.shape[1]
+    acc = flat[:, :4]
+    for g in range(4, G - 3, 4):
+        acc = acc + flat[:, g : g + 4]
+    out = ((acc[:, 0] + acc[:, 1]) + acc[:, 2]) + acc[:, 3]
+    for g in range(G - G % 4, G):
+        out = out + flat[:, g]
+    return out
+
+
+def _posterior_decision(logcond, refs, het_rate: float, n: int):
+    """Posteriors with the 1e-20 truncation, the genotype decision with
+    +0.01 margins (VariantDiscoverySNVQAlgorithm.getIndexesMaxGenotype)
+    and GQ for F positions, from float64 logcond (F, n, n) and clamped
+    reference alleles refs (F,).  Returns (bi, bj, gq int32, ref_prob)."""
+    dev = logcond.device
+    F = logcond.shape[0]
     prior = torch.from_numpy(
         np.where(
             np.eye(n, dtype=bool),
@@ -223,7 +236,7 @@ def _exact_sites(csub, Cd, refs, ref_codes_f, total_f, het_rate: float,
     logmax = torch.amax(ev.reshape(F, n * n), dim=1)[:, None, None]
     rel = ev - logmax
     p = torch.where(rel < -20.0, 0.0, torch.pow(10.0, rel))
-    post = p / p.reshape(F, n * n).sum(dim=1)[:, None, None]
+    post = p / _sum_genotypes(p.reshape(F, n * n))[:, None, None]
     frows = torch.arange(F, device=dev)
     best = post[frows, refs, refs]
     bi = refs
@@ -245,14 +258,32 @@ def _exact_sites(csub, Cd, refs, ref_codes_f, total_f, het_rate: float,
             max=255.0,
         ),
     ).to(torch.int32)
-    interesting = (
+    return bi, bj, gq, ref_prob
+
+
+def _interesting(bi, bj, gq, refs, ref_codes, total, min_quality: int):
+    """Decided non-homoref calls on an ACGT reference with GQ >=
+    min_quality at covered positions."""
+    return (
         ((bi != refs) | (bj != refs))
-        & (ref_codes_f < 4)
+        & (ref_codes < 4)
         & (gq >= min_quality)
         & (gq > 0)
-        & (total_f > 0)
+        & (total > 0)
     )
-    sidx = torch.nonzero(interesting).squeeze(1)
+
+
+def _exact_sites(csub, Cd, refs, ref_codes_f, total_f, het_rate: float,
+                 min_quality: int, n: int):
+    """Stage 2 on the F flagged positions: float64 logcond = csub @ Cd,
+    the posterior decision, and the interesting sites.  Returns (sidx, bi,
+    bj, gq, ref_prob, logcond), sidx indexing the flagged rows and the rest
+    already taken at sidx."""
+    logcond = (csub @ Cd).reshape(csub.shape[0], n, n)
+    bi, bj, gq, ref_prob = _posterior_decision(logcond, refs, het_rate, n)
+    sidx = torch.nonzero(
+        _interesting(bi, bj, gq, refs, ref_codes_f, total_f, min_quality)
+    ).squeeze(1)
     return (
         sidx, bi[sidx].to(torch.int8), bj[sidx].to(torch.int8), gq[sidx],
         ref_prob[sidx], logcond[sidx],
@@ -377,6 +408,117 @@ def genotype_window_sparse(
         counts, strand_counts, total, counts.sum(dim=1), ref_codes,
         contribution, het_rate, min_quality, n_alleles,
     )
+
+
+# ---- multisample detector: sorted-call scatter + dense genotyper ---------
+
+def init_count_tensors(out_size: int, n_alleles: int = 4, *, device):
+    """Zeroed accumulators (counts (W, n, 31), strand counts (W, n, 2),
+    low-quality and total (W,)), int32 on `device`."""
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=device)
+    return (
+        z(out_size, n_alleles, N_QBINS),
+        z(out_size, n_alleles, 2),
+        z(out_size),
+        z(out_size),
+    )
+
+
+def accumulate_sorted_calls(
+    counts: torch.Tensor,  # (W, n, Q) int32
+    strand_counts: torch.Tensor,  # (W, n, 2) int32
+    low_qual: torch.Tensor,  # (W,) int32
+    total: torch.Tensor,  # (W,) int32
+    pos: torch.Tensor,  # (N,) int32 sorted 1-based positions
+    attr: torch.Tensor,  # (N,) int32 qual(5b) | allele<<5 | strand<<8
+    lo: int,  # first call index
+    w0: int,  # window start (1-based)
+    count: int,  # calls to scatter
+):
+    """Scatter calls [lo, lo+count) of the position-sorted call arrays
+    (aln_table.device_calls / expand_mrun_calls) into the (W, n, Q) count
+    tensors IN PLACE, and return them.
+
+    The JAX version relies on out-of-range scatter updates being dropped:
+    an N call (allele 4) and a quality above 30 index past the count
+    tensor, vanish from `counts` and still reach `total`/`low_qual`.  Here
+    such calls get weight zero at a clamped index."""
+    if lo < 0 or count < 0 or lo + count > pos.shape[0]:
+        raise ValueError(f"calls [{lo}, {lo + count}) outside the {pos.shape[0]} calls")
+    if count == 0:
+        return counts, strand_counts, low_qual, total
+    out_size, n, nq = counts.shape
+    a = attr[lo : lo + count].to(torch.int64)
+    rel = pos[lo : lo + count].to(torch.int64) - w0
+    valid = (a >= 0) & (rel >= 0) & (rel < out_size)
+    q = a & 31
+    al = (a >> 5) & 7
+    st = (a >> 8) & 1
+    low = valid & (q <= MIN_BASE_QS)
+    ok_strand = valid & (q > MIN_BASE_QS) & (al < n)
+    ok = ok_strand & (q < nq)
+    cell = torch.where(valid, rel, 0) * n + torch.clamp(al, max=n - 1)
+    counts.view(-1).index_add_(
+        0, cell * nq + torch.clamp(q, max=nq - 1), ok.to(torch.int32)
+    )
+    strand_counts.view(-1).index_add_(0, cell * 2 + st, ok_strand.to(torch.int32))
+    p = torch.where(valid, rel, 0)
+    low_qual.index_add_(0, p, low.to(torch.int32))
+    total.index_add_(0, p, valid.to(torch.int32))
+    return counts, strand_counts, low_qual, total
+
+
+def genotype_window_from_counts(
+    counts: torch.Tensor,  # (W, n, Q) int32
+    strand_counts: torch.Tensor,  # (W, n, 2) int32
+    total: torch.Tensor,  # (W,) int32
+    ref_codes: torch.Tensor,  # (W,) int8
+    contribution: torch.Tensor,  # (n, Q, n, n) float64
+    het_rate: float,
+    min_quality: int,
+    n_alleles: int = 4,
+) -> dict:
+    """Genotype EVERY position of an accumulated count window in float64
+    (no screen: the multisample detector reads each sample's call at the
+    union of all samples' sites) and compact the interesting sites.
+
+    Returns the per-site rows (site_idx ascending, bi, bj, gq, ref_prob,
+    depths, total, logcond, strand_counts; n_sites) and the per-position
+    arrays *_full (bi, bj, gq, ref_prob, total, depths).  Every site is
+    returned; the JAX version keeps the first 16,384 of a window."""
+    P = counts.shape[0]
+    n = n_alleles
+    logcond = (
+        counts.reshape(P, n * N_QBINS).to(torch.float64)
+        @ contribution.reshape(n * N_QBINS, n * n)
+    ).reshape(P, n, n)
+    ref_codes = ref_codes.to(torch.int64)
+    ref = torch.clamp(ref_codes, 0, n - 1)
+    bi, bj, gq, ref_prob = _posterior_decision(logcond, ref, het_rate, n)
+    depths = counts.sum(dim=2)
+    idx = torch.nonzero(
+        _interesting(bi, bj, gq, ref, ref_codes, total, min_quality)
+    ).squeeze(1)
+    bi = bi.to(torch.int8)
+    bj = bj.to(torch.int8)
+    return {
+        "site_idx": idx.to(torch.int32),
+        "n_sites": idx.shape[0],
+        "bi": bi[idx],
+        "bj": bj[idx],
+        "gq": gq[idx],
+        "ref_prob": ref_prob[idx],
+        "depths": depths[idx],
+        "total": total[idx],
+        "logcond": logcond[idx],
+        "strand_counts": strand_counts[idx],
+        "bi_full": bi,
+        "bj_full": bj,
+        "gq_full": gq,
+        "ref_prob_full": ref_prob,
+        "total_full": total,
+        "depths_full": depths,
+    }
 
 
 # ---- span-scatter genotyper ----------------------------------------------

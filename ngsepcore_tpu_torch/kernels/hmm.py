@@ -1,0 +1,181 @@
+"""Log-space HMM forward/backward/posterior/Viterbi on float64 tensors.
+
+Ref: src/ngsep/hmm/HMM.java:24-110 (interface), AbstractHMM.java:29-277
+(log10-space forward/backward/posterior decoding/Viterbi, Baum-Welch
+constants).  Counterpart of ngsepcore_tpu/kernels/hmm.py, whose recursions
+are lax.scan loops; here each is a step loop of vectorized (states,)
+updates on the device of its inputs.
+
+All probabilities are log10 like the reference (LogMath conventions).
+Emissions are supplied as a dense (T, S) log-emission matrix — the
+per-model emission logic (Poisson read depth, imputation haplotype
+clusters) builds that matrix and reuses these functions.  Transitions are
+(1, S, S), shared by every step, or (T-1, S, S).
+
+`viterbi_log` is the one recursion on a ported main path (the read-depth
+HMM callers, ~46,000 steps a sequence): on a CUDA tensor it launches the
+hand-written kernel csrc/viterbi.cu, on a CPU tensor it runs the plain step
+loop `viterbi_log_ref`.  forward_log, backward_log, posterior_log and
+baum_welch_expected_counts are plain step loops on either device.
+"""
+from __future__ import annotations
+
+import torch
+
+from .cuda_build import check, library
+
+NEG_INF = -1e30
+MAX_STATES = 32  # one warp lane a state (csrc/viterbi.cu)
+
+
+def _log10sumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    # the JAX package's arithmetic (hmm.py:23-29), not torch.logsumexp, so
+    # results stay within rounding of it
+    m = torch.amax(x, dim=dim, keepdim=True)
+    finite = torch.isfinite(m)
+    m_safe = torch.where(finite, m, 0.0)
+    s = torch.sum(torch.pow(10.0, x - m_safe), dim=dim, keepdim=True)
+    out = torch.where(finite, m_safe + torch.log10(s), m)
+    return out.squeeze(dim)
+
+
+def _check_hmm_args(log_start, log_trans, log_emit):
+    """Shapes, dtype and device of (start, trans, emit); True when the
+    transitions differ per step."""
+    for name, t in (("log_start", log_start), ("log_trans", log_trans),
+                    ("log_emit", log_emit)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float64:
+            raise TypeError(f"{name} must be a float64 tensor")
+        if t.device != log_emit.device:
+            raise ValueError("log_start, log_trans and log_emit must share a device")
+    if log_emit.dim() != 2 or log_emit.shape[0] < 1 or log_emit.shape[1] < 1:
+        raise ValueError("log_emit must be (T, S) with T >= 1 and S >= 1")
+    T, S = log_emit.shape
+    if log_start.shape != (S,):
+        raise ValueError(f"log_start must be ({S},)")
+    if log_trans.dim() != 3 or log_trans.shape[1:] != (S, S) or (
+        log_trans.shape[0] not in (1, T - 1)
+    ):
+        raise ValueError(f"log_trans must be (1, {S}, {S}) or ({T - 1}, {S}, {S})")
+    return log_trans.shape[0] != 1
+
+
+def forward_log(log_start, log_trans, log_emit):
+    """Forward recursion; returns (log_alpha (T,S), log_likelihood)."""
+    per_step = _check_hmm_args(log_start, log_trans, log_emit)
+    T = log_emit.shape[0]
+    log_alpha = torch.empty_like(log_emit)
+    alpha = log_start + log_emit[0]
+    log_alpha[0] = alpha
+    for t in range(1, T):
+        trans_t = log_trans[t - 1 if per_step else 0]
+        alpha = _log10sumexp(alpha[:, None] + trans_t, 0) + log_emit[t]
+        log_alpha[t] = alpha
+    return log_alpha, _log10sumexp(log_alpha[-1], 0)
+
+
+def backward_log(log_trans, log_emit):
+    """Backward recursion; returns log_beta (T,S)."""
+    T, S = log_emit.shape
+    per_step = _check_hmm_args(log_emit.new_zeros(S), log_trans, log_emit)
+    log_beta = torch.empty_like(log_emit)
+    beta = log_emit.new_zeros(S)
+    log_beta[T - 1] = beta
+    for t in range(T - 2, -1, -1):
+        trans_t = log_trans[t if per_step else 0]
+        beta = _log10sumexp(trans_t + (log_emit[t + 1] + beta)[None, :], 1)
+        log_beta[t] = beta
+    return log_beta
+
+
+def posterior_log(log_start, log_trans, log_emit):
+    """State posteriors per position: returns (posteriors (T,S) in log10,
+    log-likelihood)."""
+    log_alpha, ll = forward_log(log_start, log_trans, log_emit)
+    un = log_alpha + backward_log(log_trans, log_emit)
+    return un - _log10sumexp(un, 1)[:, None], ll
+
+
+def viterbi_log_ref(log_start, log_trans, log_emit):
+    """Plain step loop of viterbi_log on the tensors' device: the first
+    maximum wins a tie, at every step and at the end (torch.max's rule,
+    and jnp.argmax's)."""
+    per_step = _check_hmm_args(log_start, log_trans, log_emit)
+    T, S = log_emit.shape
+    delta = log_start + log_emit[0]
+    back = torch.empty((T - 1, S), dtype=torch.int64, device=log_emit.device)
+    for t in range(1, T):
+        trans_t = log_trans[t - 1 if per_step else 0]
+        top, back[t - 1] = torch.max(delta[:, None] + trans_t, dim=0)
+        delta = top + log_emit[t]
+    best, last = torch.max(delta, dim=0)
+    # the backtrace is T dependent one-element reads: walk it on the host
+    back = back.cpu().numpy()
+    path = [int(last)]
+    for t in range(T - 2, -1, -1):
+        path.append(int(back[t, path[-1]]))
+    path = torch.tensor(path[::-1], dtype=torch.int32, device=log_emit.device)
+    return path, best
+
+
+def back_pointer_scratch(T: int, S: int, device) -> torch.Tensor:
+    """The kernel's back-pointer scratch for one sequence: a 64-bit word
+    per state and block of 8 steps, one byte a step."""
+    return torch.empty(((T + 6) // 8, S), dtype=torch.int64, device=device)
+
+
+def viterbi_log(log_start, log_trans, log_emit):
+    """Most likely state path; returns (path (T,) int32, best log prob).
+    CPU tensors run viterbi_log_ref; CUDA tensors launch the kernel.
+
+    Ref: AbstractHMM.getViterbiPath.
+    """
+    if log_emit.device.type == "cpu":
+        return viterbi_log_ref(log_start, log_trans, log_emit)
+    if log_emit.device.type != "cuda":
+        raise ValueError(f"unsupported device {log_emit.device}")
+    per_step = _check_hmm_args(log_start, log_trans, log_emit)
+    T, S = log_emit.shape
+    if S > MAX_STATES:
+        raise ValueError(f"{S} states: the Viterbi kernel takes at most {MAX_STATES}")
+    dev = log_emit.device
+    log_start = log_start.contiguous()
+    log_trans = log_trans.contiguous()
+    log_emit = log_emit.contiguous()
+    back = back_pointer_scratch(T, S, dev)
+    path = torch.empty(T, dtype=torch.int32, device=dev)
+    best = torch.empty((), dtype=torch.float64, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.viterbi_launch(
+            log_start.data_ptr(), log_trans.data_ptr(), log_emit.data_ptr(),
+            1, T, S, int(per_step), back.data_ptr(), path.data_ptr(),
+            best.data_ptr(), stream,
+        )
+    check("viterbi_log", rc)
+    viterbi_log.launches += 1
+    return path, best
+
+
+viterbi_log.launches = 0
+
+
+def baum_welch_expected_counts(log_start, log_trans, log_emit):
+    """E-step statistics: expected transition counts (S,S) and per-position
+    state posteriors (T,S), both in linear space, and the log-likelihood.
+
+    Ref: AbstractHMM Baum-Welch accumulation (calculateForward/Backward +
+    expected transitions).
+    """
+    log_alpha, ll = forward_log(log_start, log_trans, log_emit)
+    log_beta = backward_log(log_trans, log_emit)
+    # xi[t,i,j] = alpha[t,i] + trans[t,i,j] + emit[t+1,j] + beta[t+1,j] - ll
+    xi = (
+        log_alpha[:-1, :, None]
+        + log_trans
+        + (log_emit[1:] + log_beta[1:])[:, None, :]
+        - ll
+    )
+    expected_trans = torch.sum(torch.pow(10.0, xi), dim=0)
+    return expected_trans, torch.pow(10.0, log_alpha + log_beta - ll), ll

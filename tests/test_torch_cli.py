@@ -141,10 +141,8 @@ def test_unported_commands_name_their_roadmap_item(argv, item):
 def test_unported_detector_options_name_their_roadmap_item():
     from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
 
-    for kw, item in (
-        ({"find_cnvs": True}, "item 11"),
-        ({"find_svs": True}, "item 11"),
-        ({"run_long_read_svs": True}, "item 12"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            SingleSampleVariantsDetector(None, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        SingleSampleVariantsDetector(None, device="cpu", run_long_read_svs=True)
+    # the read-depth and read-pair stages are ported
+    det = SingleSampleVariantsDetector(None, device="cpu", find_cnvs=True, find_svs=True)
+    assert det.find_cnvs and det.find_svs

@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 import ngsepcore_tpu_torch
@@ -47,9 +49,38 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "ngsepcore_tpu_torch.kernels.pairwise_cuda",
         "ngsepcore_tpu_torch.kernels.shear_pileup",
         "ngsepcore_tpu_torch.index.minimizer_table",
+        "ngsepcore_tpu_torch.kernels.hmm",
+        "ngsepcore_tpu_torch.call.multisample",
+        "ngsepcore_tpu_torch.call.read_depth",
+        "ngsepcore_tpu_torch.call.read_pair_sv",
+        "ngsepcore_tpu_torch.call.coverage",
+        "ngsepcore_tpu_torch.math.distribution",
     ):
         assert mod in got["modules"]
     assert got["jax"] == []
     assert got["tpu"] == []
     assert got["triton"] == []
     assert got["built"] is False
+
+
+_SCRIPT_PROBE = r"""
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+loaded = lambda p: sorted(m for m in sys.modules if m == p or m.startswith(p + "."))
+print(json.dumps({"jax": loaded("jax"), "tpu": loaded("ngsepcore_tpu")}))
+"""
+
+
+@pytest.mark.parametrize("script", ["chip_smoke", "gotoh_bench", "viterbi_bench"])
+def test_card_scripts_import_without_jax(script):
+    """The scripts that run on the machine with the GPU import like the
+    package: no jax, nothing of ngsepcore_tpu, nothing run at import."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run(
+        [sys.executable, "-c", _SCRIPT_PROBE, script],
+        capture_output=True, text=True, env=env, cwd=root, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"jax": [], "tpu": []}
