@@ -1,6 +1,6 @@
 """Smoke run of ngsepcore_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 2c,14]
 
 Builds the CUDA kernels from ngsepcore_tpu_torch/csrc (first use), holds
 each against its plain PyTorch version on the card, full plane and edge
@@ -31,14 +31,27 @@ algorithms, the detector's read-pair SV stage and the four new CLI
 commands.  Phase 13 calls 3 individuals of phase 5's genome jointly (6x
 each, 552,000 reads) and runs the four CNV algorithms on the one that
 carries a 20 kb duplication and a 10 kb deletion, with accuracy gates.
+The long-read path follows.  Phase 2c holds the run-jump walk kernel
+(csrc/run_walk.cu, behind every Gotoh launch) against the plain walk on
+Gotoh planes of every path's shapes and of the edges (tier 2's budget,
+saturated runs, exhausted budgets, empty queries, a plane past 2^31
+cells) and times it in CUDA graphs; phase 14 runs LongReadsAligner and
+the long-read SV caller at 60 kb on CUDA against the CPU, in process and
+through the CLI (ReadsAligner -p PACBIO, SingleSampleVariantsDetector
+-runLongReadSVs), with a planted insertion and deletion to find; phase
+15 aligns bench_configs.bench_long_reads' 600 reads of 10 kb against
+4 Mbp with its accuracy gates, then calls long-read SVs on them.
+With --phases only the listed phases run (and the ones whose data they
+use; 0 and 1 always run).
 Prints one line per phase and exits nonzero at the first failure.  The
 last lines are a JSON object of the kernels (launch counts from the timed
-runs of phases 5, 6, 10 and 13, errors and times measured here; the tier-2
-entries at the launched shape that takes most of their time), the card's
-name and power limit, and the result line.  A kernel's bound is the least time the card could take: the
+runs of phases 5, 6, 10, 13 and 15, errors and times measured here; the
+tier-2 and long-read entries at the launched shape that takes most of
+their time), the card's name and power limit, and the result line.  A kernel's bound is the least time the card could take: the
 larger of its bytes (inputs read once, outputs written once) over the
 memory rate and its integer operations over the INT32 issue rate (for the
-Viterbi kernel: its serial chain of dependent instructions over the clock).
+Viterbi kernel: its serial chain of dependent instructions over the clock;
+for the walk: its longest chain of dependent loads at one L2 hit each).
 
 Imports torch, numpy and the port only (bench.py's gates are numpy).
 """
@@ -102,6 +115,37 @@ def cuda_ms(fn, reps: int = 5, calls: int = 1) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one fn(): `calls` calls captured in one CUDA graph,
+    the replays timed with CUDA events (median of `reps` after a warm-up
+    replay), per call.  For kernels that run shorter than the Python that
+    launches them, where cuda_ms would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # builds, allocator pools
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return float(np.median(times))
+
+
 # H100 SXM: HBM3 rate from the data sheet; INT32 issue as 132 SMs x 64
 # lanes x 1.98 GHz boost (half of the 67 TFLOP/s float32 lanes, one
 # operation each), since the data sheet gives no integer rate
@@ -146,6 +190,50 @@ def viterbi_bound(T: int, S: int):
     return ms, by, t_bytes, t_chain
 
 
+# the run-jump walk (csrc/run_walk.cu) is a chain of dependent loads: each
+# step's address comes from the word the step before loaded.  A load that
+# hits the L2 (the Gotoh kernel has just written the plane) is taken as 260
+# cycles at the boost clock, the order that pointer-chase microbenchmarks of
+# Hopper report (Luo et al., "Benchmarking and Dissecting the Nvidia Hopper
+# GPU Architecture", 2024); phase 2c prints the kernel's own step time on a
+# lone chain beside it
+L2_HIT_CYCLES = 260
+
+
+def walk_bound(B: int, R: int, loads):
+    """(bound_ms, bound_by) of the walk over B alignments with budget R:
+    bytes are the three (B,) int32 inputs, the plane words the walk reads
+    (`loads`, per row, from walk_loads), the (B, R) int32 rop and rlen and
+    the four (B,) outputs; the chain is the longest row's loads at one L2
+    hit each ("operations": dependent instructions, as for the Viterbi)."""
+    n_loads = int(loads.sum())
+    t_bytes = (12 * B + 4 * n_loads + 8 * B * R + 13 * B) / HBM_BYTES_PER_S * 1e3
+    t_chain = int(loads.max(initial=0)) * L2_HIT_CYCLES / SM_CLOCK_HZ * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "operations")
+
+
+def walk_loads(plane, end_i, end_j, start_k, R):
+    """Plane words each row's walk reads (its steps inside the alignment,
+    at most R): the data-dependent work of the walk, counted on the
+    tensors' device."""
+    import torch
+
+    B = plane.shape[1]
+    bb = torch.arange(B, device=plane.device)
+    i, j, k = end_i.long(), end_j.long(), start_k.long()
+    loads = torch.zeros(B, dtype=torch.int64, device=plane.device)
+    for _ in range(R):
+        live = (i > 0) & (j > 0)
+        w = plane[(i - 1).clamp(min=0), bb, (j - 1).clamp(min=0)].long() & 0xFFFFFFFF
+        run = (w >> (8 * k + 8)) & 255
+        r = torch.where(run == 255, 254, run)
+        i = torch.where(live & (k <= 1), i - r, i)
+        j = torch.where(live & (k != 1), j - r, j)
+        k = torch.where(live & (run != 255), (w >> (2 * k)) & 3, k)
+        loads += live
+    return loads.cpu().numpy()
+
+
 def reset_counts(counters) -> None:
     """Set every kernel's launch count to 0."""
     for c in counters:
@@ -170,6 +258,18 @@ def tier2_shapes(gotoh) -> dict:
 
 def tier2_launches(shapes: dict) -> dict:
     return {side: sum(by.values()) for side, by in shapes.items()}
+
+
+def tier2_walk_launches(walk) -> dict:
+    """Walk launches of the tier-2 flanks since the last reset_counts, from
+    the walk's own counter: {flank side: n}.  Tier 2 walks with the budget
+    R = Lq + Ls (tier 3 and long reads with Lq // 8 + 8); the left flank's
+    subject start is free, the right flank's is not."""
+    out = {"left": 0, "right": 0}
+    for (B, Lq, Ls, R, free_start2), n in walk.launch_shapes.items():
+        if R == Lq + Ls:
+            out["left" if free_start2 else "right"] += n
+    return out
 
 
 def shapes_text(by: Counter) -> str:
@@ -352,8 +452,53 @@ def _edge_cases(rng):
     ]
 
 
+def _long_read_chunk(rng, B, W, kind):
+    """Long-read segment jobs (align/long_reads.LongReadsAligner._chain): a
+    reference stretch and the read's copy of it with 1% substitutions and
+    1% indels, spans spread over the bucket (1-128 at W 128, 129-512 at W
+    512); a start segment's window begins 5 bases early (free subject
+    start), an end segment's ends 5 bases late (free subject end).  N
+    padding."""
+    q = np.full((B, W), 4, np.int8)
+    s = np.full((B, W), 4, np.int8)
+    ql = np.zeros(B, np.int32)
+    sl = np.zeros(B, np.int32)
+    lo = 1 if W == 128 else 129
+    for b in range(B):
+        core = rng.integers(0, 4, int(rng.integers(lo, W + 1))).astype(np.int8)
+        read = core.copy()
+        sub = rng.random(len(read)) < 0.01
+        read[sub] = (read[sub] + 1) % 4
+        for p in np.nonzero(rng.random(len(core)) < 0.01)[0][::-1]:
+            read = (np.delete(read, p) if rng.random() < 0.5
+                    else np.insert(read, p, rng.integers(0, 4)))
+        extra = rng.integers(0, 4, 5).astype(np.int8)
+        ref = {"start": np.concatenate([extra, core]),
+               "end": np.concatenate([core, extra])}.get(kind, core)
+        read, ref = read[:W], ref[:W]
+        q[b, : len(read)], s[b, : len(ref)] = read, ref
+        ql[b], sl[b] = len(read), len(ref)
+    return q, ql, s, sl
+
+
+def _skip_seventh(rng, B, W):
+    """Queries that skip one subject base in every seven: a deletion run
+    every six matches, more runs than the tier-3 walk budget allows."""
+    s = rng.integers(0, 4, (B, W)).astype(np.int8)
+    q = np.full((B, W), 4, np.int8)
+    kept = s[:, np.arange(W) % 7 != 6]
+    q[:, : kept.shape[1]] = kept
+    return q, np.full(B, kept.shape[1], np.int32), s, np.full(B, W, np.int32)
+
+
 TIER2_LEFT = dict(free_end1=True, free_start2=True, free_end2=False)
 TIER2_RIGHT = dict(free_start1=True, free_start2=False, free_end2=True)
+# the long-read segment kinds' free subject ends (long_reads._run_dp_jobs)
+LONG_READ_CFGS = {
+    "center": dict(free_start2=False, free_end2=False),
+    "start": dict(free_start2=True, free_end2=False),
+    "end": dict(free_start2=False, free_end2=True),
+}
 _GOTOH_CFGS = (
     dict(free_start2=True, free_end2=True),
     dict(free_start2=False, free_end2=False),
@@ -401,13 +546,18 @@ def phase_gotoh():
         ("tier-2 right flank 256x160x224", _tier2_chunk(rng, 256, "right"), TIER2_RIGHT),
     ]
     cases += timed_t2
+    timed_lr = [
+        (f"long reads {kind} 512x{W}x{W}", _long_read_chunk(rng, 512, W, kind), cfg)
+        for W in (128, 512) for kind, cfg in LONG_READ_CFGS.items()
+    ]
+    cases += timed_lr
     cases.append(("ragged 1000x160x200", _noisy(rng, 1000, 160, 200), {}))
     for cfg in _GOTOH_CFGS:
         cases.append((f"pallas-test 256x48x128 {cfg}", _noisy(rng, 256, 48, 128), cfg))
     for name, data in _edge_cases(rng):
         for cfg in _GOTOH_CFGS:
             cases.append((f"{name} {cfg}", data, cfg))
-    timed_names = {n for n, _ in timed} | {n for n, _, _ in timed_t2}
+    timed_names = {n for n, _ in timed} | {n for n, _, _ in timed_t2 + timed_lr}
     timing = {}
     n_cells = 0
     for name, (q, ql, s, sl), cfg in cases:
@@ -432,17 +582,170 @@ def phase_gotoh():
             B, Lq, Ls = q.shape[0], q.shape[1], s.shape[1]
             ms = cuda_ms(lambda: gotoh_forward_plane(*args, **cfg), calls=20)
             old = cuda_ms(lambda: gotoh_forward_plane_block(*args, **cfg), calls=20)
+            g_ms = graph_ms(lambda: gotoh_forward_plane(*args, **cfg))
             plain = cuda_ms(lambda: gotoh_forward_plane_ref(*args, **cfg))
             b_ms, b_by = gotoh_bound(B, Lq, Ls)
             log(f"  time {name}: kernel {ms:.4f} ms, block kernel {old:.4f} ms "
-                f"(medians of 5 x 20 calls), plain {plain:.3f} ms (median of 5); bound "
-                f"{b_ms:.4f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it, "
-                f"block kernel at {100 * b_ms / old:.1f}%")
-            timing[name] = dict(ms=ms, plain_ms=plain, max_abs_err=err,
-                                bound_ms=b_ms, bound_by=b_by, block_ms=old)
+                f"(medians of 5 x 20 calls), kernel {g_ms:.4f} ms in a CUDA graph of "
+                f"20 calls, plain {plain:.3f} ms (median of 5); bound {b_ms:.4f} ms by "
+                f"{b_by}, kernel at {100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% "
+                f"in the graph), block kernel at {100 * b_ms / old:.1f}%")
+            timing[name] = dict(ms=ms, plain_ms=plain, max_abs_err=err, graph_ms=g_ms,
+                                bound_ms=b_ms, bound_by=b_by, block_ms=old,
+                                shape=f"{B}x{Lq}x{Ls}",
+                                kernel="block" if Ls > 256 else "warp")
         del ref
     log(f"phase 2 gotoh: {len(cases)} cases, {n_cells} plane cells compared, "
         "0 differing")
+    return timing
+
+
+def _wide_plane(rng, B, Lq, Ls):
+    """A plane of random words with pointer fields 0..2 and run lengths
+    1..255 (saturated ones included), built slab by slab on the card: more
+    than 2^31 cells at B 2048 x Lq 1100 x Ls 1024, so that a 32-bit offset
+    would read the wrong word."""
+    import torch
+
+    plane = torch.empty((Lq, B, Ls), dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 31)))
+    for i in range(Lq):
+        f = lambda hi: torch.randint(0, hi, (3, B, Ls), dtype=torch.int32,
+                                     device="cuda", generator=gen)
+        src, run = f(3), f(255) + 1
+        run[2] &= 127  # the top field stays below the sign bit
+        plane[i] = (src[0] | (src[1] << 2) | (src[2] << 4) | (run[0] << 8)
+                    | (run[1] << 16) | (run[2] << 24))
+    return plane
+
+
+def phase_walk():
+    """The run-jump walk kernel (csrc/run_walk.cu) against the plain walk
+    on the card, every output equal, on planes from the Gotoh kernel at the
+    shapes of phase 2 and of the main paths; the shapes that the main paths
+    launch are timed beside the plain walk and the bound.  One call runs
+    under torch.cuda.set_sync_debug_mode("error"): the kernel's route never
+    waits for the card.  Returns {case: timing}."""
+    import torch
+
+    from ngsepcore_tpu_torch.kernels import pairwise
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import gotoh_forward_plane
+
+    rng = np.random.default_rng(6)
+    tier3 = pairwise._walk_runs_for
+    timed = [
+        ("fused tier 3 2048x160x160", _bench_chunk(rng, 2048, 160, 160), {}, tier3(160)),
+        ("classic tier 3 2048x192x192", _classic_chunk(rng, 2048), {}, tier3(192)),
+        ("tier-2 left flank 256x160x384", _tier2_chunk(rng, 256, "left", Ls=384),
+         TIER2_LEFT, 160 + 384),
+        ("tier-2 right flank 256x160x224", _tier2_chunk(rng, 256, "right"),
+         TIER2_RIGHT, 160 + 224),
+    ] + [
+        (f"long reads {kind} 512x{W}x{W}", _long_read_chunk(rng, 512, W, kind), cfg,
+         tier3(W))
+        for W in (128, 512) for kind, cfg in LONG_READ_CFGS.items()
+    ]
+    empty = _tier2_chunk(rng, 256, "left")
+    empty[1][::4] = 0
+    cases = timed + [
+        ("runs past 255, R = Lq + Ls", _saturating(rng, 30, 300, 256), {}, 556),
+        ("budget runs out 256x160x160", _skip_seventh(rng, 256, 160), {}, tier3(160)),
+        ("empty query with a free query end", empty, TIER2_LEFT, 160 + 224),
+        ("long reads budget runs out 512x512x512",
+         _skip_seventh(rng, 512, 512), LONG_READ_CFGS["center"], tier3(512)),
+    ]
+    for name, data in _edge_cases(rng):
+        for cfg in (_GOTOH_CFGS[0], TIER2_LEFT):
+            Lq, Ls = data[0].shape[1], data[2].shape[1]
+            cases.append((f"{name} {cfg}", data, cfg, tier3(Lq)))
+            cases.append((f"{name} {cfg}, R = Lq + Ls", data, cfg, Lq + Ls))
+    timed_names = {c[0] for c in timed}
+    timing = {}
+
+    def compare(name, plane, score, end_i, end_j, start_k, R, fs2):
+        B = plane.shape[1]
+        got = pairwise._runs_from_plane(plane, score, end_i, end_j, start_k, B, R, fs2)
+        ref = pairwise._runs_from_plane_ref(plane, score, end_i, end_j, start_k, B, R, fs2)
+        bad = {k: int((got[k] != ref[k]).sum()) for k in ref}
+        if any(bad.values()) or any(got[k].dtype != ref[k].dtype for k in ref):
+            fail(f"the walk kernel disagrees with the plain walk on {name}: {bad}")
+        return got
+
+    n_rows = 0
+    for name, (q, ql, s, sl), cfg, R in cases:
+        args = [torch.from_numpy(a).cuda() for a in (q, ql, s, sl)]
+        plane, score, end_i, end_j, start_k = gotoh_forward_plane(*args, **cfg)
+        fs2 = cfg.get("free_start2", True)
+        got = compare(name, plane, score, end_i, end_j, start_k, R, fs2)
+        torch.cuda.synchronize()
+        B, Lq, Ls = plane.shape[1], plane.shape[0], plane.shape[2]
+        n_rows += B
+        ok = int(got["walk_ok"].sum())
+        log(f"phase 2c walk {name}, R {R}: equal on {B} rows; walk_ok {ok} of {B}, "
+            f"runs up to {int(got['n_runs'].max())}, longest run {int(got['rlen'].max())}")
+        if "budget runs out" in name and ok == B:
+            fail(f"no row ran out of its budget on {name}")
+        if name.startswith("runs past") and int(got["rlen"].max()) <= 255:
+            fail("no run past 255 on the saturating case")
+        if name.startswith("empty query"):
+            rows = torch.from_numpy(ql == 0).cuda()
+            if not bool((got["n_ops"][rows] == 0).all()) or int(rows.sum()) == 0:
+                fail("the empty-query rows emitted columns")
+        if name in timed_names:
+            wargs = (plane, score, end_i, end_j, start_k, B, R, fs2)
+            ms = cuda_ms(lambda: pairwise._runs_from_plane(*wargs), calls=20)
+            g_ms = graph_ms(lambda: pairwise._runs_from_plane(*wargs))
+            plain = cuda_ms(lambda: pairwise._runs_from_plane_ref(*wargs))
+            loads = walk_loads(plane, end_i, end_j, start_k, R)
+            b_ms, b_by = walk_bound(B, R, loads)
+            log(f"  time {name} R {R}: kernel {ms:.4f} ms (median of 5 x 20 calls), "
+                f"{g_ms:.4f} ms in a CUDA graph of 20 calls, plain {plain:.3f} ms "
+                f"(median of 5); plane words read {int(loads.sum())}, longest chain "
+                f"{int(loads.max())}; bound {b_ms:.4f} ms by {b_by}, kernel at "
+                f"{100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% in the graph)")
+            timing[name] = dict(ms=ms, plain_ms=plain, max_abs_err=0, bound_ms=b_ms,
+                                bound_by=b_by, graph_ms=g_ms,
+                                shape=f"{B}x{Lq}x{Ls} R {R}")
+        del plane, got
+    # one chain alone: the kernel's own time a dependent step on this card
+    q, ql, s, sl = _skip_seventh(rng, 1, 1024)
+    args = [torch.from_numpy(a).cuda() for a in (q, ql, s, sl)]
+    plane, score, end_i, end_j, start_k = gotoh_forward_plane(*args, free_start2=False,
+                                                             free_end2=False)
+    wargs = (plane, score, end_i, end_j, start_k, 1, 4096, False)
+    ms1 = graph_ms(lambda: pairwise._runs_from_plane(*wargs))
+    steps = int(walk_loads(plane, end_i, end_j, start_k, 4096).max())
+    zero = end_i * 0  # a walk that is done before its first step
+    ms0 = graph_ms(lambda: pairwise._runs_from_plane(plane, score, zero, zero, start_k,
+                                                     1, 4096, True))
+    log(f"  lone chain of {steps} steps: {ms1:.4f} ms, {ms0:.4f} ms for a walk of "
+        f"0 steps; {1e6 * (ms1 - ms0) / max(steps, 1):.1f} ns a step beside the "
+        f"{1e9 * L2_HIT_CYCLES / SM_CLOCK_HZ:.1f} ns the bound takes")
+    # offsets past 2^31 cells
+    B, Lq, Ls = 2048, 1100, 1024
+    plane = _wide_plane(rng, B, Lq, Ls)
+    end_i = torch.full((B,), Lq, dtype=torch.int32, device="cuda")
+    end_j = torch.from_numpy(rng.integers(Ls // 2, Ls + 1, B).astype(np.int32)).cuda()
+    start_k = torch.from_numpy(rng.integers(0, 3, B).astype(np.int32)).cuda()
+    got = compare("a plane of more than 2^31 cells", plane, end_j * 0, end_i, end_j,
+                  start_k, 72, False)
+    log(f"phase 2c walk {B}x{Lq}x{Ls} ({B * Lq * Ls} cells), R 72: equal; runs up to "
+        f"{int(got['n_runs'].max())}")
+    del plane, got
+    torch.cuda.empty_cache()
+    # no host sync on the kernel's route
+    q, ql, s, sl = _bench_chunk(rng, 2048, 160, 160)
+    args = [torch.from_numpy(a).cuda() for a in (q, ql, s, sl)]
+    plane, score, end_i, end_j, start_k = gotoh_forward_plane(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pairwise._runs_from_plane(plane, score, end_i, end_j, start_k, 2048, 28, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"phase 2c walk: {len(cases) + 1} cases, {n_rows} rows equal; one call under "
+        "set_sync_debug_mode('error') ran without a sync")
     return timing
 
 
@@ -1104,13 +1407,14 @@ def phase_str_real_size(counters, genome, reads, truth, table, tandem, metrics5,
     launches = {c.__name__: c.launches for c in counters}
     shapes = tier2_shapes(counters[0])
     t2 = tier2_launches(shapes)
+    t2_walk = tier2_walk_launches(counters[1])
     al = pipe.aligner
     log(f"phase 10 known STRs at {GENOME_MBP} Mbp, {len(strs['chr1'])} arrays "
         f"({len(tandem)} planted): {dt:.3f}s = {len(reads) / dt:.1f} reads/s (first "
         f"run with the catalogue); {len(records)} records; tier-2 cells "
         f"{al.tier2_reads} (skipped for a region too long: {al.tier2_skipped}); "
         f"tier-3 jobs {al.complete_alns}; launches {launches}, of them tier-2 "
-        f"flanks {t2}")
+        f"flanks {t2} (Gotoh), {t2_walk} (walk)")
     for side, by in shapes.items():
         log(f"  tier-2 {side} flank launches: {shapes_text(by)}")
     for name, (total, calls) in sorted(
@@ -1129,10 +1433,11 @@ def phase_str_real_size(counters, genome, reads, truth, table, tandem, metrics5,
     if acc["gates"]:
         fail("known-STR accuracy gates: " + "; ".join(acc["gates"]))
     if al.tier2_reads == 0 or (
-        device == "cuda" and min(list(t2.values()) + list(launches.values())) == 0
+        device == "cuda"
+        and min(list(t2.values()) + list(t2_walk.values()) + list(launches.values())) == 0
     ):
-        fail(f"the known-STR run did not launch every kernel: {launches}, {t2}")
-    return launches, shapes
+        fail(f"the known-STR run did not launch every kernel: {launches}, {t2}, {t2_walk}")
+    return launches, shapes, t2_walk
 
 
 def _tier2_args(side, shape):
@@ -1151,8 +1456,8 @@ def phase_tier2_shapes(shapes):
     shape that takes most of that time on each side, and the widest one,
     also get the plain version's time and the bound; the first is the
     side's entry in the kernels line.  Then the run-jump walk of
-    affine_gap_align_batch at the left side's shape, with and without its
-    early exit."""
+    affine_gap_align_batch on each side's first shape, kernel against the
+    plain walk."""
     import torch
 
     from ngsepcore_tpu_torch.kernels import pairwise
@@ -1203,30 +1508,30 @@ def phase_tier2_shapes(shapes):
                     ms=ms, plain_ms=plain, max_abs_err=per[shape][2], bound_ms=b_ms,
                     bound_by=b_by,
                     shape=f"{B}x{Lq}x{Ls}", kernel=kern, total_ms=total)
-        if side == "left":
-            args = _tier2_args(side, top)
-
-            def walk_s():
-                times = []
-                for _ in range(6):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    pairwise.affine_gap_align_batch(*args, **cfg)
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-                return float(np.median(times[1:]))
-
-            with_exit = walk_s()
-            keep = pairwise.WALK_CHECK_FROM
-            pairwise.WALK_CHECK_FROM = 1 << 30  # never ask: walk the whole budget
-            try:
-                without = walk_s()
-            finally:
-                pairwise.WALK_CHECK_FROM = keep
-            log(f"  affine_gap_align_batch at {top[0]}x{top[1]}x{top[2]} (kernel, "
-                f"walk of up to {top[1] + top[2]} steps, ops): {1e3 * with_exit:.2f} ms "
-                f"a call with the walk's early exit, {1e3 * without:.2f} ms without "
-                "(host wall, medians of 5)")
+        # the run-jump walk of affine_gap_align_batch (budget Lq + Ls) on
+        # the plane of the shape that takes most of the side's kernel time
+        B, Lq, Ls, _ = top
+        args = _tier2_args(side, top)
+        plane, score, end_i, end_j, start_k = gotoh_forward_plane(*args, **cfg)
+        wargs = (plane, score, end_i, end_j, start_k, B, Lq + Ls, cfg["free_start2"])
+        got = pairwise._runs_from_plane(*wargs)
+        ref = pairwise._runs_from_plane_ref(*wargs)
+        if any(not torch.equal(got[k], ref[k]) for k in ref):
+            fail(f"the walk kernel disagrees with the plain walk at the tier-2 {side} "
+                 f"shape {top}")
+        ms = cuda_ms(lambda: pairwise._runs_from_plane(*wargs), calls=20)
+        g_ms = graph_ms(lambda: pairwise._runs_from_plane(*wargs))
+        plain = cuda_ms(lambda: pairwise._runs_from_plane_ref(*wargs))
+        b_ms, b_by = walk_bound(B, Lq + Ls, walk_loads(plane, end_i, end_j, start_k,
+                                                       Lq + Ls))
+        log(f"  {side} flank walk at {B}x{Lq}x{Ls}, R {Lq + Ls}: kernel {ms:.4f} ms "
+            f"(median of 5 x 20 calls), {g_ms:.4f} ms in a CUDA graph of 20 calls, "
+            f"plain {plain:.3f} ms (median of 5); bound {b_ms:.4f} ms by {b_by}, kernel "
+            f"at {100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% in the graph)")
+        entries[side]["walk"] = dict(ms=ms, plain_ms=plain, max_abs_err=0, bound_ms=b_ms,
+                                     bound_by=b_by, graph_ms=g_ms,
+                                     shape=f"{B}x{Lq}x{Ls} R {Lq + Ls}")
+        del plane, got, ref
     return entries
 
 
@@ -1729,82 +2034,320 @@ def phase_population_real_size(counters, genome, table, in_repeat, device="cuda"
 
 
 # ---------------------------------------------------------------------------
-def main() -> None:
+LR_INS_AT, LR_INS_LEN = 15_000, 80  # 0-based insertion point in the reads' genome
+LR_DEL_AT, LR_DEL_LEN = 40_000, 100  # 0-based first deleted base
+LR_BATCH = 128  # bench_configs.bench_long_reads' batch
+
+
+def _genome_of_codes(name, codes):
+    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
+    from ngsepcore_tpu_torch.core.sequences import QualifiedSequence, QualifiedSequenceList
+
+    seqs = QualifiedSequenceList()
+    seqs.add(QualifiedSequence(name=name, codes=codes))
+    return ReferenceGenome(seqs)
+
+
+def _simulate_long_reads_60kb(seed: int = 4):
+    """tests/test_long_reads.py's two planted events in a 60 kb genome: the
+    reads' genome carries an 80 bp insertion and a 100 bp deletion; 40
+    reads of 8 kb and 30 of 4 kb with 1% substitutions and 1% indels."""
+    from ngsepcore_tpu_torch.core.sequences import RawRead
+    from ngsepcore_tpu_torch.simulation.reads_simulator import SingleReadsSimulator
+
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, 60_000).astype(np.int8)
+    mut = np.concatenate([
+        ref[:LR_INS_AT], rng.integers(0, 4, LR_INS_LEN).astype(np.int8),
+        ref[LR_INS_AT:LR_DEL_AT], ref[LR_DEL_AT + LR_DEL_LEN :]])
+    mg = _genome_of_codes("chr1", mut)
+    reads = []
+    for n, length, sd in ((40, 8000, 11), (30, 4000, 12)):
+        for r in SingleReadsSimulator(mg, read_length=length, substitution_error_rate=0.01,
+                                      indel_error_rate=0.01, seed=sd).simulate(n):
+            reads.append(RawRead(name=f"{r.name}_{length}", sequence=r.sequence,
+                                 qualities=r.qualities))
+    return _genome_of_codes("chr1", ref), reads
+
+
+def _align_long(aligner, reads):
+    return [a for i in range(0, len(reads), LR_BATCH)
+            for group in aligner.align_batch(reads[i : i + LR_BATCH]) for a in group]
+
+
+def _long_reads_in_process(genome, reads, device, d):
+    """LongReadsAligner in batches of 128, the SAM written, then
+    SingleSampleVariantsDetector -runLongReadSVs on it: (SAM lines,
+    _SVsLongReads.vcf body, main VCF body)."""
+    from ngsepcore_tpu_torch.align.long_reads import LongReadsAligner
+    from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
+    from ngsepcore_tpu_torch.io.sam import ReadAlignmentFileWriter
+
+    alns = _align_long(LongReadsAligner(genome, device=device), reads)
+    sam = os.path.join(d, f"lr_{device}.sam")
+    with ReadAlignmentFileWriter(genome.sequences, sam, sample_id="s1") as w:
+        for a in alns:
+            w.write(a)
+    SingleSampleVariantsDetector(genome, sample_id="s1", device=device,
+                                 run_long_read_svs=True).run(sam, os.path.join(
+                                     d, f"lr_{device}.vcf"))
+    body = lambda p, mark="#": [l for l in open(p) if not l.startswith(mark)]
+    return (["\t".join(a.to_sam_fields()) for a in alns],
+            body(os.path.join(d, f"lr_{device}_SVsLongReads.vcf")),
+            body(os.path.join(d, f"lr_{device}.vcf")))
+
+
+def _planted_found(sv_lines):
+    """(deletion found, insertion found) among _SVsLongReads.vcf lines, as
+    tests/test_long_reads.py::test_long_read_sv_detection asks."""
+    recs = [(int(f[1]), f[7]) for f in (l.split("\t") for l in sv_lines)]
+    info = lambda s, key: next((int(x.split("=")[1]) for x in s.split(";")
+                                if x.startswith(key + "=")), 0)
+    dele = any("SVTYPE=DEL" in s and abs(p - (LR_DEL_AT + 1)) < 150
+               and 60 <= abs(info(s, "SVLEN")) <= 140 for p, s in recs)
+    ins = any("SVTYPE=INS" in s and abs(p - LR_INS_AT) < 150
+              and 50 <= abs(info(s, "SVLEN")) <= 110 for p, s in recs)
+    return dele, ins
+
+
+def phase_long_reads_small(counters, device="cuda"):
+    """The long-read path at 60 kb on `device` against the CPU, in process
+    and through the CLI (ReadsAligner -p PACBIO, then
+    SingleSampleVariantsDetector -runLongReadSVs): SAM lines and
+    _SVsLongReads.vcf bodies equal, both planted events found."""
+    from ngsepcore_tpu_torch.io.fasta import save_fasta
+    from ngsepcore_tpu_torch.io.fastq import write_fastq
+
+    genome, reads = _simulate_long_reads_60kb()
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        sam_d, sv_d, vcf_d = _long_reads_in_process(genome, reads, device, d)
+        sync(device)
+        t_dev = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        t0 = time.perf_counter()
+        sam_c, sv_c, vcf_c = _long_reads_in_process(genome, reads, "cpu", d)
+        t_cpu = time.perf_counter() - t0
+        dele, ins = _planted_found(sv_d)
+        log(f"phase 14 long reads 60 kb, {len(reads)} reads of 4-8 kb: {len(sam_d)} SAM "
+            f"lines, {len(sv_d)} long-read SV records, {len(vcf_d)} VCF records on "
+            f"{device} ({t_dev:.2f}s), CPU ({t_cpu:.2f}s); SAM lines differing "
+            f"{sum(a != b for a, b in zip(sam_d, sam_c))}; planted deletion found {dele}, "
+            f"insertion found {ins}; launches {launches}")
+        if sam_d != sam_c or sv_d != sv_c or vcf_d != vcf_c:
+            fail(f"long-read SAM or VCF bodies differ between {device} and the CPU")
+        if not (dele and ins):
+            fail("a planted long-read SV was not called")
+        if device == "cuda" and min(launches.values()) == 0:
+            fail(f"the long-read path did not launch every kernel: {launches}")
+        g, fq = os.path.join(d, "lr.fa"), os.path.join(d, "lr.fastq")
+        save_fasta(genome.sequences, g)
+        write_fastq(reads, fq)
+        out = lambda dev, ext: os.path.join(d, f"cli_{dev}{ext}")
+        times = _cli_both(lambda dev: ["ReadsAligner", "-r", g, "-o", out(dev, ".sam"),
+                                       "-s", "s1", "-p", "PACBIO", fq], device, 600)
+        times_v = _cli_both(lambda dev: [
+            "SingleSampleVariantsDetector", "-r", g, "-i", out(dev, ".sam"), "-o",
+            out(dev, ""), "-sampleId", "s1", "-runLongReadSVs"], device, 600)
+        body = lambda p, mark="#": [l for l in open(p) if not l.startswith(mark)]
+        sam_cli = {dev: body(out(dev, ".sam"), "@") for dev in times}
+        sv_cli = {dev: body(out(dev, "_SVsLongReads.vcf")) for dev in times}
+        log(f"  CLI ReadsAligner -p PACBIO: {device} {times[device]:.2f}s, CPU "
+            f"{times['cpu']:.2f}s; SingleSampleVariantsDetector -runLongReadSVs: "
+            f"{device} {times_v[device]:.2f}s, CPU {times_v['cpu']:.2f}s (process wall, "
+            f"side by side); {len(sam_cli[device])} SAM lines, {len(sv_cli[device])} "
+            "long-read SV records")
+        if sam_cli[device] != sam_cli["cpu"] or sv_cli[device] != sv_cli["cpu"]:
+            fail(f"long-read CLI outputs differ between {device} and the CPU")
+        if [l.rstrip("\n") for l in sam_cli[device]] != sam_d or sv_cli[device] != sv_d:
+            fail("the long-read CLI's outputs differ from the in-process run's")
+    return launches
+
+
+def _long_read_gotoh_shapes(gotoh):
+    """Gotoh launches of the long-read segment kinds since the last
+    reset_counts: {(kind, B, Lq, Ls, kernel): n}."""
+    kinds = {(False, False, c["free_start2"], c["free_end2"]): kind
+             for kind, c in LONG_READ_CFGS.items()}
+    return Counter({(kinds[ends], *shape): n
+                    for (ends, *shape), n in gotoh.launch_shapes.items() if ends in kinds})
+
+
+def phase_long_reads_real_size(counters, device="cuda"):
+    """bench_configs.bench_long_reads' input: 600 reads of 10 kb (1%
+    substitutions, 1% indels) against the first 4 Mbp of bench.py's 12 Mbp
+    repeat genome, in batches of 128: a warm-up run, two timed runs, the
+    stage profile, launches by shape and peak device memory of the second;
+    bench_long_reads' accuracy; then the long-read SV caller on its
+    alignments."""
+    import torch
+
+    from bench import build_repeat_genome as bench_genome
+    from ngsepcore_tpu_torch.align.long_reads import LongReadsAligner
+    from ngsepcore_tpu_torch.call.long_read_sv import LongReadStructuralVariantDetector
+    from ngsepcore_tpu_torch.index.minimizer_table import MinimizerTable
+    from ngsepcore_tpu_torch.simulation.reads_simulator import (
+        SingleReadsSimulator,
+        parse_simulated_read_name,
+    )
+    from ngsepcore_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    codes, _ = bench_genome(np.random.default_rng(2024), 12_000_000)
+    genome = _genome_of_codes("chr1", codes[:4_000_000].copy())
+    reads = SingleReadsSimulator(genome, read_length=10_000, substitution_error_rate=0.01,
+                                 indel_error_rate=0.01, seed=77).simulate(600)
+    bases = sum(len(r.sequence) for r in reads)
+    log(f"phase 15 inputs: {genome.total_length} bp, {len(reads)} reads, {bases} bases "
+        f"({time.perf_counter() - t0:.1f}s)")
+    t0 = time.perf_counter()
+    table = MinimizerTable.build_from_genome(genome, device=device)
+    sync(device)
+    log(f"  index on {device}: {len(table.unique_codes)} codes, {table.size} entries, "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    def run():
+        al = LongReadsAligner(genome, table=table, device=device)
+        t0 = time.perf_counter()
+        groups = [g for i in range(0, len(reads), LR_BATCH)
+                  for g in al.align_batch(reads[i : i + LR_BATCH])]
+        sync(device)
+        return al, groups, time.perf_counter() - t0
+
+    _, _, warm = run()
+    _, _, dt1 = run()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    profiling.enable()
+    profiling.reset()
+    reset_counts(counters)
+    al, groups, dt = run()
+    profiling.enable(False)
+    launches = {c.__name__: c.launches for c in counters}
+    walk_shapes = Counter(counters[1].launch_shapes)  # counters: (gotoh, walk)
+    gotoh_shapes = _long_read_gotoh_shapes(counters[0])
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    correct = checked = 0
+    for read, group in zip(reads, groups):
+        if group:
+            sname, first, _ = parse_simulated_read_name(read.name)
+            checked += 1
+            correct += group[0].sequence_name == sname and abs(group[0].first - first) <= 50
+    aligned = al.aligned_reads / max(al.total_reads, 1)
+    placed = correct / max(checked, 1)
+    log(f"  warm-up run {warm:.3f}s; timed runs {dt1:.3f}s, {dt:.3f}s = "
+        f"{len(reads) / dt:.1f} reads/s, {bases / dt / 1e6:.3f} query Mbp/s (second); "
+        f"aligned_frac {aligned:.4f}, placed within 50 bp {correct} of {checked} = "
+        f"{placed:.4f}; peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
+    for name, (total, calls) in sorted(profiling._stages.items(), key=lambda kv: -kv[1][0]):
+        print(f"  stage {name:<28} {total:9.3f}s x{calls}", flush=True)
+    log("  gotoh launches by (kind, B, Lq, Ls, kernel): " + ", ".join(
+        f"{n} x {k}" for k, n in sorted(gotoh_shapes.items())))
+    log("  walk launches by (B, Lq, Ls, R, free_start2): " + ", ".join(
+        f"{n} x {k}" for k, n in sorted(walk_shapes.items())))
+    t0 = time.perf_counter()
+    svs = LongReadStructuralVariantDetector(genome).find_variants(
+        [a for g in groups for a in g])
+    log(f"  LongReadStructuralVariantDetector.find_variants: {len(svs)} calls, "
+        f"{time.perf_counter() - t0:.3f}s (no planted events)")
+    if aligned < 0.95 or placed < 0.95:
+        fail(f"long-read accuracy gates: aligned_frac {aligned}, placed {placed}")
+    if device == "cuda" and min(launches.values()) == 0:
+        fail(f"the long-read run did not launch every kernel: {launches}")
+    return launches, gotoh_shapes, walk_shapes
+
+
+# ---------------------------------------------------------------------------
+PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "9", "10", "12", "13", "8", "11",
+          "14", "15")
+NEEDS = {"6": "4", "8": "5", "10": "5", "11": "5", "13": "5"}  # uses that phase's data
+
+
+def _chosen(argv):
+    """The phases to run, in PHASES order: all of them with no argument,
+    else `--phases 2c,14` and the phases whose data these use.  Phases 0
+    (device) and 1 (build) always run."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of ngsepcore_tpu_torch on one GPU")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of phases to run (default: all), e.g. 2c,14")
+    want = {p.strip() for p in ap.parse_args(argv).phases.split(",") if p.strip()}
+    bad = want - set(PHASES)
+    if bad:
+        ap.error(f"unknown phases {sorted(bad)}; known: {','.join(PHASES)}")
+    want |= {NEEDS[p] for p in want if p in NEEDS}
+    return [p for p in PHASES if p in want]
+
+
+def main(argv=None) -> None:
+    chosen = _chosen(sys.argv[1:] if argv is None else argv)
     smi = phase_device()
     import torch
 
     from ngsepcore_tpu_torch.kernels.hmm import viterbi_log
+    from ngsepcore_tpu_torch.kernels.pairwise import _runs_from_plane as run_walk
     from ngsepcore_tpu_torch.kernels.pairwise_cuda import gotoh_forward_plane
     from ngsepcore_tpu_torch.kernels.shear_pileup import shear_hist
 
-    counters = (gotoh_forward_plane, shear_hist)
-    phase_build()
-    gotoh_t = phase_gotoh()
-    viterbi_t = phase_viterbi()
-    shear_t = phase_shear()
-    fused_keys = phase_cuda_vs_cpu(counters)
-    (launches, _, fused_records, genome, reads, truth, table, tandem,
-     metrics5) = phase_real_size(counters)
-    classic_launches = phase_classic(counters, fused_keys)
-    phase_span(counters)
-    phase_str_50kb(counters)
-    str_launches, str_shapes = phase_str_real_size(
-        counters, genome, reads, truth, table, tandem, metrics5)
-    str_t2 = tier2_launches(str_shapes)
-    t2_t = phase_tier2_shapes(str_shapes)
+    counters = (gotoh_forward_plane, run_walk, shear_hist)
     # the population and read-depth callers count their own three kernels
-    pop_counters = (gotoh_forward_plane, shear_hist, viterbi_log)
-    phase_population_small(pop_counters)
-    pop_launches = phase_population_real_size(pop_counters, genome, table, truth[2])
-    del table
-    torch.cuda.empty_cache()  # the CLI subprocesses share the card
-    with tempfile.TemporaryDirectory() as d:
-        phase_cli(d, genome, reads, truth, fused_records)
-        phase_kmers(d, genome, reads)
-
-    def entry(name, source, replaces, n_launches, t):
-        # no one PyTorch call computes either function (the Gotoh plane
-        # with packed run pointers; the sheared per-position histogram)
-        out = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n_launches, "max_abs_err": t["max_abs_err"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
-        }
-        # where the shape came from the run: which one, and which kernel
-        out.update({k: t[k] for k in ("shape", "kernel") if k in t})
-        return out
-
-    gotoh_src = "ngsepcore_tpu_torch/csrc/gotoh_forward.cu"
-    gotoh_tpu = "ngsepcore_tpu/kernels/pairwise_pallas.py:243"
-    kernels = {
-        "kernels": [
-            entry("gotoh_forward", gotoh_src, gotoh_tpu,
-                  launches["gotoh_forward_plane"],
-                  gotoh_t["main-path chunk 2048x160x160"]),
-            # the same kernel on the classic path (phase 6), timed at the
-            # classic tier-3 shape
-            entry("gotoh_forward_classic", gotoh_src, gotoh_tpu,
-                  classic_launches["gotoh_forward_plane"],
-                  gotoh_t["classic tier-3 2048x192x192"]),
-            # the same kernels with free query ends: the tier-2 STR flanks
-            # of the known-STR run at full width (phase 10), each side timed
-            # at the launched shape that takes most of its kernel time
-            entry("gotoh_forward_tier2_left", gotoh_src, gotoh_tpu,
-                  str_t2["left"], t2_t["left"]),
-            entry("gotoh_forward_tier2_right", gotoh_src, gotoh_tpu,
-                  str_t2["right"], t2_t["right"]),
-            entry("shear_hist", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
-                  "ngsepcore_tpu/kernels/shear_pileup.py:227",
-                  launches["shear_hist"], shear_t[1]),
-            # a lax.scan in the JAX package, no Pallas counterpart; launches
-            # of the read-depth HMM callers at full width (phase 13)
-            entry("viterbi_log", "ngsepcore_tpu_torch/csrc/viterbi.cu",
-                  "ngsepcore_tpu/kernels/hmm.py:85",
-                  pop_launches["viterbi_log"], viterbi_t),
-        ]
-    }
-    print(json.dumps(kernels), flush=True)
+    pop_counters = (gotoh_forward_plane, run_walk, shear_hist, viterbi_log)
+    lr_counters = (gotoh_forward_plane, run_walk)
+    phase_build()
+    t = {}  # what each phase returns, by phase
+    for p in chosen:
+        if p == "2":
+            t[p] = phase_gotoh()
+        elif p == "2b":
+            t[p] = phase_viterbi()
+        elif p == "2c":
+            t[p] = phase_walk()
+        elif p == "3":
+            t[p] = phase_shear()
+        elif p == "4":
+            t[p] = phase_cuda_vs_cpu(counters)
+        elif p == "5":
+            t[p] = phase_real_size(counters)
+            t["5 launches"] = t[p][0]
+        elif p == "6":
+            t[p] = phase_classic(counters, t["4"])
+        elif p == "7":
+            phase_span(counters)
+        elif p == "9":
+            phase_str_50kb(counters)
+        elif p == "10":
+            _, _, _, genome, reads, truth, table, tandem, metrics5 = t["5"]
+            str_launches, str_shapes, walk_t2 = phase_str_real_size(
+                counters, genome, reads, truth, table, tandem, metrics5)
+            t[p] = (str_launches, tier2_launches(str_shapes), walk_t2,
+                    phase_tier2_shapes(str_shapes))
+        elif p == "12":
+            phase_population_small(pop_counters)
+        elif p == "13":
+            _, _, _, genome, _, truth, table, _, _ = t["5"]
+            t[p] = phase_population_real_size(pop_counters, genome, table, truth[2])
+        elif p in ("8", "11"):
+            if "d" not in t:  # phase 8's FASTQ and FASTA serve phase 11
+                t["5"] = t["5"][:6] + (None,) + t["5"][7:]  # drop the table
+                torch.cuda.empty_cache()  # the CLI subprocesses share the card
+                t["d"] = tempfile.TemporaryDirectory()
+            _, _, fused_records, genome, reads, truth, _, _, _ = t["5"]
+            if p == "8":
+                phase_cli(t["d"].name, genome, reads, truth, fused_records)
+            else:
+                phase_kmers(t["d"].name, genome, reads)
+        elif p in ("14", "15"):
+            t.pop("5", None)  # phase 5's genome, reads and index are done with
+            if "d" in t:
+                t.pop("d").cleanup()
+            torch.cuda.empty_cache()
+            t[p] = (phase_long_reads_small if p == "14"
+                    else phase_long_reads_real_size)(lr_counters)
+    if "d" in t:
+        t.pop("d").cleanup()
+    print(json.dumps({"kernels": kernel_entries(t)}), flush=True)
     print(nvidia_smi() or smi, flush=True)
     print(json.dumps({
         "ok": True,
@@ -1814,6 +2357,88 @@ def main() -> None:
             "count": torch.cuda.device_count(),
         },
     }), flush=True)
+
+
+def kernel_entries(t: dict) -> list:
+    """The kernels line from the phases' results: each kernel timed in phases
+    2-3 at the shape its path launches, with the launches of that path's
+    timed run.  A run of some phases only gives the entries it has."""
+
+    def entry(name, source, replaces, n_launches, timing):
+        # no one PyTorch call computes any of these functions (the Gotoh
+        # plane with packed run pointers, its run-jump walk, the sheared
+        # per-position histogram, the Viterbi path)
+        out = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launches, "max_abs_err": timing["max_abs_err"],
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": None,
+        }
+        # where the shape came from the run: which one, and which kernel;
+        # graph_ms, where measured: 20 calls in one CUDA graph, without the
+        # launch cost from Python that ms (20 back-to-back calls) includes
+        out.update({k: timing[k] for k in ("shape", "kernel", "graph_ms") if k in timing})
+        return out
+
+    gotoh = ("ngsepcore_tpu_torch/csrc/gotoh_forward.cu",
+             "ngsepcore_tpu/kernels/pairwise_pallas.py:243")
+    # a lax.scan in the JAX package with no Pallas counterpart
+    walk = ("ngsepcore_tpu_torch/csrc/run_walk.cu", "ngsepcore_tpu/kernels/pairwise.py:595")
+    g, w, out = t.get("2"), t.get("2c"), []
+    if "5 launches" in t and g:
+        out.append(entry("gotoh_forward", *gotoh, t["5 launches"]["gotoh_forward_plane"],
+                         g["main-path chunk 2048x160x160"]))
+    if "5 launches" in t and w:
+        # the walk of the fused path's tier 3 (phase 5)
+        out.append(entry("run_walk_fused", *walk, t["5 launches"]["_runs_from_plane"],
+                         w["fused tier 3 2048x160x160"]))
+    if "6" in t and g:
+        # the same kernels on the classic path (phase 6), at its tier-3 shape
+        out.append(entry("gotoh_forward_classic", *gotoh, t["6"]["gotoh_forward_plane"],
+                         g["classic tier-3 2048x192x192"]))
+    if "6" in t and w:
+        out.append(entry("run_walk_classic", *walk, t["6"]["_runs_from_plane"],
+                         w["classic tier 3 2048x192x192"]))
+    if "10" in t:
+        # the tier-2 STR flanks of the known-STR run at full width (phase
+        # 10), each side timed at the launched shape that takes most of its
+        # Gotoh time; launches from each kernel's own counter
+        _, t2_launches, t2_walk, t2 = t["10"]
+        for side in ("left", "right"):
+            out.append(entry(f"gotoh_forward_tier2_{side}", *gotoh, t2_launches[side],
+                             t2[side]))
+            out.append(entry(f"run_walk_tier2_{side}", *walk, t2_walk[side],
+                             t2[side]["walk"]))
+    if "15" in t and g and w:
+        # the long-read run at full width (phase 15), each kernel timed at
+        # the long-read shape that takes most of its time there: launches
+        # x the 512-row device time (in a CUDA graph) x rows / 512 (a chunk
+        # of fewer rows takes about its share of the 512-row time)
+        launches, gotoh_shapes, walk_shapes = t["15"]
+        per = Counter()
+        for (kind, B, Lq, Ls, _), n in gotoh_shapes.items():
+            per[kind, Lq] += n * B / 512 * g[f"long reads {kind} 512x{Lq}x{Ls}"]["graph_ms"]
+        kind, W = max(per, key=per.get)
+        out.append(entry("gotoh_forward_long_reads", *gotoh, sum(gotoh_shapes.values()),
+                         g[f"long reads {kind} 512x{W}x{W}"]))
+        per = Counter()
+        for (B, Lq, Ls, _, _), n in walk_shapes.items():
+            per[Lq] += n * B / 512 * w[f"long reads center 512x{Lq}x{Ls}"]["graph_ms"]
+        W = max(per, key=per.get)
+        out.append(entry("run_walk", *walk, launches["_runs_from_plane"],
+                         w[f"long reads center 512x{W}x{W}"]))
+    if "5 launches" in t and "3" in t:
+        out.append(entry("shear_hist", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
+                         "ngsepcore_tpu/kernels/shear_pileup.py:227",
+                         t["5 launches"]["shear_hist"], t["3"][1]))
+    if "13" in t and "2b" in t:
+        # a lax.scan in the JAX package, no Pallas counterpart; launches of
+        # the read-depth HMM callers at full width (phase 13)
+        out.append(entry("viterbi_log", "ngsepcore_tpu_torch/csrc/viterbi.cu",
+                         "ngsepcore_tpu/kernels/hmm.py:85",
+                         t["13"]["viterbi_log"], t["2b"]))
+    return out
 
 
 if __name__ == "__main__":

@@ -120,11 +120,13 @@ def main(argv: list[str] | None = None) -> int:
         if profile:
             profiling.report()
             from .kernels.hmm import viterbi_log
+            from .kernels.pairwise import _runs_from_plane
             from .kernels.pairwise_cuda import gotoh_forward_plane
             from .kernels.shear_pileup import shear_hist
 
             print(
                 f"kernel launches: gotoh_forward_plane={gotoh_forward_plane.launches} "
+                f"run_walk={_runs_from_plane.launches} "
                 f"shear_hist={shear_hist.launches} viterbi_log={viterbi_log.launches}",
                 file=sys.stderr, flush=True,
             )

@@ -1,1 +1,1 @@
-"""Short-read alignment."""
+"""Short- and long-read alignment."""

@@ -188,6 +188,8 @@ class _Candidate:
     weight: float = 0.0
     aln: ReadAlignment | None = None
     quality: int = 0
+    # the hits cluster (the long-read anchor chainer walks its members)
+    cluster: object = None
 
 
 class ReadsAligner:
@@ -501,7 +503,7 @@ class ReadsAligner:
         The subject window is at most qlen + 6 wide, so the CUDA Gotoh
         kernel's 1..1024 subject width (kernels/pairwise_cuda.py) covers
         reads up to 1018 bp; longer reads belong to the long-read aligner
-        (ROADMAP.md Queue 1 item 12)."""
+        (align/long_reads.py, ReadsAligner -p PACBIO|ONT)."""
         offs = self.genome.offsets
         jobs = []
         for c in dp_cands:

@@ -108,12 +108,9 @@ class SingleSampleVariantsDetector:
         device=None,  # where find_variants/run genotype; the fused
         # pipeline genotypes on its own device and needs none here
     ):
-        if run_long_read_svs:
-            raise NotImplementedError(
-                "long-read SVs (-runLongReadSVs): ROADMAP.md Queue 1 item 12"
-            )
         self.find_cnvs = find_cnvs
         self.find_svs = find_svs
+        self.run_long_read_svs = run_long_read_svs
         self.device = None if device is None else torch.device(device)
         self.query_seq = query_seq
         self.query_first = int(query_first or 0)
@@ -226,6 +223,30 @@ class SingleSampleVariantsDetector:
                         },
                     )
                 )
+        if self.run_long_read_svs:
+            # ref: runLongReadSVAnalysis (SingleSampleVariantsDetector
+            # .java:1061-1069): a VCF of its own next to the main one
+            from .long_read_sv import LongReadStructuralVariantDetector
+
+            with stage("call.long_read_svs"):
+                lr_svs = [
+                    v
+                    for v in LongReadStructuralVariantDetector(
+                        self.genome, min_mq=self.min_mq
+                    ).find_variants(alns)
+                    if v.genotype_quality >= self.min_sv_quality
+                ]
+            with VCFFileWriter(
+                output_vcf.rsplit(".", 1)[0] + "_SVsLongReads.vcf", [self.sample_id]
+            ) as w:
+                for v in lr_svs:
+                    v.sample_id = self.sample_id
+                    w.write(VCFRecord(variant=v, calls=[v], info={
+                        "END": v.last,
+                        "SVTYPE": v.variant_type,
+                        "SVLEN": v.length(),
+                    }))
+            svs.extend(lr_svs)
         if self.find_cnvs:
             with stage("call.read_depth_cnvs"):
                 cnvs = self.find_cnv_calls(alns)

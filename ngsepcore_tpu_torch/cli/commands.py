@@ -119,16 +119,17 @@ def _run_reads_aligner(opts: dict, args: list[str], device) -> None:
     if not genome_path or not args:
         raise SystemExit("Usage: ReadsAligner -r <genome.fa> -o <out.sam> <reads.fastq>")
     platform = (opts.pop("platform", None) or "ILLUMINA").upper()
-    if platform in ("PACBIO", "ONT"):
-        raise SystemExit(
-            f"ReadsAligner -p {platform} (the long-read aligner) is not "
-            "ported yet: ROADMAP.md Queue 1 item 12"
-        )
     paired = bool(opts.pop("paired", False)) or len(args) == 2
     with stage("cli.load_genome"):
         genome = ReferenceGenome.load(genome_path)
     with stage("cli.index"):
-        aligner = ReadsAligner(genome, **opts, device=device)
+        if platform in ("PACBIO", "ONT"):
+            from ..align.long_reads import LongReadsAligner
+
+            aligner = LongReadsAligner(genome, **opts, device=device)
+            paired = False
+        else:
+            aligner = ReadsAligner(genome, **opts, device=device)
     n_out = 0
     # the batch size of the JAX CLI: one seed-result fetch per 4096 reads
     batch = 4096
@@ -181,7 +182,7 @@ register(
             Option("w", "window_length", "int", 20, "Minimizer window"),
             Option("a", "max_alns_per_read", "int", 1, "Max alignments per read"),
             Option("p", "platform", "str", "ILLUMINA",
-                   "Platform: ILLUMINA, IONTORRENT (PACBIO, ONT: not ported)"),
+                   "Platform: ILLUMINA, IONTORRENT, PACBIO, ONT"),
             Option("paired", "paired", "bool", False, "Paired-end (two fastq files)"),
         ],
     )
@@ -387,7 +388,7 @@ register(
             Option("svs", "find_svs", "bool", False,
                    "Run read-pair SV detection"),
             Option("runLongReadSVs", "run_long_read_svs", "bool", False,
-                   "Long-read SV detection (not ported)"),
+                   "Detect structural variants from long-read alignments"),
             Option("minSVQuality", "min_sv_quality", "int", 0,
                    "Min genotype quality for SV calls"),
             Option("knownSTRs", "known_strs_file", "str", None,

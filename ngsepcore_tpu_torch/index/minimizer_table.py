@@ -164,6 +164,63 @@ class MinimizerTable:
         np.cumsum(kept_counts, out=t.row_offsets[1:])
         return t
 
+    # ---- host queries (the long-read aligner) ------------------------------
+    def lookup_rows(self, query_codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """For each canonical query code, (row_start, row_end) into
+        entry_pos; empty rows for absent codes."""
+        if len(self.unique_codes) == 0:
+            z = np.zeros(len(query_codes), np.int64)
+            return z, z
+        r = np.searchsorted(self.unique_codes, query_codes)
+        r = np.clip(r, 0, len(self.unique_codes) - 1)
+        hit = self.unique_codes[r] == query_codes
+        starts = np.where(hit, self.row_offsets[r], 0)
+        ends = np.where(hit, self.row_offsets[r + 1], 0)
+        return starts, ends
+
+    def collect_hits_batch(
+        self,
+        query_codes: np.ndarray,
+        query_positions: np.ndarray,
+        query_rows: np.ndarray,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Expand the CSR rows of many reads' forward-strand minimizer codes
+        at once (ref: ShortKmerCodesTable.matchCompressed).  Queries are
+        canonicalized here and hits kept where the entry's canonical strand
+        matches the query's, i.e. forward-strand genome matches.
+        `query_rows` labels each query with its read row; hits come back
+        in query order as (subject_concat_pos, query_pos, row)."""
+        from ..kernels.kmers import rc_code_int64
+
+        rc = rc_code_int64(query_codes, self.k)
+        canon = np.minimum(query_codes, rc)
+        qflag = (rc < query_codes).astype(np.int8)
+        starts, ends = self.lookup_rows(canon)
+        counts = ends - starts
+        total = int(counts.sum())
+        if total == 0:
+            z = np.empty(0, np.int64)
+            return z, z, z
+        qp = np.repeat(query_positions, counts)
+        qf = np.repeat(qflag, counts)
+        qr = np.repeat(query_rows, counts)
+        off = np.cumsum(counts) - counts
+        idx = (
+            np.arange(total, dtype=np.int64)
+            - np.repeat(off, counts)
+            + np.repeat(starts, counts)
+        )
+        keep = self.entry_strand[idx] == qf
+        return self.entry_pos[idx][keep], qp[keep], qr[keep]
+
+    def collect_hits(
+        self, query_codes: np.ndarray, query_positions: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """collect_hits_batch for one read: (subject_concat_pos, query_pos)."""
+        rows = np.zeros(len(query_codes), np.int64)
+        spos, qpos, _ = self.collect_hits_batch(query_codes, query_positions, rows)
+        return spos, qpos
+
     @property
     def size(self) -> int:
         return len(self.entry_pos)

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels of csrc/.
 
-All `csrc/*.cu` sources compile with nvcc into ONE shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), loaded
-with ctypes.  The build runs at first use into `ngsepcore_tpu_torch/_build/`,
+All `csrc/*.cu` sources compile with nvcc, one process a source, all
+started together, and link into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), loaded with
+ctypes.  The build runs at first use into `ngsepcore_tpu_torch/_build/`,
 keyed by a hash of the sources and flags, so a fresh checkout builds it on
 its first CUDA call.  Nothing here runs at import time: CPU-only
 installations import the package without nvcc.
@@ -26,8 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-    "--threads", "0",  # one compile job per source
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 _P = ctypes.c_void_p
@@ -53,6 +53,12 @@ _SIGNATURES = {
         _P, _P, _P,  # log_start, log_trans, log_emit
         _I, _I, _I, _I,  # batch, T, S, per_step
         _P, _P, _P,  # back, path, best
+        _P,  # stream
+    ],
+    "run_walk_launch": [
+        _P, _P, _P, _P,  # plane, end_i, end_j, start_k
+        _I, _I, _I, _I,  # B, Ls, R, free_start2
+        _P, _P, _P, _P, _P, _P,  # rop, rlen, n_runs, n_ops, start_j, walk_ok
         _P,  # stream
     ],
 }
@@ -89,15 +95,31 @@ def build(sources: list[Path], stem: str = "libngsep_kernels") -> tuple[ctypes.C
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )
-        report = proc.stderr
+            for src, obj in zip(sources, objs)
+        ]
+        try:
+            outs = [p.communicate() for p in procs]
+            for p, (out, err) in zip(procs, outs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}\n{err}")
+            link = subprocess.run(
+                [_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            if link.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}"
+                )
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        report = "".join(err for _, err in outs)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -15,6 +15,7 @@ every operation that can leave them (torch has no general uint32 math).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .kmers import kmer_codes_canonical_2x32
@@ -79,3 +80,40 @@ def extract_minimizers_canonical(
     hi, lo, flag, valid = kmer_codes_canonical_2x32(codes, lengths, k)
     sel = select_minimizers(minimizer_hash30(hi, lo), valid, window)
     return hi, lo, flag, sel, valid
+
+
+def _forward_codes(hi: np.ndarray, lo: np.ndarray, flag: np.ndarray, k: int) -> np.ndarray:
+    """Forward-strand int64 codes from canonical halves and the strand flag."""
+    from .kmers import rc_code_int64
+
+    canon = (hi.astype(np.int64) << (2 * min(k, 15))) | lo.astype(np.int64)
+    return np.where(flag == 1, rc_code_int64(canon, k), canon)
+
+
+def extract_minimizers_compact(
+    codes: torch.Tensor, lengths: torch.Tensor, k: int, window: int
+):
+    """codes (B, L) int8 -> host arrays (row int32, pos int32, kcodes int64)
+    of the selected minimizer positions only, row-major.  Selection is
+    canonical (as in the table build); the codes are forward-strand.  The
+    compaction is one torch.nonzero on the tensors' device and one fetch of
+    the selected entries."""
+    hi, lo, flag, sel, _valid = extract_minimizers_canonical(codes, lengths, k, window)
+    nk = sel.shape[1]
+    flat = torch.nonzero(sel.reshape(-1)).squeeze(1)
+    picked = torch.stack(
+        [flat // nk, flat % nk]
+        + [t.reshape(-1)[flat].to(torch.int64) for t in (hi, lo, flag)]
+    ).cpu().numpy()
+    row, pos, h, l, f = picked
+    return row.astype(np.int32), pos.astype(np.int32), _forward_codes(h, l, f, k)
+
+
+def extract_minimizers(codes: torch.Tensor, lengths: torch.Tensor, k: int, window: int):
+    """codes (B, L) int8 -> host (kcodes int64 (B, n_kmers), minimizer mask,
+    valid): canonical selection, forward-strand codes at every window, so
+    host callers keep a forward-coordinate view (MinimizerTable
+    .collect_hits re-canonicalizes and strand-filters)."""
+    hi, lo, flag, sel, valid = extract_minimizers_canonical(codes, lengths, k, window)
+    kcodes = _forward_codes(hi.cpu().numpy(), lo.cpu().numpy(), flag.cpu().numpy(), k)
+    return kcodes, sel.cpu().numpy(), valid.cpu().numpy()

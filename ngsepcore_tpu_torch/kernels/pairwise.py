@@ -7,18 +7,24 @@ flags for free subject ends, and a deterministic traceback preference order
 
 The forward pass (kernels/pairwise_cuda.gotoh_forward_plane: the CUDA
 kernel on the card, its plain version on the CPU) emits a packed
-run/pointer plane; a run-jump traceback walks it emitting one CIGAR run
+run/pointer plane; a run-jump traceback (_runs_from_plane: csrc/run_walk.cu
+on the card, a plain step loop on the CPU) walks it emitting one CIGAR run
 per step, a post-pass derives the tier-3 statistics and left-aligns the
 gap runs.  The tier-2 STR flanks (align/str_tier2.py) take per-column ops
-from the same plane and walk (affine_gap_align_batch).  Every integer
+from the same plane and walk (affine_gap_align_batch); the long-read
+segments (align/long_reads.py) take runs and Hamming-style statistics
+(dp_run_segments).  Every integer
 tensor here has its dtype written out; the plane is int32 holding uint32
 bits, so every right shift is masked.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
+from .cuda_build import check, library
 from .pairwise_cuda import gotoh_forward_plane
 
 # alignment ops emitted by traceback
@@ -32,9 +38,9 @@ LA_LMAX = 16  # max indel length left-aligned on device; longer runs (and
 
 _I32 = torch.int32
 
-# the run-jump walk asks whether every row is done (a host sync on CUDA)
-# from this step on, every so many steps: the tier-3 budget (28 steps for
-# 160 rows) never gets there, the tier-2 one (Lq + Ls) ends after a few asks
+# the plain run-jump walk asks whether every row is done from this step on,
+# every so many steps: the tier-3 budget (28 steps for 160 rows) never gets
+# there, the tier-2 one (Lq + Ls) ends after a few asks
 WALK_CHECK_FROM = 32
 WALK_CHECK_EVERY = 8
 
@@ -190,11 +196,64 @@ def ops_to_cigar_and_strings(
 
 def _runs_from_plane(plane, score, end_i, end_j, start_k, B, R, free_start2):
     """Run-jump traceback + merge over a (Lq, B, Ls) int32 pointer/run
-    plane.  Each step reads one plane cell per row: the current matrix's
-    run length (saturated runs jump 254 cells and continue in the same
-    matrix) and the pointer to the matrix the run came from.  The walk
-    stops early once every row is done (WALK_CHECK_FROM, WALK_CHECK_EVERY);
-    the steps left would emit nothing."""
+    plane, R steps at most.  CPU tensors run the plain version
+    (_runs_from_plane_ref); CUDA tensors launch csrc/run_walk.cu (one
+    thread an alignment, no host sync) or raise.  Returns the dict of
+    affine_gap_align_runs."""
+    dev = plane.device
+    if dev.type == "cpu":
+        return _runs_from_plane_ref(plane, score, end_i, end_j, start_k, B, R, free_start2)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if plane.dim() != 3 or plane.dtype != _I32 or plane.shape[1] != B:
+        raise ValueError("plane must be an int32 (Lq, B, Ls) tensor")
+    vecs = [t.to(_I32).contiguous() for t in (end_i, end_j, start_k)]
+    if any(t.shape != (B,) or t.device != dev for t in vecs + [score]):
+        raise ValueError("end_i, end_j, start_k and score must be (B,) on the plane's device")
+    plane = plane.contiguous()
+    rop = torch.empty((B, R), dtype=_I32, device=dev)
+    rlen = torch.empty((B, R), dtype=_I32, device=dev)
+    fin = torch.empty((3, B), dtype=_I32, device=dev)  # n_runs, n_ops, start_j
+    walk_ok = torch.empty(B, dtype=torch.bool, device=dev)
+    if B:
+        lib = library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.run_walk_launch(
+                plane.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+                vecs[2].data_ptr(), B, plane.shape[2], R, int(free_start2),
+                rop.data_ptr(), rlen.data_ptr(), fin[0].data_ptr(),
+                fin[1].data_ptr(), fin[2].data_ptr(), walk_ok.data_ptr(), stream,
+            )
+        check("run_walk", rc)
+        _runs_from_plane.launches += 1
+        _runs_from_plane.launch_shapes[
+            (B, plane.shape[0], plane.shape[2], R, bool(free_start2))] += 1
+    return {
+        "score": score.to(_I32),
+        "rop": rop,
+        "rlen": rlen,
+        "n_runs": fin[0],
+        "n_ops": fin[1],
+        "start_j": fin[2],
+        "end_j": vecs[1],
+        "end_i": vecs[0],
+        "walk_ok": walk_ok,
+    }
+
+
+_runs_from_plane.launches = 0  # launches of csrc/run_walk.cu
+# the same by (B, Lq, Ls, R, free_start2)
+_runs_from_plane.launch_shapes = Counter()
+
+
+def _runs_from_plane_ref(plane, score, end_i, end_j, start_k, B, R, free_start2):
+    """Plain version of _runs_from_plane on the tensors' device.  Each step
+    reads one plane cell per row: the current matrix's run length
+    (saturated runs jump 254 cells and continue in the same matrix) and the
+    pointer to the matrix the run came from.  The walk stops early once
+    every row is done (WALK_CHECK_FROM, WALK_CHECK_EVERY; a host sync on
+    CUDA); the steps left would emit nothing."""
     dev = plane.device
     emit_lead_del = not free_start2
     bb = torch.arange(B, device=dev)
@@ -320,6 +379,76 @@ def dp_stats_runs(out: dict, query: torch.Tensor, subject: torch.Tensor):
         "start_j": start_j,
         "la_fallback": la_fallback,
     }
+
+
+def dp_stats_runs_hamming(out: dict):
+    """Long-read segment stats from run-jump traceback output.  The
+    long-read chain walk counts mismatches Hamming-style: +1 per mismatched
+    pair and +1 per gap COLUMN (ref: HammingSequenceDistanceMeasure over
+    aligned fragments, LongReadsUngappedSearchHitsClusterAligner.java
+    :127-156), so mism = substitutions (score decomposition, tier-3 default
+    scores) + gap columns, 30000 where the walk ran out of budget.
+    Returns rle (int16, op | len<<2), n_runs, mism, start_j, end_j,
+    walk_ok."""
+    rop, rlen = out["rop"], out["rlen"]
+    n_runs = out["n_runs"]
+    B, R = rop.shape
+    slot = torch.arange(R, dtype=_I32, device=rop.device)[None, :]
+    valid = slot < n_runs[:, None]
+    is_m = (rop == OP_MATCH) & valid
+    is_gap = ((rop == OP_INS) | (rop == OP_DEL)) & valid
+    m_cnt = torch.where(is_m, rlen, 0).sum(dim=1, dtype=_I32)
+    gap_len = torch.where(is_gap, rlen, 0).sum(dim=1, dtype=_I32)
+    k_all = is_gap.sum(dim=1, dtype=_I32)
+    sub_mm = (m_cnt - out["score"] - 2 * k_all - gap_len) >> 1
+    return {
+        "rle": torch.where(valid, rop | (rlen << 2), 0).to(torch.int16),
+        "n_runs": n_runs,
+        "mism": torch.where(out["walk_ok"], sub_mm + gap_len, 30000),
+        "start_j": out["start_j"],
+        "end_j": out["end_j"],
+        "walk_ok": out["walk_ok"],
+    }
+
+
+def dp_run_segments(
+    readmat: torch.Tensor,  # (rows, Lp) int8 packed batch read rows (fwd + rev)
+    concat: torch.Tensor,  # (G,) int8 concatenated genome codes
+    rows: torch.Tensor,  # (B,) int32 read row per segment job
+    q0: torch.Tensor,  # (B,) int32 query slice start within the row
+    qlen: torch.Tensor,  # (B,) int32 query slice length
+    sfirst: torch.Tensor,  # (B,) int32 subject window start (concat coords)
+    slen: torch.Tensor,  # (B,) int32 subject window length
+    *,
+    CH: int,
+    Lq: int,
+    Ls: int,
+    fs2: bool,
+    fe2: bool,
+):
+    """Long-read segment sweep: every inter-anchor alignment of one bucket
+    in CH-row chunks (the last one may be shorter).  Each chunk gathers
+    its query slices readmat[row, q0:q0+qlen] and subject slices
+    concat[sfirst:sfirst+slen] on the tensors' device (padding code 4),
+    runs affine_gap_align_runs with free subject ends fs2/fe2 and returns
+    dp_stats_runs_hamming.  A chunk's plane (512 MiB at 512x512x512) is
+    freed before the next chunk runs.  Returns the stats of all B jobs, concatenated."""
+    dev = readmat.device
+    Lp = readmat.shape[1]
+    j = torch.arange(Lq, dtype=_I32, device=dev)[None, :]
+    js = torch.arange(Ls, dtype=torch.int64, device=dev)[None, :]
+    outs = []
+    for off in range(0, rows.shape[0], CH):
+        s = slice(off, off + CH)
+        ql, sl = qlen[s], slen[s]
+        sub = readmat[rows[s].long()]
+        idx = torch.clamp(q0[s][:, None] + j, 0, Lp - 1).long()
+        qc = torch.where(j < ql[:, None], sub.gather(1, idx), 4).to(torch.int8)
+        sidx = torch.clamp(sfirst[s].long()[:, None] + js, 0, concat.shape[0] - 1)
+        sc = torch.where(js < sl[:, None], concat[sidx], 4).to(torch.int8)
+        out = affine_gap_align_runs(qc, ql, sc, sl, free_start2=fs2, free_end2=fe2)
+        outs.append(dp_stats_runs_hamming(out))
+    return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
 def dp_gather_inputs(

@@ -129,7 +129,7 @@ def test_device_cuda_without_card_exits_nonzero(files):
     [
         (["Assembler", "x.fastq"], "Queue 1 item 13"),
         (["VCFFilter", "-i", "x.vcf"], "Queue 1 item 17"),
-        (["ReadsAligner", "-r", "g.fa", "-p", "ONT", "x.fastq"], "Queue 1 item 12"),
+        (["VCFImpute", "-i", "x.vcf"], "Queue 1 item 14"),
     ],
 )
 def test_unported_commands_name_their_roadmap_item(argv, item):
@@ -138,11 +138,18 @@ def test_unported_commands_name_their_roadmap_item(argv, item):
     assert item in str(e.value.code)
 
 
-def test_unported_detector_options_name_their_roadmap_item():
+def test_unported_detector_options_name_their_roadmap_item(files):
+    """Every detector option is ported now: -runLongReadSVs runs and writes
+    its own VCF (records: tests/test_torch_long_reads.py)."""
     from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
+    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SingleSampleVariantsDetector(None, device="cpu", run_long_read_svs=True)
-    # the read-depth and read-pair stages are ported
-    det = SingleSampleVariantsDetector(None, device="cpu", find_cnvs=True, find_svs=True)
-    assert det.find_cnvs and det.find_svs
+    genome = ReferenceGenome.load(str(files / "g.fa"))
+    det = SingleSampleVariantsDetector(
+        genome, device="cpu", run_long_read_svs=True, find_cnvs=True, find_svs=True)
+    assert det.run_long_read_svs and det.find_cnvs and det.find_svs
+    det = SingleSampleVariantsDetector(genome, device="cpu", run_long_read_svs=True)
+    det.run(str(files / "t.sam"), str(files / "lr.vcf"))
+    assert _body(files / "lr.vcf", "#") == _body(files / "t_sam.vcf", "#")
+    with open(files / "lr_SVsLongReads.vcf") as fh:
+        assert fh.readline().startswith("##fileformat=VCF")

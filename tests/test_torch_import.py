@@ -55,6 +55,12 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "ngsepcore_tpu_torch.call.read_pair_sv",
         "ngsepcore_tpu_torch.call.coverage",
         "ngsepcore_tpu_torch.math.distribution",
+        "ngsepcore_tpu_torch.align.long_reads",
+        "ngsepcore_tpu_torch.align.hits_clustering",
+        "ngsepcore_tpu_torch.call.long_read_sv",
+        "ngsepcore_tpu_torch.graphs.components",
+        "ngsepcore_tpu_torch.kernels.minimizers",
+        "ngsepcore_tpu_torch.kernels.pairwise",
     ):
         assert mod in got["modules"]
     assert got["jax"] == []
