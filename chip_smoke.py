@@ -1,6 +1,6 @@
 """Smoke run of ngsepcore_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 2c,14]
+    python3 chip_smoke.py [--phases 2c,14] [--asm-row A]
 
 Builds the CUDA kernels from ngsepcore_tpu_torch/csrc (first use), holds
 each against its plain PyTorch version on the card, full plane and edge
@@ -41,11 +41,20 @@ through the CLI (ReadsAligner -p PACBIO, SingleSampleVariantsDetector
 -runLongReadSVs), with a planted insertion and deletion to find; phase
 15 aligns bench_configs.bench_long_reads' 600 reads of 10 kb against
 4 Mbp with its accuracy gates, then calls long-read SVs on them.
+Phase 2 also holds the wide Gotoh kernel (Ls > 1024) at Ls 1025-8192 and
+at every narrower case, and phase 9's genome carries a 1,500 bp tandem
+array whose flanks take it.  De-novo assembly follows: phase 16 runs the
+reference's legacy assembler row (30 kb, 15x of 2.5 kb reads) and a
+ploidy-2 assembly on the card against the CPU, Assembler,
+AssemblyGraphStatistics and SIH through the CLI; phase 17 assembles
+bench_configs.py's 100 kb linearity row (30x of 10 kb reads) on the card
+with an identity gate, its stage times and launches (`--asm-row A`: scale
+row A, 60x of 15 kb reads over 300 kb, instead).
 With --phases only the listed phases run (and the ones whose data they
 use; 0 and 1 always run).
 Prints one line per phase and exits nonzero at the first failure.  The
 last lines are a JSON object of the kernels (launch counts from the timed
-runs of phases 5, 6, 10, 13 and 15, errors and times measured here; the
+runs of phases 5, 6, 9, 10, 13, 15 and 17, errors and times measured here; the
 tier-2 and long-read entries at the launched shape that takes most of
 their time), the card's name and power limit, and the result line.  A kernel's bound is the least time the card could take: the
 larger of its bytes (inputs read once, outputs written once) over the
@@ -59,6 +68,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -491,6 +501,9 @@ def _skip_seventh(rng, B, W):
     return q, np.full(B, kept.shape[1], np.int32), s, np.full(B, W, np.int32)
 
 
+# phase 2's timed shapes of the wide kernel, a flank over a ~1,500 bp STR
+WIDE_TIMED = {side: f"tier-2 {side} flank 256x160x1664 (wide kernel)"
+              for side in ("left", "right")}
 TIER2_LEFT = dict(free_end1=True, free_start2=True, free_end2=False)
 TIER2_RIGHT = dict(free_start1=True, free_start2=False, free_end2=True)
 # the long-read segment kinds' free subject ends (long_reads._run_dp_jobs)
@@ -521,16 +534,19 @@ def _gotoh_mismatches(got, ref):
 
 
 def phase_gotoh():
-    """Both Gotoh kernels against the plain version, bit for bit on the
-    full plane; times of the kernel the wrapper picks, of the
-    block-per-alignment kernel (the only one before the redesign) and of
-    the plain version at the shapes the main paths use."""
+    """The three Gotoh kernels against the plain version, bit for bit on
+    the full plane; times of the kernel the wrapper picks, of the
+    block-per-alignment kernel (the only one before the redesign) where it
+    takes the width, and of the plain version at the shapes the main paths
+    use.  The wide kernel (Ls > 1024) is also held at every narrower case."""
     import torch
 
     from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
         gotoh_forward_plane,
         gotoh_forward_plane_block,
         gotoh_forward_plane_ref,
+        gotoh_forward_plane_wide,
+        kernel_for,
     )
 
     rng = np.random.default_rng(0)
@@ -544,6 +560,9 @@ def phase_gotoh():
     timed_t2 = [
         ("tier-2 left flank 256x160x224", _tier2_chunk(rng, 256, "left"), TIER2_LEFT),
         ("tier-2 right flank 256x160x224", _tier2_chunk(rng, 256, "right"), TIER2_RIGHT),
+        # a flank window over a known STR of ~1,500 bp (phase 9's long array)
+        (WIDE_TIMED["left"], _tier2_chunk(rng, 256, "left", Ls=1664), TIER2_LEFT),
+        (WIDE_TIMED["right"], _tier2_chunk(rng, 256, "right", Ls=1664), TIER2_RIGHT),
     ]
     cases += timed_t2
     timed_lr = [
@@ -557,6 +576,13 @@ def phase_gotoh():
     for name, data in _edge_cases(rng):
         for cfg in _GOTOH_CFGS:
             cases.append((f"{name} {cfg}", data, cfg))
+    for Ls in (1025, 1536, 2048, 4096, 8192):  # the wide kernel's widths
+        q, ql, s, sl = _noisy(rng, 37, 160, Ls)
+        ql[::5] = 0
+        sl[1] = 0
+        for cfg in (LONG_READ_CFGS["center"], TIER2_LEFT, TIER2_RIGHT, _GOTOH_CFGS[0]):
+            cases.append((f"wide Ls {Ls}, B 37, qlen 0 rows {cfg}", (q, ql, s, sl), cfg))
+    cases.append(("wide Ls 2100, runs past 255", _saturating(rng, 9, 300, 2100), {}))
     timed_names = {n for n, _ in timed} | {n for n, _, _ in timed_t2 + timed_lr}
     timing = {}
     n_cells = 0
@@ -566,6 +592,8 @@ def phase_gotoh():
         kernels = [("kernel", gotoh_forward_plane)]
         if s.shape[1] <= 256:  # wider subjects take the block kernel anyway
             kernels.append(("block kernel", gotoh_forward_plane_block))
+        if s.shape[1] <= 1024:  # wider subjects take the wide kernel anyway
+            kernels.append(("wide kernel", gotoh_forward_plane_wide))
         err = 0
         for label, fn in kernels:
             got = fn(*args, **cfg)
@@ -581,19 +609,21 @@ def phase_gotoh():
         if name in timed_names:
             B, Lq, Ls = q.shape[0], q.shape[1], s.shape[1]
             ms = cuda_ms(lambda: gotoh_forward_plane(*args, **cfg), calls=20)
-            old = cuda_ms(lambda: gotoh_forward_plane_block(*args, **cfg), calls=20)
+            old = (cuda_ms(lambda: gotoh_forward_plane_block(*args, **cfg), calls=20)
+                   if Ls <= 1024 else None)
             g_ms = graph_ms(lambda: gotoh_forward_plane(*args, **cfg))
             plain = cuda_ms(lambda: gotoh_forward_plane_ref(*args, **cfg))
             b_ms, b_by = gotoh_bound(B, Lq, Ls)
-            log(f"  time {name}: kernel {ms:.4f} ms, block kernel {old:.4f} ms "
-                f"(medians of 5 x 20 calls), kernel {g_ms:.4f} ms in a CUDA graph of "
-                f"20 calls, plain {plain:.3f} ms (median of 5); bound {b_ms:.4f} ms by "
-                f"{b_by}, kernel at {100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% "
-                f"in the graph), block kernel at {100 * b_ms / old:.1f}%")
+            block = ("no block kernel at this width" if old is None else
+                     f"block kernel {old:.4f} ms at {100 * b_ms / old:.1f}% of the bound")
+            log(f"  time {name}: kernel ({kernel_for(Ls)}) {ms:.4f} ms (median of 5 x 20 "
+                f"calls), {g_ms:.4f} ms in a CUDA graph of 20 calls, plain {plain:.3f} ms "
+                f"(median of 5); bound {b_ms:.4f} ms by {b_by}, kernel at "
+                f"{100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% in the graph); "
+                f"{block}")
             timing[name] = dict(ms=ms, plain_ms=plain, max_abs_err=err, graph_ms=g_ms,
                                 bound_ms=b_ms, bound_by=b_by, block_ms=old,
-                                shape=f"{B}x{Lq}x{Ls}",
-                                kernel="block" if Ls > 256 else "warp")
+                                shape=f"{B}x{Lq}x{Ls}", kernel=kernel_for(Ls))
         del ref
     log(f"phase 2 gotoh: {len(cases)} cases, {n_cells} plane cells compared, "
         "0 differing")
@@ -651,6 +681,11 @@ def phase_walk():
         ("runs past 255, R = Lq + Ls", _saturating(rng, 30, 300, 256), {}, 556),
         ("budget runs out 256x160x160", _skip_seventh(rng, 256, 160), {}, tier3(160)),
         ("empty query with a free query end", empty, TIER2_LEFT, 160 + 224),
+        # tier 2 over a ~1,500 bp STR: a wide-kernel plane, R = Lq + Ls
+        ("tier-2 left flank 64x160x1664 (wide kernel)",
+         _tier2_chunk(rng, 64, "left", Ls=1664), TIER2_LEFT, 160 + 1664),
+        ("tier-2 right flank 64x160x1664 (wide kernel)",
+         _tier2_chunk(rng, 64, "right", Ls=1664), TIER2_RIGHT, 160 + 1664),
         ("long reads budget runs out 512x512x512",
          _skip_seventh(rng, 512, 512), LONG_READ_CFGS["center"], tier3(512)),
     ]
@@ -1278,12 +1313,19 @@ def phase_cli(d, genome, reads, truth, fused_records):
 
 
 # ---------------------------------------------------------------------------
+LONG_STR = (47_000, 48_500)  # phase 9's long tandem array, 0-based half-open
+
+
 def _simulate_str_50kb(seed: int = 31):
     """A 50 kb genome with 14 planted tandem arrays (motifs of 2-6 bp, 8-20
-    copies), an individual whose arrays differ from the reference by one or
-    two whole units (homozygous) and that carries a few SNVs, and 6,000
-    reads of 100 bp with 0.4% substitutions, half of them placed to
-    straddle an array.  Returns (genome, reads, catalogue)."""
+    copies) and one long array of 1,500 bp (375 copies of a 4 bp motif at
+    LONG_STR), an individual whose arrays differ from the reference by one
+    or two whole units (homozygous; three for the long one) and that
+    carries a few SNVs, and 6,300 reads of 100 bp with 0.4% substitutions:
+    3,000 placed to straddle a short array, 300 an edge of the long one.
+    A flank window over the long array is wider than 1,024 columns, so
+    tier 2 takes the wide Gotoh kernel there.  Returns (genome, reads,
+    catalogue)."""
     from ngsepcore_tpu_torch.core.genome import ReferenceGenome
     from ngsepcore_tpu_torch.core.sequences import (
         QualifiedSequence,
@@ -1305,10 +1347,15 @@ def _simulate_str_50kb(seed: int = 31):
         dst = 2000 + a * 3300 + int(rng.integers(0, 500))
         codes[dst : dst + mlen * ncopies] = np.tile(unit, ncopies)
         arrays.append((dst, dst + mlen * ncopies, unit))
+    long_lo, long_hi = LONG_STR
+    long_unit = np.array([0, 2, 1, 3], np.int8)
+    codes[long_lo:long_hi] = np.tile(long_unit, (long_hi - long_lo) // 4)
     # the individual, built right to left so that coordinates stay valid
     ind = codes.copy()
     snv = rng.choice(L, size=60, replace=False)
     ind[snv] = (ind[snv] + rng.integers(1, 4, size=60)) % 4
+    ind = np.concatenate([ind[:long_lo], np.tile(long_unit, (long_hi - long_lo) // 4 + 3),
+                          ind[long_hi:]])
     centres = []
     for lo, hi, unit in reversed(arrays):
         delta = int(rng.choice([-2, -1, 1, 2]))
@@ -1318,6 +1365,12 @@ def _simulate_str_50kb(seed: int = 31):
     starts = [int(rng.integers(0, len(ind) - 100)) for _ in range(3000)]
     starts += [max(0, min(len(ind) - 100, int(c + rng.integers(-110, 10))))
                for c in rng.choice(centres, size=3000)]
+    # reads over the long array's two edges (it moved with the short
+    # arrays' length changes, all of them to its left)
+    lo_ind = long_lo + len(ind) - L - 12
+    hi_ind = lo_ind + (long_hi - long_lo) + 12
+    lrng = np.random.default_rng(seed + 1)
+    starts += [int(e + lrng.integers(-90, -10)) for e in [lo_ind] * 150 + [hi_ind] * 150]
     reads = []
     for i, st in enumerate(starts):
         rc = ind[st : st + 100].copy()
@@ -1328,7 +1381,8 @@ def _simulate_str_50kb(seed: int = 31):
         reads.append(RawRead(name=f"r_{i}", sequence=decode_dna(rc), qualities="F" * 100))
     seqs = QualifiedSequenceList()
     seqs.add(QualifiedSequence(name="chrS", codes=codes))
-    return ReferenceGenome(seqs), reads, str_catalogue("chrS", [a[:2] for a in arrays])
+    return ReferenceGenome(seqs), reads, str_catalogue(
+        "chrS", sorted([a[:2] for a in arrays] + [LONG_STR]))
 
 
 def _run_str(genome, reads, strs, device):
@@ -1385,6 +1439,31 @@ def phase_str_50kb(counters):
         fail("the repeat-length differences were not called")
     if min(t2_classic, t2_fused) == 0 or min(t2.values()) == 0:
         fail(f"the tier-2 flanks did not launch the Gotoh kernel: {t2}")
+    wide = sum(n for by in shapes.values() for (_, _, _, kern), n in by.items()
+               if kern == "wide")
+    long_reads = {f"r_{i}" for i in range(6000, 6300)}
+    split = sum(_split_at_long_str(line) for line in sam_c
+                if line.split("\t", 1)[0] in long_reads)
+    log(f"  wide-kernel launches {wide}; reads over the long array's edges split around "
+        f"it {split} of {len(long_reads)}")
+    if wide == 0:
+        fail("tier 2 did not launch the wide Gotoh kernel over the long array")
+    if split < len(long_reads) // 2:
+        fail("fewer than half of the reads over the long array were split around it")
+    return wide
+
+
+def _split_at_long_str(sam_line) -> bool:
+    """True where a SAM line's alignment stops at the long array's left
+    edge with a clipped tail, or starts right after its right edge with a
+    clipped head: the tier-2 split around the array."""
+    f = sam_line.split("\t")
+    cigar = [(int(n), op) for n, op in re.findall(r"(\d+)([MIDNSHP=X])", f[5])]
+    first = int(f[3])
+    last = first - 1 + sum(n for n, op in cigar if op in "MDN=X")
+    lo, hi = LONG_STR
+    return ((last == lo and cigar and cigar[-1][1] == "S")
+            or (first == hi + 1 and cigar and cigar[0][1] == "S"))
 
 
 def phase_str_real_size(counters, genome, reads, truth, table, tandem, metrics5,
@@ -1412,7 +1491,7 @@ def phase_str_real_size(counters, genome, reads, truth, table, tandem, metrics5,
     log(f"phase 10 known STRs at {GENOME_MBP} Mbp, {len(strs['chr1'])} arrays "
         f"({len(tandem)} planted): {dt:.3f}s = {len(reads) / dt:.1f} reads/s (first "
         f"run with the catalogue); {len(records)} records; tier-2 cells "
-        f"{al.tier2_reads} (skipped for a region too long: {al.tier2_skipped}); "
+        f"{al.tier2_reads}; "
         f"tier-3 jobs {al.complete_alns}; launches {launches}, of them tier-2 "
         f"flanks {t2} (Gotoh), {t2_walk} (walk)")
     for side, by in shapes.items():
@@ -1544,16 +1623,21 @@ def _valid_windows(codes, lengths, k):
     return int((full == k).sum())
 
 
-def _cli_plain(args, device, timeout):
-    """Run a command of the port's CLI to its end; returns seconds."""
+def _cli_plain(args, device, timeout=900, threads=None):
+    """Run a command of the port's CLI to its end: (seconds, stdout,
+    stderr); fails the run on a nonzero exit.  `threads` caps torch's CPU
+    threads."""
     cmd = [sys.executable, "-m", "ngsepcore_tpu_torch", "--device", device] + args
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
     t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-                         capture_output=True, text=True, timeout=timeout)
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=timeout)
     if out.returncode != 0:
         print(out.stderr[-4000:], flush=True)
         fail(f"CLI {args[0]} on {device} exited {out.returncode}")
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, out.stdout, out.stderr
 
 
 def _cli_both(args_for, device, timeout):
@@ -1564,7 +1648,7 @@ def _cli_both(args_for, device, timeout):
     with ThreadPoolExecutor(2) as pool:
         runs = {dev: pool.submit(_cli_plain, args_for(dev), dev, timeout)
                 for dev in dict.fromkeys((device, "cpu"))}
-        return {dev: run.result() for dev, run in runs.items()}
+        return {dev: run.result()[0] for dev, run in runs.items()}
 
 
 def _read_distribution(path):
@@ -1583,7 +1667,7 @@ def phase_kmers(d, genome, reads, device="cuda"):
     g, fq = os.path.join(d, "genome.fa"), os.path.join(d, "reads.fastq")
     # reads: every valid window counted once on each strand
     t = _cli_plain(["KmersExtractor", "-k", str(k), "-o", os.path.join(d, "kr"), fq],
-                   device, 600)
+                   device, 600)[0]
     with np.load(os.path.join(d, "kr_kmers.npz")) as z:
         codes, counts = z["codes"], z["counts"]
     want = 2 * _valid_windows(reads.codes, reads.lengths, k)
@@ -2183,7 +2267,6 @@ def phase_long_reads_real_size(counters, device="cuda"):
     alignments."""
     import torch
 
-    from bench import build_repeat_genome as bench_genome
     from ngsepcore_tpu_torch.align.long_reads import LongReadsAligner
     from ngsepcore_tpu_torch.call.long_read_sv import LongReadStructuralVariantDetector
     from ngsepcore_tpu_torch.index.minimizer_table import MinimizerTable
@@ -2194,7 +2277,7 @@ def phase_long_reads_real_size(counters, device="cuda"):
     from ngsepcore_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
-    codes, _ = bench_genome(np.random.default_rng(2024), 12_000_000)
+    codes = _bench_genome_codes()
     genome = _genome_of_codes("chr1", codes[:4_000_000].copy())
     reads = SingleReadsSimulator(genome, read_length=10_000, substitution_error_rate=0.01,
                                  indel_error_rate=0.01, seed=77).simulate(600)
@@ -2259,30 +2342,292 @@ def phase_long_reads_real_size(counters, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# de-novo assembly (phases 16, 17)
+
+def _sim_asm_reads(genome_codes, L, cov, rl, seed=31, err=0.01):
+    """bench_configs._sim_asm_reads with the port's reverse complement:
+    L * cov // rl reads of rl bp from genome_codes[:L] with substitution and
+    indel errors (2:1 at `err` in all), half of them reverse-complemented."""
+    from ngsepcore_tpu_torch.core.sequences import reverse_complement_codes
+
+    rng = np.random.default_rng(seed)
+    g = genome_codes[:L]
+    reads = []
+    for _ in range(L * cov // rl):
+        s = int(rng.integers(0, max(1, L - rl)))
+        codes = g[s : s + rl].copy()
+        idx = np.nonzero(rng.random(rl) < err * 2 / 3)[0]
+        if len(idx):
+            codes[idx] = (codes[idx] + rng.integers(1, 4, size=len(idx)).astype(np.int8)) % 4
+        pieces, prev = [], 0
+        for p in np.nonzero(rng.random(rl) < err / 3)[0]:
+            pieces.append(codes[prev:p])
+            if rng.random() < 0.5:
+                prev = p + 1
+            else:
+                pieces.append(np.array([rng.integers(0, 4)], np.int8))
+                prev = p
+        pieces.append(codes[prev:])
+        codes = np.concatenate(pieces).astype(np.int8)
+        if rng.random() < 0.5:
+            codes = reverse_complement_codes(codes)
+        reads.append(codes)
+    return reads
+
+
+def _asm_identity(contigs, genome_codes, L) -> float:
+    """bench_configs._asm_identity: the fraction of truth 32-mers, sampled
+    every max(250, L/200) bp, found exactly in the contigs (either strand)."""
+    from ngsepcore_tpu_torch.core.sequences import decode_dna, reverse_complement_codes
+
+    gtext = decode_dna(genome_codes[:L])
+    texts = []
+    for c in contigs:
+        texts += [decode_dna(c), decode_dna(reverse_complement_codes(c))]
+    blob = "#".join(texts)
+    wins = range(0, L - 32, max(250, L // 200))
+    return sum(gtext[off : off + 32] in blob for off in wins) / max(1, len(wins))
+
+
+_REPEAT_GENOME = {}
+
+
+def _bench_genome_codes():
+    """bench.build_repeat_genome(rng 2024, 12 Mbp), built once a process."""
+    from bench import build_repeat_genome as bench_genome
+
+    if "codes" not in _REPEAT_GENOME:
+        _REPEAT_GENOME["codes"] = bench_genome(np.random.default_rng(2024), 12_000_000)[0]
+    return _REPEAT_GENOME["codes"]
+
+
+def _asm_stats(contigs, genome_codes, L):
+    from ngsepcore_tpu_torch.assembly.assembler import n_statistics
+
+    lens = [len(c.codes) for c in contigs]
+    n50 = n_statistics(lens).get("N50", 0) if lens else 0
+    return dict(n_contigs=len(lens), n50=int(n50), n50_frac=n50 / L,
+                identity=_asm_identity([c.codes for c in contigs], genome_codes, L))
+
+
+def _diploid_reads():
+    """tests/test_assembly_polish.py::test_diploid_phased_assembly's input:
+    two 20 kb haplotypes one SNV in 300 bp apart, 80 reads of 3 kb each."""
+    from ngsepcore_tpu_torch.core.sequences import encode_dna, reverse_complement_codes
+
+    rng = np.random.default_rng(12)
+    h0 = encode_dna("".join(rng.choice(list("ACGT"), size=20000)))
+    h1 = h0.copy()
+    idx = np.arange(150, len(h1) - 150, 300)
+    h1[idx] = (h1[idx] + 1) % 4
+    reads = []
+    for hap in (h0, h1):
+        for _ in range(80):
+            s = int(rng.integers(0, len(hap) - 3000))
+            codes = hap[s : s + 3000].copy()
+            e = np.nonzero(rng.random(3000) < 0.003)[0]
+            codes[e] = (codes[e] + rng.integers(1, 4, len(e))) % 4
+            if rng.random() < 0.5:
+                codes = reverse_complement_codes(codes)
+            reads.append(codes)
+    return reads
+
+
+def phase_assembly_small(counters, device="cuda"):
+    """De-novo assembly on the reference's legacy row (the first 30 kb of
+    bench.py's repeat genome, 15x of 2.5 kb reads, 1% error with indels) on
+    `device`, with the reference's gates; the ploidy-2 assembly of the
+    diploid test input; Assembler and AssemblyGraphStatistics through the
+    CLI; SIH through the CLI on phase 6's 50 kb calls and alignments
+    (at least one block).  The CPU side runs as CLI subprocesses in the
+    background meanwhile: its contigs must equal the card's, in process and
+    through the CLI, base for base and byte for byte."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ngsepcore_tpu_torch.assembly.assembler import Assembler
+    from ngsepcore_tpu_torch.core.sequences import RawRead, decode_dna
+    from ngsepcore_tpu_torch.io.fasta import load_fasta
+    from ngsepcore_tpu_torch.io.fastq import write_fastq
+    from ngsepcore_tpu_torch.io.sam import ReadAlignmentFileWriter
+    from ngsepcore_tpu_torch.vcf.io import VCFFileWriter
+
+    L = 30_000
+    codes = _bench_genome_codes()
+    reads = _sim_asm_reads(codes, L, 15, 2500)
+    dreads = _diploid_reads()
+    seqs = lambda contigs: [(c.name, decode_dna(c.codes)) for c in contigs]
+    with tempfile.TemporaryDirectory() as d, ThreadPoolExecutor(2) as pool:
+        fq = {}
+        for name, rs in (("asm", reads), ("dip", dreads)):
+            fq[name] = os.path.join(d, f"{name}.fastq")
+            write_fastq([RawRead(name=f"r{i}", sequence=decode_dna(c), qualities="I" * len(c))
+                         for i, c in enumerate(rs)], fq[name])
+        out = lambda name, dev: os.path.join(d, f"{name}_{dev}")
+
+        def cpu_side(name, extra):
+            t = _cli_plain(["Assembler"] + extra + [fq[name], out(name, "cpu")], "cpu", threads=3)
+            stats = _cli_plain(["AssemblyGraphStatistics", out(name, "cpu") + "_contigs.fa"],
+                             "cpu")[1]
+            return t[0], stats
+
+        cpu = {"asm": pool.submit(cpu_side, "asm", []),
+               "dip": pool.submit(cpu_side, "dip", ["-ploidy", "2"])}
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        got = Assembler(device=device).assemble(reads)
+        sync(device)
+        t_dev = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        st = _asm_stats(got, codes, L)
+        log(f"phase 16 assembly legacy row ({len(reads)} reads of 2.5 kb, 30 kb): "
+            f"{st['n_contigs']} contigs, N50 {st['n50']} (n50_frac {st['n50_frac']:.4f}), "
+            f"anchored identity {st['identity']:.4f} on {device} ({t_dev:.2f}s); launches "
+            f"{launches} (the reference's record: 1 contig, n50_frac 0.979, identity 0.975)")
+        if st["n50_frac"] < 0.9 or st["identity"] < 0.95:
+            fail(f"assembly gates (n50_frac >= 0.9, identity >= 0.95) missed: {st}")
+        if device == "cuda" and min(launches.values()) == 0:
+            fail(f"the assembly did not launch every kernel: {launches}")
+        t0 = time.perf_counter()
+        dgot = seqs(Assembler(ploidy=2, polish_rounds=1, device=device).assemble(dreads))
+        names = [n for n, _ in dgot]
+        log(f"  ploidy 2 ({len(dreads)} reads of 3 kb, two 20 kb haplotypes): contigs {names} "
+            f"({time.perf_counter() - t0:.2f}s on {device})")
+        if not any("hap0" in n for n in names) or not any("hap1" in n for n in names):
+            fail("the ploidy-2 assembly lacks a haplotype")
+        t_cli, _, _ = _cli_plain(["Assembler", fq["asm"], out("asm", device)], device)
+        stats = _cli_plain(["AssemblyGraphStatistics", out("asm", device) + "_contigs.fa"],
+                         device)[1]
+        # SIH on phase 6's 50 kb sample: its calls and alignments on the card
+        genome, sreads = _simulate_50kb()
+        sam, records, _ = _run_classic(genome, sreads, device)
+        with open(os.path.join(d, "s1.sam"), "w") as fh:
+            ReadAlignmentFileWriter(genome.sequences, fh, sample_id="s1")
+            fh.write("".join(line + "\n" for line in sam))
+        with VCFFileWriter(os.path.join(d, "s1.vcf"), ["s1"]) as w:
+            for r in records:
+                w.write(r)
+        sih = _cli_plain(["SIH", "-i", os.path.join(d, "s1.vcf"), "-b", os.path.join(d, "s1.sam"),
+                        "-o", os.path.join(d, "phased.vcf")], device)[2]
+        summary = [l for l in sih.splitlines() if l.startswith("Phased")]
+        log(f"  CLI SIH on phase 6's {len(records)} records and {len(sam)} alignments: {summary}")
+        blocks = int(summary[0].split(" in ")[1].split()[0]) if summary else 0
+        if blocks < 1:
+            fail("SIH phased no block on the 50 kb sample")
+        t_cpu, stats_cpu = cpu["asm"].result()
+        t_dip, _ = cpu["dip"].result()
+        fa = {dev: open(out("asm", dev) + "_contigs.fa").read() for dev in (device, "cpu")}
+        equal = {
+            "in process": seqs(got) == seqs(load_fasta(out("asm", "cpu") + "_contigs.fa")),
+            "ploidy 2": dgot == seqs(load_fasta(out("dip", "cpu") + "_contigs.fa")),
+            "CLI contigs": fa[device] == fa["cpu"], "CLI statistics": stats == stats_cpu,
+        }
+        log(f"  CLI Assembler {device} {t_cli:.2f}s; CPU side (CLI subprocesses, 3 threads "
+            f"each, in the background): legacy row {t_cpu:.2f}s, ploidy 2 {t_dip:.2f}s; "
+            f"AssemblyGraphStatistics {stats.split()}; {device} equal to the CPU: {equal}")
+        if not all(equal.values()):
+            fail(f"assembly outputs differ between {device} and the CPU: {equal}")
+    return launches
+
+
+# phase 17's inputs: bench_configs.py's assembler scale row A (60x of 15 kb
+# reads over 300 kb) and its 100 kb linearity row (30x of 10 kb).  Row A
+# alone took 239.6 s on an H100 (asm.merge 129 s, asm.polish 100 s: host
+# Python), at the 240 s the script can give it, so the script runs the
+# linearity row unless --asm-row A asks for row A
+ASM_ROWS = {
+    "A": dict(L=300_000, cov=60, rl=15_000, tag="scale row A (bench_configs.py:341)"),
+    "lin100": dict(L=100_000, cov=30, rl=10_000,
+                   tag="linearity row 100 kb (bench_configs.py:351)"),
+}
+
+
+def phase_assembly_real_size(counters, row="lin100", device="cuda"):
+    """Assembly at user size, on the card only: ASM_ROWS[row]'s reads
+    through Assembler() defaults; one synchronised wall time, genome
+    bases/s, contigs, N50, n50_frac, anchored identity (gate >= 0.90), the
+    asm.* and lr.* stage times, Gotoh and walk launches by shape (rows
+    summed), peak memory."""
+    import torch
+
+    from ngsepcore_tpu_torch.assembly.assembler import Assembler
+    from ngsepcore_tpu_torch.utils import profiling
+
+    ASM_ROW = ASM_ROWS[row]
+    L, cov, rl = ASM_ROW["L"], ASM_ROW["cov"], ASM_ROW["rl"]
+    codes = _bench_genome_codes()
+    t0 = time.perf_counter()
+    reads = _sim_asm_reads(codes, L, cov, rl)
+    bases = sum(len(r) for r in reads)
+    log(f"phase 17 inputs, {ASM_ROW['tag']}: {len(reads)} reads, {bases} bases over the first "
+        f"{L} bp ({time.perf_counter() - t0:.1f}s)")
+    torch.cuda.reset_peak_memory_stats()
+    profiling.enable()
+    profiling.reset()
+    reset_counts(counters)
+    sync(device)
+    t0 = time.perf_counter()
+    contigs = Assembler(device=device).assemble(reads)
+    sync(device)
+    dt = time.perf_counter() - t0
+    profiling.enable(False)
+    launches = {c.__name__: c.launches for c in counters}
+    gotoh_shapes = _long_read_gotoh_shapes(counters[0])
+    walk_shapes = Counter(counters[1].launch_shapes)
+    peak = torch.cuda.max_memory_allocated()
+    st = _asm_stats(contigs, codes, L)
+    log(f"  assembly {dt:.3f}s = {L / dt:.1f} genome bases/s; {st['n_contigs']} contigs, N50 "
+        f"{st['n50']}, n50_frac {st['n50_frac']:.4f}, anchored identity {st['identity']:.4f}; "
+        f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
+    for name, (total, calls) in sorted(profiling._stages.items(), key=lambda kv: -kv[1][0]):
+        print(f"  stage {name:<28} {total:9.3f}s x{calls}", flush=True)
+    by, rows = Counter(), Counter()
+    for (kind, B, Lq, Ls, kern), n in gotoh_shapes.items():
+        by[kind, Lq, Ls, kern] += n
+        rows[kind, Lq, Ls, kern] += n * B
+    log("  gotoh launches by (kind, Lq, Ls, kernel): " + ", ".join(
+        f"{n} x {k} ({rows[k]} rows)" for k, n in sorted(by.items(), key=lambda kv: -kv[1])))
+    by, rows = Counter(), Counter()
+    for (B, Lq, Ls, R, fs2), n in walk_shapes.items():
+        by[Lq, Ls, R, fs2] += n
+        rows[Lq, Ls, R, fs2] += n * B
+    log("  walk launches by (Lq, Ls, R, free_start2): " + ", ".join(
+        f"{n} x {k} ({rows[k]} rows)" for k, n in sorted(by.items(), key=lambda kv: -kv[1])))
+    if st["identity"] < 0.90:
+        fail(f"assembly identity {st['identity']} below the 0.90 gate")
+    if min(launches.values()) == 0:
+        fail(f"the assembly did not launch every kernel: {launches}")
+    return launches, gotoh_shapes, walk_shapes
+
+
+# ---------------------------------------------------------------------------
 PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "9", "10", "12", "13", "8", "11",
-          "14", "15")
+          "14", "15", "16", "17")
 NEEDS = {"6": "4", "8": "5", "10": "5", "11": "5", "13": "5"}  # uses that phase's data
 
 
 def _chosen(argv):
-    """The phases to run, in PHASES order: all of them with no argument,
-    else `--phases 2c,14` and the phases whose data these use.  Phases 0
-    (device) and 1 (build) always run."""
+    """(the phases to run, in PHASES order: all of them with no argument,
+    else `--phases 2c,14` and the phases whose data these use; phase 17's
+    assembler row).  Phases 0 (device) and 1 (build) always run."""
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of ngsepcore_tpu_torch on one GPU")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run (default: all), e.g. 2c,14")
-    want = {p.strip() for p in ap.parse_args(argv).phases.split(",") if p.strip()}
+    ap.add_argument("--asm-row", default="lin100", choices=sorted(ASM_ROWS),
+                    help="phase 17's assembler row (default lin100; A = 60x of 15 kb "
+                         "over 300 kb)")
+    args = ap.parse_args(argv)
+    want = {p.strip() for p in args.phases.split(",") if p.strip()}
     bad = want - set(PHASES)
     if bad:
         ap.error(f"unknown phases {sorted(bad)}; known: {','.join(PHASES)}")
     want |= {NEEDS[p] for p in want if p in NEEDS}
-    return [p for p in PHASES if p in want]
+    return [p for p in PHASES if p in want], args.asm_row
 
 
 def main(argv=None) -> None:
-    chosen = _chosen(sys.argv[1:] if argv is None else argv)
+    chosen, asm_row = _chosen(sys.argv[1:] if argv is None else argv)
     smi = phase_device()
     import torch
 
@@ -2316,7 +2661,7 @@ def main(argv=None) -> None:
         elif p == "7":
             phase_span(counters)
         elif p == "9":
-            phase_str_50kb(counters)
+            t[p] = phase_str_50kb(counters)
         elif p == "10":
             _, _, _, genome, reads, truth, table, tandem, metrics5 = t["5"]
             str_launches, str_shapes, walk_t2 = phase_str_real_size(
@@ -2345,6 +2690,10 @@ def main(argv=None) -> None:
             torch.cuda.empty_cache()
             t[p] = (phase_long_reads_small if p == "14"
                     else phase_long_reads_real_size)(lr_counters)
+        elif p in ("16", "17"):
+            torch.cuda.empty_cache()
+            t[p] = (phase_assembly_small(lr_counters) if p == "16"
+                    else phase_assembly_real_size(lr_counters, asm_row))
     if "d" in t:
         t.pop("d").cleanup()
     print(json.dumps({"kernels": kernel_entries(t)}), flush=True)
@@ -2410,24 +2759,32 @@ def kernel_entries(t: dict) -> list:
                              t2[side]))
             out.append(entry(f"run_walk_tier2_{side}", *walk, t2_walk[side],
                              t2[side]["walk"]))
-    if "15" in t and g and w:
-        # the long-read run at full width (phase 15), each kernel timed at
-        # the long-read shape that takes most of its time there: launches
-        # x the 512-row device time (in a CUDA graph) x rows / 512 (a chunk
-        # of fewer rows takes about its share of the 512-row time)
-        launches, gotoh_shapes, walk_shapes = t["15"]
+    for p, tag in (("15", "long_reads"), ("17", "assembly")):
+        if p not in t or not (g and w):
+            continue
+        # the long-read run (phase 15) and the assembly at user size (phase
+        # 17; every polish, correction and phasing pass is a long-read
+        # alignment), each kernel timed at the long-read shape that takes
+        # most of its time there: launches x the 512-row device time (in a
+        # CUDA graph) x rows / 512 (a chunk of fewer rows takes about its
+        # share of the 512-row time)
+        launches, gotoh_shapes, walk_shapes = t[p]
         per = Counter()
         for (kind, B, Lq, Ls, _), n in gotoh_shapes.items():
             per[kind, Lq] += n * B / 512 * g[f"long reads {kind} 512x{Lq}x{Ls}"]["graph_ms"]
         kind, W = max(per, key=per.get)
-        out.append(entry("gotoh_forward_long_reads", *gotoh, sum(gotoh_shapes.values()),
+        out.append(entry(f"gotoh_forward_{tag}", *gotoh, sum(gotoh_shapes.values()),
                          g[f"long reads {kind} 512x{W}x{W}"]))
         per = Counter()
         for (B, Lq, Ls, _, _), n in walk_shapes.items():
             per[Lq] += n * B / 512 * w[f"long reads center 512x{Lq}x{Ls}"]["graph_ms"]
         W = max(per, key=per.get)
-        out.append(entry("run_walk", *walk, launches["_runs_from_plane"],
-                         w[f"long reads center 512x{W}x{W}"]))
+        out.append(entry("run_walk" if p == "15" else f"run_walk_{tag}", *walk,
+                         launches["_runs_from_plane"], w[f"long reads center 512x{W}x{W}"]))
+    if "9" in t and g:
+        # the wide kernel: tier 2 over phase 9's 1,500 bp array at 50 kb,
+        # timed at a flank chunk over such an array
+        out.append(entry("gotoh_forward_wide", *gotoh, t["9"], g[WIDE_TIMED["left"]]))
     if "5 launches" in t and "3" in t:
         out.append(entry("shear_hist", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
                          "ngsepcore_tpu/kernels/shear_pileup.py:227",

@@ -52,7 +52,7 @@ def run(lib, args, cfg, block_kernel=False):
         B, Lq, Ls, 1, 1, 3, 1,
         int(cfg.get("free_start1", False)), int(cfg.get("free_end1", False)),
         int(cfg.get("free_start2", True)), int(cfg.get("free_end2", True)),
-        int(block_kernel), torch.cuda.current_stream().cuda_stream,
+        int(block_kernel), None, torch.cuda.current_stream().cuda_stream,
     )
     cuda_build.check("gotoh_forward", rc)
     # the kernels write end_i only with a free query end; else it is qlen

@@ -228,7 +228,6 @@ class ReadsAligner:
         self.complete_alns = 0
         self.dp_cells = 0  # DP cell updates issued to the device
         self.tier2_reads = 0  # candidate cells that tried the tier-2 STR split
-        self.tier2_skipped = 0  # cells whose STR is too long for tier 2
 
     @property
     def tier2(self):
@@ -265,7 +264,6 @@ class ReadsAligner:
 
         offs = self.genome.offsets
         jobs = []
-        skipped_before = t2.skipped_long
         for ridx, c, si, pred, strand, weight in cells:
             if not t2.has_strs(si):
                 continue
@@ -291,7 +289,6 @@ class ReadsAligner:
             )
             jobs.append(((ridx, c), _Tier2Job(cand, qcodes, first, region, si)))
             result[None].add((ridx, c))
-        self.tier2_skipped += t2.skipped_long - skipped_before
         if jobs:
             self.tier2_reads += len(jobs)
             t2.align_batch([j for _, j in jobs])

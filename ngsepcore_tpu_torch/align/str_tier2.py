@@ -19,8 +19,6 @@ results as ngsepcore_tpu/align/str_tier2.py.
 """
 from __future__ import annotations
 
-import warnings
-
 import numpy as np
 import torch
 
@@ -85,8 +83,10 @@ class Tier2STRAligner:
     """Batched verifyShortTandemRepeats over one read batch."""
 
     DP_ROWS = 256
-    # widest flank window the Gotoh kernels take (kernels/pairwise_cuda.py)
-    MAX_SUBJECT = 1024
+    # most bytes of one launch's (rows, Lq, Ls) int32 Gotoh plane: a chunk
+    # of long regions halves its rows until its plane fits (the rows of a
+    # launch are independent, so the chunking changes no output)
+    PLANE_CAP_BYTES = 1 << 30
 
     def __init__(self, genome, known_strs: dict[str, list], *, device):
         self.genome = genome
@@ -94,9 +94,6 @@ class Tier2STRAligner:
         # per-sequence sorted region lists (detector convention)
         self.known_strs = known_strs or {}
         self._by_idx: dict[int, list] = {}
-        # candidate cells left to tiers 1 and 3 because their region is too
-        # long for MAX_SUBJECT (the JAX package has no such limit)
-        self.skipped_long = 0
         for si in range(genome.num_sequences):
             lst = self.known_strs.get(genome.sequence_name(si))
             if lst:
@@ -109,25 +106,7 @@ class Tier2STRAligner:
         lst = self._by_idx.get(seq_idx)
         if not lst:
             return None
-        region = find_tandem_repeat(lst, first, last)
-        # a flank window is at most read length + region length wide; a
-        # region too long for the kernels' subject width is left to tiers
-        # 1 and 3 (ROADMAP.md Queue 3)
-        if region is not None and (
-            region.last - region.first + 1 + last - first + 1 > self.MAX_SUBJECT
-        ):
-            if not self.skipped_long:
-                warnings.warn(
-                    f"known STR {self.genome.sequence_name(seq_idx)}:"
-                    f"{region.first}-{region.last} plus a read of "
-                    f"{last - first + 1} bp is wider than the {self.MAX_SUBJECT} "
-                    "columns of the Gotoh kernels: reads over such regions skip "
-                    "the tier-2 split alignment (counted in skipped_long)",
-                    RuntimeWarning, stacklevel=2,
-                )
-            self.skipped_long += 1
-            return None
-        return region
+        return find_tandem_repeat(lst, first, last)
 
     # ------------------------------------------------------------------
     def align_batch(self, jobs: list[_Tier2Job]) -> None:
@@ -178,22 +157,31 @@ class Tier2STRAligner:
 
     # ------------------------------------------------------------------
     def _run_flank(self, flank_jobs: list, side: str) -> list:
-        """Batched Gotoh launches for one flank side, DP_ROWS jobs each
-        (one device->host fetch a chunk); returns per-job (cigar_ops,
-        mismatches, soft_clip, ok).  Rows pad to a power of two from 32 and
-        widths to multiples of 32, the reference's buckets: padding rows
-        are empty and change no result."""
+        """Batched Gotoh launches for one flank side, DP_ROWS jobs each, or
+        fewer where the plane would pass PLANE_CAP_BYTES (one device->host
+        fetch a chunk); returns per-job (cigar_ops, mismatches, soft_clip,
+        ok).  Rows pad to a power of two from 32 and widths to multiples of
+        32, the reference's buckets: padding rows are empty and change no
+        result.  A flank window is up to the read plus the region wide, of
+        any length: over 1,024 columns the launch takes the wide Gotoh
+        kernel (kernels/pairwise_cuda.py)."""
         dev = self.device
         out = [None] * len(flank_jobs)
-        for c0 in range(0, len(flank_jobs), self.DP_ROWS):
-            chunk = flank_jobs[c0 : c0 + self.DP_ROWS]
-            rows = len(chunk)
-            bucket = 32
-            while bucket < rows:
-                bucket *= 2
+        c0 = 0
+        while c0 < len(flank_jobs):
+            rows = min(self.DP_ROWS, len(flank_jobs) - c0)
+            while True:
+                chunk = flank_jobs[c0 : c0 + rows]
+                bucket = 32
+                while bucket < rows:
+                    bucket *= 2
+                max_q = max(len(j[1]) for j in chunk)
+                max_s = max(len(j[2]) for j in chunk)
+                plane_bytes = 4 * bucket * (-(-max_q // 32) * 32) * (-(-max_s // 32) * 32)
+                if rows == 1 or plane_bytes <= self.PLANE_CAP_BYTES:
+                    break
+                rows //= 2
             pad = [np.empty(0, np.int8)] * (bucket - rows)
-            max_q = max(len(j[1]) for j in chunk)
-            max_s = max(len(j[2]) for j in chunk)
             qc, ql, _ = pack_reads(
                 [j[1] for j in chunk] + pad, pad_to=max_q, pad_multiple=32
             )
@@ -234,6 +222,7 @@ class Tier2STRAligner:
                     if ok:
                         cigar = cigar[1:]
                     out[c0 + i] = (cigar, mism, head, ok)
+            c0 += rows
         return out
 
     # ------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 Command ids, groups, flags and former ids are those of
 ngsepcore_tpu/cli/commands.py (the reference's CommandsDescriptor.xml).
-Nine commands are ported: KmersExtractor, GenomeIndexer, ReadsAligner
-(short reads), ReadsFileErrorsCorrector, SingleSampleVariantsDetector,
+Twelve commands are ported: KmersExtractor, GenomeIndexer, ReadsAligner
+(short and long reads), ReadsFileErrorsCorrector, Assembler,
+AssemblyGraphStatistics, SingleSampleVariantsDetector, SIH,
 MultisampleVariantsDetector, ReadDepthComparator, CoverageStats and
 BasePairQualStats.  Every other id is registered as pending:
 running it exits with an error naming the ROADMAP.md item that ports it.
@@ -42,6 +43,82 @@ register(
             Option("o", "output_prefix", "str", None, "Output prefix"),
             Option("t", "text_output", "bool", False, "Write kmers as text"),
         ],
+    )
+)
+
+
+def _run_assembler(opts: dict, args: list[str], device) -> None:
+    from ..assembly.assembler import Assembler, n_statistics
+    from ..io.fasta import FastaFileReader, save_fasta
+    from ..io.fastq import FastqFileReader
+
+    if len(args) < 2:
+        raise SystemExit("Usage: Assembler <reads.fastq|fa> <out_prefix>")
+    path = args[0]
+    if path.lower().endswith((".fastq", ".fq", ".fastq.gz", ".fq.gz")):
+        reads = [r.codes for r in FastqFileReader(path)]
+    else:
+        reads = [s.codes for s in FastaFileReader(path)]
+    asm = Assembler(**opts, device=device)
+    contigs = asm.assemble(reads)
+    save_fasta(contigs, args[1] + "_contigs.fa")
+    stats = n_statistics([len(c) for c in contigs])
+    print(
+        f"Assembled {stats['count']} contigs, total {stats['total']} bp, "
+        f"N50 {stats.get('N50', 0)}, max {stats['max']}",
+        file=sys.stderr,
+    )
+
+
+register(
+    Command(
+        id="Assembler",
+        group="Reads",
+        description="De-novo long-read assembly (minimizer overlap graph)",
+        runner=_run_assembler,
+        options=[
+            Option("k", "kmer_length", "int", 15, "K-mer length"),
+            Option("w", "window_length", "int", 10, "Minimizer window"),
+            Option("m", "min_shared_minimizers", "int", 6, "Min shared minimizers"),
+            Option("l", "min_overlap", "int", 200, "Minimum overlap length"),
+            Option("polish", "polish_rounds", "int", 1,
+                   "Consensus polishing rounds (0 = off)"),
+            Option("circular", "circular", "bool", False,
+                   "Detect and trim circular contigs"),
+            Option("ploidy", "ploidy", "int", 1,
+                   "Sample ploidy (2 = phased diploid assembly)"),
+        ],
+    )
+)
+
+
+def _run_assembly_graph_stats(opts: dict, args: list[str], device) -> None:
+    from ..assembly.assembler import n_statistics
+    from ..io.fasta import load_fasta
+
+    if not args:
+        raise SystemExit("Usage: AssemblyGraphStatistics <contigs.fa> [truth.fa]")
+    contigs = load_fasta(args[0])
+    stats = n_statistics([len(c) for c in contigs])
+    print(f"Contigs\t{stats['count']}")
+    print(f"Total\t{stats['total']}")
+    print(f"Max\t{stats['max']}")
+    print(f"N50\t{stats.get('N50', 0)}")
+    if len(args) > 1:
+        truth = load_fasta(args[1])
+        truth_len = sum(len(t) for t in truth)
+        print(f"TruthLength\t{truth_len}")
+        print(f"TotalVsTruth\t{stats['total'] / max(1, truth_len):.3f}")
+
+
+register(
+    Command(
+        id="AssemblyGraphStatistics",
+        group="Reads",
+        description="Assembly statistics (N50, totals, truth comparison)",
+        runner=_run_assembly_graph_stats,
+        hidden=True,
+        options=[],
     )
 )
 
@@ -408,15 +485,54 @@ register(
 )
 
 
+def _run_sih(opts: dict, args: list[str], device) -> None:
+    from ..haplotyping.sih import SingleIndividualHaplotyper
+    from ..io.sam import ReadAlignmentFileReader
+    from ..vcf.io import VCFFileReader, VCFFileWriter
+
+    vcf_in = opts.pop("input_file", None) or (args[0] if args else None)
+    sam_in = opts.pop("alignments_file", None) or (args[1] if len(args) > 1 else None)
+    out = opts.pop("output_file", None)
+    if not vcf_in or not sam_in or not out:
+        raise SystemExit("Usage: SIH -i <calls.vcf> -b <alns.sam> -o <phased.vcf>")
+    reader = VCFFileReader(vcf_in)
+    records = reader.load_all()
+    alns = list(ReadAlignmentFileReader(sam_in))
+    sih = SingleIndividualHaplotyper(**opts)  # host numpy: no device work
+    blocks = sih.phase(records, alns)
+    with VCFFileWriter(out, reader.sample_ids) as w:
+        for r in records:
+            w.write(r)
+    print(
+        f"Phased {sum(len(b.var_indices) for b in blocks)} variants in "
+        f"{len(blocks)} blocks (MEC {sum(b.mec for b in blocks)})",
+        file=sys.stderr,
+    )
+
+
+register(
+    Command(
+        id="SIH",
+        group="Discovery",
+        description="Single individual haplotyping (RefHap-style MEC search)",
+        runner=_run_sih,
+        options=[
+            Option("i", "input_file", "str", None, "Single-sample VCF"),
+            Option("b", "alignments_file", "str", None, "Alignments SAM"),
+            Option("o", "output_file", "str", None, "Output phased VCF"),
+            Option("a", "algorithm", "str", "Refhap", "Phasing algorithm: Refhap,Refhap2,Refhap3,DGS,Groups,HapChat,GenHap"),
+        ],
+    )
+)
+
+
 # ---- command ids not ported yet -----------------------------------------
 
-_ASSEMBLY = "ROADMAP.md Queue 1 item 13 (assembly)"
 _HMM = "ROADMAP.md Queue 1 item 14 (HMM consumers)"
 _TAIL = "ROADMAP.md Queue 1 item 17 (the long tail)"
 
 # id -> (group, description, former id, hidden, ROADMAP item)
 _PENDING: dict[str, tuple[str, str, str | None, bool, str]] = {
-    "Assembler": ("Reads", "De-novo long-read assembly (minimizer overlap graph)", None, False, _ASSEMBLY),
     "TillingIndividualVCF2PoolVCF": ("Benchmark", "Convert an individuals VCF to the pooled-sample VCF a TILLING run would produce", None, False, _TAIL),
     "Demultiplex": ("Reads", "Demultiplexes pooled reads by barcodes", None, False, _TAIL),
     "IndividualGenomeBuilder": ("Reads", "Applies VCF variants to a genome FASTA", None, False, _TAIL),
@@ -424,7 +540,6 @@ _PENDING: dict[str, tuple[str, str, str | None, bool, str]] = {
     "SingleReadsSimulator": ("Benchmark", "Simulates sequencing reads from a genome", None, False, _TAIL),
     "SingleIndividualSimulator": ("Benchmark", "Simulates a mutated individual genome with truth VCF", None, False, _TAIL),
     "VCFImpute": ("VariantsDownstream", "Imputes missing genotypes with a haplotype-cluster HMM", "ImputeVCF", False, _HMM),
-    "SIH": ("Discovery", "Single individual haplotyping (RefHap-style MEC search)", None, False, _HMM),
     "VCFGoldStandardComparator": ("Benchmark", "Genotype-aware TP/FP/FN vs a gold standard per quality bin", None, False, _TAIL),
     "VCFAnnotate": ("VariantsDownstream", "Functional annotation of variants vs gene models (SO terms)", "Annotate", False, _TAIL),
     "GenomesAligner": ("Genomes", "Whole-genome ortholog and synteny comparison", None, False, _TAIL),
@@ -452,7 +567,6 @@ _PENDING: dict[str, tuple[str, str, str | None, bool, str]] = {
     "UneakToVCFConverter": ("VariantsDownstream", "Converts UNEAK HapMap+consensus output to VCF", None, True, _TAIL),
     "TillingPopulationSimulator": ("Benchmark", "Simulates a TILLING population arranged in pools", None, False, _TAIL),
     "TillingPoolsIndividualGenotyper": ("Discovery", "Assigns pooled TILLING variants to individuals", None, False, _TAIL),
-    "AssemblyGraphStatistics": ("Reads", "Assembly statistics (N50, totals, truth comparison)", None, True, _ASSEMBLY),
 }
 
 

@@ -59,10 +59,26 @@
 //
 // gotoh_forward_block_kernel, 256 < Ls <= 1024: one block per alignment,
 // one thread per column, previous row and scans through shared memory
-// with block barriers.  gotoh_forward_launch picks the kernel BY SHAPE
-// (Ls); nothing falls back from one to the other.
+// with block barriers.
 //
-// Free QUERY ends (the tier-2 STR flank alignments), both kernels:
+// gotoh_forward_wide_kernel, Ls > 1024: one block per alignment, thread t
+// owning the C = ceil(Ls/1024) contiguous columns t*C+1 .. t*C+C, as the
+// warp kernel's lanes own theirs.  The owned columns' previous-row M, I, D
+// and run carries, and the row's values between passes, live in a global
+// scratch of 8 ints a column that the wrapper allocates (interleaved by
+// thread, so a warp's accesses coalesce); only each thread's last column
+// crosses to its neighbour (a shuffle, or between warps shared memory),
+// and the two max-scans are the warp kernel's blocked scans with a block
+// scan of the thread totals (block_excl_max).  Shared memory is
+// O(threads), so no width limit is left short of the plane's own size.  A
+// first, simple kernel: each cell moves ~80 bytes of scratch through L1/L2
+// on top of its plane word, and a row takes 8 block barriers; 0.949 ms at
+// 256x160x1664, 19% of its operations bound (chip_smoke.py phase 2).
+//
+// gotoh_forward_launch picks the kernel BY SHAPE (Ls); nothing falls back
+// from one to another.
+//
+// Free QUERY ends (the tier-2 STR flank alignments), all three kernels:
 //   * free_start1: column 0 of the I state is 0 in every row instead of
 //     -open - ext*(r-1); everything derived from it (the column-0 D-open
 //     test, lane 0's diagonal hand-off) follows unchanged.
@@ -529,6 +545,249 @@ __global__ void gotoh_forward_block_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// wide kernel (Ls > 1024): contiguous columns per thread, state in scratch
+
+// scratch fields of an owned column: committed previous-row state (M, I,
+// D, CW = the run carries cwm | cwi), then this row's values between
+// passes (new M, new I, new CW, y = A + ext*c)
+enum { kFM, kFI, kFD, kFCW, kFNM, kFNI, kFNCW, kFY, kWideFields };
+constexpr int kCwmMask = 0xFF03;    // sm | em<<8
+constexpr int kCwiMask = 0xFF000C;  // si<<2 | ei<<16
+
+// Block-wide exclusive max-scan over threadIdx.x order, seeded: thread t
+// gets max(seed, v[0..t-1]).  Warp scans by shuffle, the warp totals
+// scanned by warp 0 through `warp_tot` (32 ints); a thread takes its left
+// lane's warp-inclusive value by shuffle and the earlier warps' total from
+// warp_tot, between block barriers.
+__device__ __forceinline__ int block_excl_max(int v, int seed, int* warp_tot) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const int incl = warp_incl_max(v, lane);
+  if (lane == 31) warp_tot[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    int x = lane < nw ? warp_tot[lane] : INT_MIN;
+    x = warp_incl_max(x, lane);
+    if (lane < nw) warp_tot[lane] = x;
+  }
+  __syncthreads();
+  const int up = __shfl_up_sync(0xffffffffu, incl, 1);
+  const int prefix = wid > 0 ? warp_tot[wid - 1] : INT_MIN;  // earlier warps
+  __syncthreads();
+  return max(max(lane > 0 ? up : INT_MIN, prefix), seed);
+}
+
+// Thread t gets a and b of thread t-1 (thread 0 its own): a shuffle inside
+// a warp, the previous warp's lane 31 through `slots` (2 x 32 ints).
+__device__ __forceinline__ void block_from_left(int* a, int* b, int* slots) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  if (lane == 31) {
+    slots[wid] = *a;
+    slots[32 + wid] = *b;
+  }
+  __syncthreads();
+  const int ua = __shfl_up_sync(0xffffffffu, *a, 1);
+  const int ub = __shfl_up_sync(0xffffffffu, *b, 1);
+  if (lane > 0) {
+    *a = ua;
+    *b = ub;
+  } else if (wid > 0) {
+    *a = slots[wid - 1];
+    *b = slots[32 + wid - 1];
+  }
+  __syncthreads();
+}
+
+template <bool kFreeStart1, bool kFreeEnd1>
+__global__ void __launch_bounds__(1024) gotoh_forward_wide_kernel(
+    const int8_t* __restrict__ query, const int* __restrict__ qlen,
+    const int8_t* __restrict__ subject, const int* __restrict__ slen,
+    int* __restrict__ plane, int* __restrict__ score_out,
+    int* __restrict__ endi_out, int* __restrict__ endj_out,
+    int* __restrict__ startk_out,
+    int B, int Lq, int Ls, int match, int mismatch, int open_gap,
+    int ext_gap, int free_start2, int free_end2, int* __restrict__ scratch,
+    int C) {
+  __shared__ int warp_tot[32];
+  __shared__ int slots[64];  // the diagonal hand-off between warps
+  __shared__ long long warp_best[32];
+  const int T = blockDim.x;
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int c0 = t * C + 1;  // first owned column
+  int* st = scratch + (size_t)b * kWideFields * C * T + t;
+#define ST(f, k) st[((f) * C + (k)) * T]
+  const int ql = qlen[b];
+  const int sl = slen[b];
+  const int8_t* srow = subject + (size_t)b * Ls;
+  const int8_t* qrow = query + (size_t)b * Lq;
+
+  for (int k = 0; k < C; ++k) {
+    ST(kFM, k) = kNeg;
+    ST(kFI, k) = kNeg;
+    ST(kFD, k) = free_start2 ? 0 : -open_gap - ext_gap * (c0 + k - 1);
+    ST(kFCW, k) = 0;
+  }
+  int m0 = 0, i0 = 0, d0 = 0;  // column 0 (its run carries stay 0)
+  // free_end1: running best M[r][sl] of the thread that owns column sl,
+  // as in the warp kernel
+  int best = sl == 0 ? 0 : kNeg;
+  int brow = sl == 0 ? 0 : Lq;
+  const size_t row_stride = (size_t)B * Ls;
+  int* prow = plane + (size_t)b * Ls;
+  const int neg_mismatch = -mismatch;
+
+  for (int r = 1; r <= Lq; ++r) {
+    const int q = qrow[r - 1];
+    const bool active = r <= ql;  // block-uniform
+    const int i0n = kFreeStart1 ? 0 : -open_gap - ext_gap * (r - 1);
+    const int am0 = kNeg - open_gap;
+    const int ai0 = i0n - open_gap;
+    const int a0 = max(am0, ai0);
+
+    // diagonal hand-off of the left neighbour's last column's committed
+    // state; thread 0 takes column 0's
+    int hd_in, mw_in;
+    diag_out(ST(kFM, C - 1), ST(kFI, C - 1), ST(kFD, C - 1),
+             ST(kFCW, C - 1) & kCwmMask, &hd_in, &mw_in);
+    block_from_left(&hd_in, &mw_in, slots);
+    if (t == 0) diag_out(m0, i0, d0, 0, &hd_in, &mw_in);
+
+    // pass 1: M, I, their carries and y = A + ext*c; the thread's max of y
+    int run = INT_MIN;
+    for (int k = 0; k < C; ++k) {
+      const int c = c0 + k;
+      const int m = ST(kFM, k), i = ST(kFI, k), d = ST(kFD, k);
+      const int cw = ST(kFCW, k);
+      const int s_ch = c <= Ls ? srow[c - 1] : 0;
+      const int m_row = hd_in + (s_ch == q ? match : neg_mismatch);
+      const int cm = m - open_gap, ci = i - ext_gap, cd = d - open_gap;
+      bool ci_ge_cd, cm_ge, m_ge_i;
+      const int mx = max_ge(ci, cd, &ci_ge_cd);
+      const int i_row = max_ge(cm, mx, &cm_ge);
+      const int cwi = cw & kCwiMask;
+      const int grown = min(cwi + 0x10000, cwi | 0xFF0000);
+      const int cwi_row = cm_ge ? 0x10000 : (ci_ge_cd ? grown : 0x10008);
+      const int y = max_ge(m_row, i_row, &m_ge_i) - open_gap + ext_gap * c;
+      run = max(run, y);
+      ST(kFNM, k) = m_row;
+      ST(kFNI, k) = i_row;
+      ST(kFNCW, k) = mw_in | cwi_row;
+      ST(kFY, k) = y;
+      diag_out(m, i, d, cw & kCwmMask, &hd_in, &mw_in);  // for column c+1
+    }
+    // scan 1: pre = max(a0, y of every column left of the thread's first)
+    const int pre = block_excl_max(run, a0, warp_tot);
+
+    // pass 2: the thread's max of z (packed D-open source, -1 if none)
+    int zr = -1, left = pre;
+    for (int k = 0; k < C; ++k) {
+      const int c = c0 + k;
+      const int y = ST(kFY, k);
+      const bool m_ge_i = ST(kFNM, k) >= ST(kFNI, k);
+      const int z = y >= left ? (c + 1) * 4 + (m_ge_i ? 0 : 1) : -1;
+      zr = max(zr, z);
+      left = max(left, y);
+    }
+    // scan 2, seeded by column 0 (its D is banned, so column 1 opens
+    // unless a0 is banned too)
+    const int z0 = a0 >= kNeg - ext_gap ? 4 + (am0 >= ai0 ? 0 : 1) : -1;
+    const int zpre = block_excl_max(zr, max(z0, 0), warp_tot);
+
+    // pass 3: D, the plane word, and the commit of an active row
+    left = pre;
+    int orun = zpre;
+    for (int k = 0; k < C; ++k) {
+      const int c = c0 + k;
+      const int y = ST(kFY, k);
+      const int nm = ST(kFNM, k), ni = ST(kFNI, k);
+      const int d_row = left - ext_gap * (c - 1);
+      const int z = y >= left ? (c + 1) * 4 + (nm >= ni ? 0 : 1) : -1;
+      const int sd = orun & 3;
+      const int ed = min(c - (orun >> 2) + 1, 255);
+      const int ncw = ST(kFNCW, k);
+      const int cw = active ? ncw : ST(kFCW, k);
+      if (c <= Ls) prow[c - 1] = cw | (sd << 4) | (ed << 24);
+      if (active) {
+        ST(kFM, k) = nm;
+        ST(kFI, k) = ni;
+        ST(kFD, k) = d_row;
+        ST(kFCW, k) = ncw;
+        if (kFreeEnd1 && c == sl && nm >= best) {
+          best = nm;
+          brow = r;
+        }
+      }
+      left = max(left, y);
+      orun = max(orun, z);
+    }
+    if (active) {
+      m0 = kNeg;
+      i0 = i0n;
+      d0 = kNeg;
+    }
+    prow += row_stride;
+  }
+
+  const int own = sl - c0;  // index of column sl among the owned columns
+  if (kFreeEnd1) {
+    if ((own >= 0 && own < C) || (sl == 0 && t == 0)) {
+      score_out[b] = best;
+      endi_out[b] = brow;
+      endj_out[b] = sl;
+      startk_out[b] = 0;
+    }
+    return;
+  }
+  if (free_end2) {
+    // best M over columns 0..Ls, ties to the largest column
+    constexpr long long kCol = 1LL << 32;
+    long long key = LLONG_MIN;
+    for (int k = 0; k < C; ++k) {
+      const int c = c0 + k;
+      if (c <= Ls) {
+        const long long kc = (long long)(c <= sl ? ST(kFM, k) : kNeg) * kCol + c;
+        key = key > kc ? key : kc;
+      }
+    }
+    if (t == 0) {
+      const long long k0 = (long long)m0 * kCol;  // column 0 <= slen
+      key = key > k0 ? key : k0;
+    }
+    key = warp_max64(key);
+    if ((t & 31) == 0) warp_best[t >> 5] = key;
+    __syncthreads();
+    if (t == 0) {
+      long long bk = warp_best[0];
+      for (int w = 1; w < T / 32; ++w) bk = warp_best[w] > bk ? warp_best[w] : bk;
+      const int ej = (int)(bk & 0xffffffffLL);
+      score_out[b] = (int)((bk - ej) / kCol);
+      endj_out[b] = ej;
+      startk_out[b] = 0;
+    }
+  } else {
+    const int sc = min(max(sl, 0), Ls);  // callers keep slen <= Ls
+    const int ko = sc - c0;
+    const bool mine = sc == 0 ? t == 0 : (ko >= 0 && ko < C);
+    if (mine) {
+      const int mc = sc == 0 ? m0 : ST(kFM, ko);
+      const int ic = sc == 0 ? i0 : ST(kFI, ko);
+      const int dc = sc == 0 ? d0 : ST(kFD, ko);
+      int score = mc, sk = 0;
+      if (ic > mc) { score = ic; sk = 1; }
+      if (dc > score) score = dc;
+      if (dc > max(mc, ic)) sk = 2;
+      score_out[b] = score;
+      endj_out[b] = sl;
+      startk_out[b] = sk;
+    }
+  }
+#undef ST
+}
+
 #define GOTOH_ARGS                                                          \
   (const int8_t*)query, (const int*)qlen, (const int8_t*)subject,           \
       (const int*)slen, (int*)plane, (int*)score, (int*)end_i, (int*)end_j, \
@@ -543,22 +802,38 @@ __global__ void gotoh_forward_block_kernel(
 
 }  // namespace
 
-// Launches the warp-per-alignment kernel for Ls <= 256 and the
-// block-per-alignment kernel for 256 < Ls <= 1024; `block_kernel` != 0
-// asks for the block kernel at any Ls <= 1024 (to check and time it at
-// narrow shapes).  The four free-end flags are those of the plain version;
-// free_end1 with free_end2 is refused.
+// Launches the warp-per-alignment kernel for Ls <= 256, the
+// block-per-alignment kernel for 256 < Ls <= 1024 and the wide kernel
+// above; `kernel` 1 asks for the block kernel at any Ls <= 1024 and 2 for
+// the wide kernel at any Ls (to check and time them at narrow shapes).
+// `scratch` holds B * 8 * C * threads ints for the wide kernel, with C =
+// ceil(Ls/1024) and threads = ceil(ceil(Ls/C)/32)*32
+// (kernels/pairwise_cuda.py:wide_layout); the others ignore it.  The four
+// free-end flags are those of the plain version; free_end1 with free_end2
+// is refused.
 extern "C" int gotoh_forward_launch(
     const void* query, const void* qlen, const void* subject,
     const void* slen, void* plane, void* score, void* end_i, void* end_j,
     void* start_k, int B, int Lq, int Ls, int match, int mismatch,
     int open_gap, int ext_gap, int free_start1, int free_end1,
-    int free_start2, int free_end2, int block_kernel, void* stream_ptr) {
+    int free_start2, int free_end2, int kernel, void* scratch,
+    void* stream_ptr) {
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  if (Ls < 1 || Ls > 1024) return (int)cudaErrorInvalidValue;
+  if (Ls < 1 || (kernel == 1 && Ls > 1024)) return (int)cudaErrorInvalidValue;
   if (free_end1 && free_end2) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (block_kernel || Ls > 32 * kMaxLaneCols) {
+  if (kernel == 2 || (kernel == 0 && Ls > 1024)) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int C = (Ls + 1023) / 1024;
+    const int threads = (((Ls + C - 1) / C + 31) / 32) * 32;
+#define GOTOH_WIDE(FS1, FE1)                                              \
+  gotoh_forward_wide_kernel<FS1, FE1><<<B, threads, 0, stream>>>(GOTOH_ARGS, \
+                                                                 (int*)scratch, C)
+    GOTOH_BY_QUERY_ENDS(GOTOH_WIDE)
+#undef GOTOH_WIDE
+    return (int)cudaGetLastError();
+  }
+  if (kernel == 1 || Ls > 32 * kMaxLaneCols) {
     const int threads = ((Ls + 31) / 32) * 32;
     const size_t shmem = (size_t)9 * (Ls + 1) * sizeof(int);
 #define GOTOH_BLOCK(FS1, FE1) \

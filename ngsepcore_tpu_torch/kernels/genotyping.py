@@ -203,16 +203,18 @@ def _screen_flag(ev32, ref, depth, total, het_rate: float, n: int):
 
 def _sum_genotypes(flat: torch.Tensor) -> torch.Tensor:
     """Row sums of (F, G >= 4) in a fixed order of elementwise additions:
-    four running sums over columns g, g+4, g+8, ... then ((s0+s1)+s2)+s3,
+    four running sums over columns g, g+4, g+8, ... then (s0+s2)+(s1+s3),
     then any columns left over.  From GQ ~120 up the last bits of this
     sum decide 1 - best, and a library reduction orders its additions by
-    device; written out, the CPU and the card round alike (and for G = 16
-    the order is the one torch.sum takes on the CPU)."""
+    device; written out, the CPU and the card round alike.  For G = 16 this
+    is the order XLA:CPU takes for the JAX package's jnp.sum (four vector
+    lanes, then a pairwise fold): the GQs of 40,960 sites equal the JAX
+    package's (tests/test_torch_multisample.py)."""
     G = flat.shape[1]
     acc = flat[:, :4]
     for g in range(4, G - 3, 4):
         acc = acc + flat[:, g : g + 4]
-    out = ((acc[:, 0] + acc[:, 1]) + acc[:, 2]) + acc[:, 3]
+    out = (acc[:, 0] + acc[:, 2]) + (acc[:, 1] + acc[:, 3])
     for g in range(G - G % 4, G):
         out = out + flat[:, g]
     return out
@@ -412,6 +414,44 @@ def genotype_window_sparse(
 
 # ---- multisample detector: sorted-call scatter + dense genotyper ---------
 
+def scatter_allele_counts(
+    positions: torch.Tensor,  # (N,) window-relative positions
+    alleles: torch.Tensor,  # (N,) observed allele index (<0 = skip)
+    quals: torch.Tensor,  # (N,) raw phred
+    strands: torch.Tensor,  # (N,) 1 = negative
+    n_alleles: int = 4,
+    *,
+    out_size: int,
+):
+    """(window, allele, qbin) counts, (window, allele, 2) strand counts,
+    low-quality counts and totals of a list of calls, int32 on the inputs'
+    device (ngsepcore_tpu.kernels.genotyping.scatter_allele_counts).
+
+    A call counts where its allele is >= 0 and its position inside the
+    window: in `total`, in `low_qual` at quality <= MIN_BASE_QS, else in the
+    counts at its quality clamped to 0..MAX_BASE_QS.  The JAX version drops
+    an update whose allele indexes past n_alleles; here such a call adds
+    zero at a clamped index."""
+    dev = positions.device
+    pos = positions.to(torch.int64)
+    al = alleles.to(torch.int64)
+    qv = quals.to(torch.int64)
+    valid = (al >= 0) & (pos >= 0) & (pos < out_size)
+    q = torch.clamp(qv, 0, MAX_BASE_QS)
+    low = valid & (qv <= MIN_BASE_QS)
+    ok = (valid & (qv > MIN_BASE_QS) & (al < n_alleles)).to(torch.int32)
+    p = torch.where(valid, pos, 0)
+    a = torch.clamp(torch.where(valid, al, 0), max=n_alleles - 1)
+    counts, strand_counts, low_qual, total = init_count_tensors(
+        out_size, n_alleles, device=dev
+    )
+    counts.index_put_((p, a, q), ok, accumulate=True)
+    strand_counts.index_put_((p, a, strands.to(torch.int64)), ok, accumulate=True)
+    low_qual.index_put_((p,), low.to(torch.int32), accumulate=True)
+    total.index_put_((p,), valid.to(torch.int32), accumulate=True)
+    return counts, strand_counts, low_qual, total
+
+
 def init_count_tensors(out_size: int, n_alleles: int = 4, *, device):
     """Zeroed accumulators (counts (W, n, 31), strand counts (W, n, 2),
     low-quality and total (W,)), int32 on `device`."""
@@ -468,6 +508,21 @@ def accumulate_sorted_calls(
     return counts, strand_counts, low_qual, total
 
 
+def _logcond_in_order(counts: torch.Tensor, contribution: torch.Tensor) -> torch.Tensor:
+    """(P, n, n) float64 log-likelihoods sum_{a,q} counts[p,a,q] *
+    C[a,q,i,j], the n * Q terms added one after another in (a, q) order,
+    each product and each sum rounded: XLA:CPU's order for the JAX
+    package's einsum("paq,aqij->pij"), bit for bit, where a matrix
+    product's blocked order differs in the last bits."""
+    P, n, nq = counts.shape
+    x = counts.reshape(P, n * nq).to(torch.float64)
+    m = contribution.reshape(n * nq, n * n)
+    acc = torch.zeros((P, n * n), dtype=torch.float64, device=counts.device)
+    for k in range(n * nq):
+        acc = acc + x[:, k : k + 1] * m[k]
+    return acc.reshape(P, n, n)
+
+
 def genotype_window_from_counts(
     counts: torch.Tensor,  # (W, n, Q) int32
     strand_counts: torch.Tensor,  # (W, n, 2) int32
@@ -488,10 +543,7 @@ def genotype_window_from_counts(
     returned; the JAX version keeps the first 16,384 of a window."""
     P = counts.shape[0]
     n = n_alleles
-    logcond = (
-        counts.reshape(P, n * N_QBINS).to(torch.float64)
-        @ contribution.reshape(n * N_QBINS, n * n)
-    ).reshape(P, n, n)
+    logcond = _logcond_in_order(counts, contribution)
     ref_codes = ref_codes.to(torch.int64)
     ref = torch.clamp(ref_codes, 0, n - 1)
     bi, bj, gq, ref_prob = _posterior_decision(logcond, ref, het_rate, n)

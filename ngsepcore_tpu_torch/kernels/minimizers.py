@@ -25,6 +25,13 @@ _MIX_A = 0x85EBCA6B
 _MIX_B = 0xC2B2AE35
 _MIX_C = 0x7FEB352D
 _M32 = 0xFFFFFFFF
+DEFAULT_HASH_MOD = 1073676287  # ref: ShortKmerCodesTable hash modulus
+
+
+def default_kmer_hash(codes: torch.Tensor) -> torch.Tensor:
+    """(code + 1) % 1073676287, the reference's analyzer-free hash, as
+    int32 (the result is below 2^30)."""
+    return ((codes.to(torch.int64) + 1) % DEFAULT_HASH_MOD).to(torch.int32)
 
 
 def minimizer_hash30(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:

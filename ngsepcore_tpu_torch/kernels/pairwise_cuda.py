@@ -27,7 +27,7 @@ What bounds the function on the H100 (3.35 TB/s; 64 INT32 lanes on each of
                 (2048x192x192: 75.5 M cells, 0.203 ms).  This is the larger
                 bound at every shape.
 
-CUDA design (csrc/gotoh_forward.cu), two kernels picked by Ls:
+CUDA design (csrc/gotoh_forward.cu), three kernels picked by Ls:
 
     Ls <= 256   one WARP per alignment, four alignments a block.  A lane
                 owns ceil(Ls/32) contiguous columns and keeps their
@@ -42,8 +42,18 @@ CUDA design (csrc/gotoh_forward.cu), two kernels picked by Ls:
     Ls <= 1024  one block per alignment, one thread per column, previous
                 row and scans in shared memory with block barriers (the
                 port's first kernel); reached by shape only.
+    Ls > 1024   the WIDE kernel: one block per alignment, a thread owning
+                C = ceil(Ls/1024) contiguous columns, their state in a
+                global scratch of 8 ints a column (the wrapper allocates
+                B x 8 x C x threads ints); the block kernel's barriers with
+                the warp kernel's blocked max-scans.  No width limit short
+                of the plane's size.
 
-Both kernels take the four free-end flags.  The tier-2 STR flank
+The plane is (Lq, B, Ls) int32: 1.34 GB at the tier-2 chunk of 256 rows,
+Lq 160 and Ls 8,192, so a caller with long subjects bounds its rows
+(align/str_tier2.py halves its chunk above a cap).
+
+All kernels take the four free-end flags.  The tier-2 STR flank
 alignments (align/str_tier2.py) use the free QUERY ends: free_start1 sets
 column 0 of the I state to 0 in every row; with free_end1 the thread that
 owns column slen keeps a running (best M, row) maximum in registers, ties
@@ -64,6 +74,25 @@ FREE_END_FLAGS = ("free_start1", "free_end1", "free_start2", "free_end2")
 # widest subject of the warp-per-alignment kernel (32 lanes x kMaxLaneCols
 # of csrc/gotoh_forward.cu); wider ones take the block-per-alignment kernel
 WARP_KERNEL_MAX_LS = 256
+# widest subject of the block-per-alignment kernel (a thread a column);
+# wider ones take the wide kernel
+BLOCK_KERNEL_MAX_LS = 1024
+_KERNEL_CODES = {None: 0, "block": 1, "wide": 2}
+WIDE_FIELDS = 8  # scratch ints an owned column of the wide kernel
+
+
+def wide_layout(Ls: int) -> tuple[int, int]:
+    """(columns a thread C, threads a block) of the wide kernel at Ls, as
+    gotoh_forward_launch computes them."""
+    C = -(-Ls // BLOCK_KERNEL_MAX_LS)
+    return C, -(-(-(-Ls // C)) // 32) * 32
+
+
+def kernel_for(Ls: int) -> str:
+    """The kernel gotoh_forward_plane launches at subject width Ls."""
+    if Ls <= WARP_KERNEL_MAX_LS:
+        return "warp"
+    return "block" if Ls <= BLOCK_KERNEL_MAX_LS else "wide"
 
 
 def gotoh_forward_plane_ref(
@@ -220,30 +249,35 @@ def _check_args(query, qlen, subject, slen, free_end1, free_end2):
         raise ValueError("query/subject/qlen/slen batch sizes differ")
     if query.dtype != torch.int8 or subject.dtype != torch.int8:
         raise TypeError("query and subject must be int8 codes")
-    if not 1 <= subject.shape[1] <= 1024:
-        raise ValueError(
-            f"subject width {subject.shape[1]} outside the kernels' 1..1024"
-        )
+    if subject.shape[1] < 1:
+        raise ValueError("the kernels need a subject width of at least 1")
     if any(t.device != query.device for t in (subject, qlen, slen)):
         raise ValueError("all inputs must lie on one device")
     if free_end1 and free_end2:
         raise ValueError("free_end1 with free_end2 unsupported")
 
 
-def _launch(query, qlen, subject, slen, cfg, block_kernel: bool):
+def _launch(query, qlen, subject, slen, cfg, kernel: str | None):
     """Launch csrc/gotoh_forward.cu on checked CUDA tensors (kernel by Ls,
-    or the block-per-alignment kernel when asked) or raise."""
+    or the "block" or "wide" kernel when asked) or raise."""
     dev = query.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     B, Lq = query.shape
     Ls = subject.shape[1]
+    if kernel == "block" and Ls > BLOCK_KERNEL_MAX_LS:
+        raise ValueError(f"the block kernel takes Ls <= 1024, got {Ls}")
+    name = kernel or kernel_for(Ls)
     query = query.contiguous()
     subject = subject.contiguous()
     qlen = qlen.to(torch.int32).contiguous()
     slen = slen.to(torch.int32).contiguous()
     plane = torch.empty((Lq, B, Ls), dtype=torch.int32, device=dev)
     fin = torch.empty((4, B), dtype=torch.int32, device=dev)
+    scratch = None
+    if name == "wide":
+        C, threads = wide_layout(Ls)
+        scratch = torch.empty(B * WIDE_FIELDS * C * threads, dtype=torch.int32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -254,13 +288,13 @@ def _launch(query, qlen, subject, slen, cfg, block_kernel: bool):
             B, Lq, Ls, cfg["match"], cfg["mismatch"], cfg["open_gap"],
             cfg["ext_gap"], int(cfg["free_start1"]), int(cfg["free_end1"]),
             int(cfg["free_start2"]), int(cfg["free_end2"]),
-            int(block_kernel), stream,
+            _KERNEL_CODES[kernel], None if scratch is None else scratch.data_ptr(),
+            stream,
         )
     check("gotoh_forward", rc)
     gotoh_forward_plane.launches += 1
     gotoh_forward_plane.launch_shapes[(
-        tuple(bool(cfg[f]) for f in FREE_END_FLAGS), B, Lq, Ls,
-        "block" if block_kernel or Ls > WARP_KERNEL_MAX_LS else "warp",
+        tuple(bool(cfg[f]) for f in FREE_END_FLAGS), B, Lq, Ls, name,
     )] += 1
     # the kernels write end_i only with a free query end; else it is qlen
     end_i = fin[1] if cfg["free_end1"] else qlen
@@ -283,13 +317,14 @@ def gotoh_forward_plane(
     free_end2: bool = True,
 ):
     """Forward Gotoh pass, same contract as gotoh_forward_plane_ref, for
-    int8 codes and 1 <= Ls <= 1024.
+    int8 codes and Ls >= 1.  The (Lq, B, Ls) int32 plane is the memory to
+    budget: 1.34 GB at B 256, Lq 160, Ls 8,192.
 
     CPU tensors run the plain version.  CUDA tensors launch a CUDA kernel
     (every free-end configuration: free subject ends for the tier-3 aligner,
     free query ends for the tier-2 STR flanks) or raise: the
     warp-per-alignment kernel for Ls <= 256, the block-per-alignment kernel
-    for wider subjects, a dispatch on the shape alone."""
+    up to 1024, the wide kernel above, a dispatch on the shape alone."""
     cfg = dict(
         match=match, mismatch=mismatch, open_gap=open_gap, ext_gap=ext_gap,
         free_start1=free_start1, free_end1=free_end1,
@@ -298,26 +333,31 @@ def gotoh_forward_plane(
     _check_args(query, qlen, subject, slen, free_end1, free_end2)
     if query.device.type == "cpu":
         return gotoh_forward_plane_ref(query, qlen, subject, slen, **cfg)
-    return _launch(query, qlen, subject, slen, cfg, block_kernel=False)
+    return _launch(query, qlen, subject, slen, cfg, kernel=None)
 
 
-gotoh_forward_plane.launches = 0  # launches of either kernel
+gotoh_forward_plane.launches = 0  # launches of any of the kernels
 # the same launches by ((free_start1, free_end1, free_start2, free_end2), B,
-# Lq, Ls, "warp" or "block"): what a path asked of which kernel
+# Lq, Ls, "warp", "block" or "wide"): what a path asked of which kernel
 gotoh_forward_plane.launch_shapes = Counter()
 
 
-def gotoh_forward_plane_block(
-    query, qlen, subject, slen, *, match=1, mismatch=1, open_gap=3, ext_gap=1,
-    free_start1=False, free_end1=False, free_start2=True, free_end2=True,
-):
+def _forced(kernel, query, qlen, subject, slen, **cfg):
+    cfg = dict(dict(match=1, mismatch=1, open_gap=3, ext_gap=1,
+                    free_start1=False, free_end1=False,
+                    free_start2=True, free_end2=True), **cfg)
+    _check_args(query, qlen, subject, slen, cfg["free_end1"], cfg["free_end2"])
+    return _launch(query, qlen, subject, slen, cfg, kernel=kernel)
+
+
+def gotoh_forward_plane_block(query, qlen, subject, slen, **cfg):
     """The block-per-alignment kernel at any Ls <= 1024, CUDA tensors only:
     lets a check or a timing reach it at shapes that gotoh_forward_plane
-    gives to the warp kernel."""
-    cfg = dict(
-        match=match, mismatch=mismatch, open_gap=open_gap, ext_gap=ext_gap,
-        free_start1=free_start1, free_end1=free_end1,
-        free_start2=free_start2, free_end2=free_end2,
-    )
-    _check_args(query, qlen, subject, slen, free_end1, free_end2)
-    return _launch(query, qlen, subject, slen, cfg, block_kernel=True)
+    gives to the warp kernel.  Same keywords as gotoh_forward_plane."""
+    return _forced("block", query, qlen, subject, slen, **cfg)
+
+
+def gotoh_forward_plane_wide(query, qlen, subject, slen, **cfg):
+    """The wide kernel at any Ls, CUDA tensors only (a check at the
+    narrow shapes of the other two kernels)."""
+    return _forced("wide", query, qlen, subject, slen, **cfg)

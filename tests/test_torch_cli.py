@@ -127,7 +127,7 @@ def test_device_cuda_without_card_exits_nonzero(files):
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["Assembler", "x.fastq"], "Queue 1 item 13"),
+        (["Demultiplex", "x.fastq"], "Queue 1 item 17"),
         (["VCFFilter", "-i", "x.vcf"], "Queue 1 item 17"),
         (["VCFImpute", "-i", "x.vcf"], "Queue 1 item 14"),
     ],

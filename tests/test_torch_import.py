@@ -61,6 +61,14 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "ngsepcore_tpu_torch.graphs.components",
         "ngsepcore_tpu_torch.kernels.minimizers",
         "ngsepcore_tpu_torch.kernels.pairwise",
+        "ngsepcore_tpu_torch.kernels.genotyping",
+        "ngsepcore_tpu_torch.assembly.assembler",
+        "ngsepcore_tpu_torch.assembly.graph",
+        "ngsepcore_tpu_torch.assembly.layout",
+        "ngsepcore_tpu_torch.assembly.polishing",
+        "ngsepcore_tpu_torch.assembly.read_correction",
+        "ngsepcore_tpu_torch.assembly.phasing",
+        "ngsepcore_tpu_torch.haplotyping.sih",
     ):
         assert mod in got["modules"]
     assert got["jax"] == []

@@ -17,6 +17,7 @@ from ngsepcore_tpu_torch.kernels import pairwise as tpw
 from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
     gotoh_forward_plane,
     gotoh_forward_plane_ref,
+    wide_layout,
 )
 
 # one torch thread per pytest-xdist worker: one per core oversubscribes the CPU
@@ -518,6 +519,237 @@ def test_warp_kernel_decomposition_reproduces_plain_plane(B, Lq, Ls, cfg):
 
 
 # ---------------------------------------------------------------------------
+# the wide kernel (Ls > 1024): contiguous columns per thread, state in scratch
+
+def _warp_incl_max(v):
+    """csrc/gotoh_forward.cu:warp_incl_max on (..., 32): the lane >= o guard."""
+    for o in (1, 2, 4, 8, 16):
+        up = v.clone()
+        up[..., o:] = v[..., :-o]
+        lane = torch.arange(32)
+        v = torch.where(lane >= o, torch.maximum(v, up), v)
+    return v
+
+
+def _block_excl_max(v, seed):
+    """csrc/gotoh_forward.cu:block_excl_max on (B, T), T a multiple of 32:
+    warp scans, a warp scan of the warp totals (padded with INT_MIN), the
+    left lane's warp-inclusive value by shuffle (none for lane 0) with the
+    earlier warps' total, then the seed."""
+    B, T = v.shape
+    nw = T // 32
+    w = _warp_incl_max(v.reshape(B, nw, 32))
+    tot = torch.full((B, 32), I32_MIN, dtype=torch.int32)
+    tot[:, :nw] = w[:, :, 31]
+    tot = _warp_incl_max(tot)
+    up = w.clone()
+    up[:, :, 1:] = w[:, :, :-1]  # __shfl_up_sync by 1; lane 0 takes none
+    up[:, :, 0] = I32_MIN
+    prefix = torch.full((B, nw, 1), I32_MIN, dtype=torch.int32)  # earlier warps
+    prefix[:, 1:, 0] = tot[:, : nw - 1]
+    ex = torch.maximum(up, prefix).reshape(B, T)
+    return torch.maximum(ex, torch.tensor(seed, dtype=torch.int32))
+
+
+def _wide_kernel_model(q, ql, s, sl, *, match=1, mismatch=1, open_gap=3,
+                       ext_gap=1, free_start1=False, free_end1=False,
+                       free_start2=True, free_end2=True):
+    """gotoh_forward_wide_kernel<kFreeStart1, kFreeEnd1> of
+    csrc/gotoh_forward.cu, statement by statement on (B, T) tensors, one
+    entry a thread: thread t owns the C contiguous columns t*C+1 .. t*C+C
+    (wide_layout), their state is the scratch fields (M, I, D, CW = cwm |
+    cwi; the row's NM, NI, NCW, Y), the last owned column's diagonal
+    hand-off goes to the right neighbour, and the row is three sequential
+    passes over the owned columns around two block scans of the thread
+    totals (block_excl_max).  Returns (plane, score, end_j, start_k, end_i)."""
+    i32 = torch.int32
+    B, Lq = q.shape
+    Ls = s.shape[1]
+    C, T = wide_layout(Ls)
+    NEG = -(10**7)
+    CWM, CWI = 0xFF03, 0xFF000C
+    c0 = torch.arange(T, dtype=i32)[None, :] * C + 1  # (1, T)
+    s_ch = torch.zeros((B, T * C), dtype=i32)
+    s_ch[:, :Ls] = s.to(i32)
+    s_ch = s_ch.reshape(B, T, C)
+    full = lambda v: torch.full((B, T), v, dtype=i32)
+    M = [full(NEG) for _ in range(C)]
+    I = [full(NEG) for _ in range(C)]
+    D = [full(0) if free_start2 else (-open_gap - ext_gap * (c0 + k - 1)).expand(B, T).to(i32)
+         for k in range(C)]
+    CW = [full(0) for _ in range(C)]
+    NM, NI, NCW, Y = ([None] * C for _ in range(4))
+    m0 = i0 = d0 = torch.zeros(B, dtype=i32)
+    sl = sl.to(i32)
+    best = torch.where(sl == 0, 0, NEG).to(i32)
+    brow = torch.where(sl == 0, 0, Lq).to(i32)
+    plane = torch.empty((Lq, B, T * C), dtype=i32)
+
+    def diag_out(m, i, d, cwm):
+        i_ge_d = i >= d
+        mx = torch.maximum(i, d)
+        m_ge = m >= mx
+        grown = torch.minimum(cwm + 0x100, cwm | 0xFF00)
+        return torch.maximum(m, mx), torch.where(m_ge, grown, torch.where(i_ge_d, 0x101, 0x102)).to(i32)
+
+    for r in range(1, Lq + 1):
+        qc = q[:, r - 1].to(i32)[:, None]
+        active = (r <= ql)[:, None]
+        i0n = 0 if free_start1 else -open_gap - ext_gap * (r - 1)
+        am0 = NEG - open_gap
+        ai0 = i0n - open_gap
+        a0 = max(am0, ai0)
+        # diagonal hand-off from the left neighbour (block_from_left)
+        hd_l, mw_l = diag_out(M[C - 1], I[C - 1], D[C - 1], CW[C - 1] & CWM)
+        hd00, mw00 = diag_out(m0, i0, d0, torch.zeros(B, dtype=i32))
+        hd_in = torch.cat([hd00[:, None], hd_l[:, :-1]], dim=1)
+        mw_in = torch.cat([mw00[:, None], mw_l[:, :-1]], dim=1)
+        # pass 1
+        run = full(I32_MIN)
+        for k in range(C):
+            c = c0 + k
+            m, i, d, cw = M[k], I[k], D[k], CW[k]
+            m_row = hd_in + torch.where(s_ch[:, :, k] == qc, match, -mismatch).to(i32)
+            cm, ci, cd = m - open_gap, i - ext_gap, d - open_gap
+            ci_ge_cd = ci >= cd
+            mx = torch.maximum(ci, cd)
+            cm_ge = cm >= mx
+            i_row = torch.maximum(cm, mx)
+            cwi = cw & CWI
+            grown = torch.minimum(cwi + 0x10000, cwi | 0xFF0000)
+            cwi_row = torch.where(cm_ge, 0x10000, torch.where(ci_ge_cd, grown, 0x10008)).to(i32)
+            y = torch.maximum(m_row, i_row) - open_gap + ext_gap * c
+            run = torch.maximum(run, y)
+            NM[k], NI[k], NCW[k], Y[k] = m_row, i_row, mw_in | cwi_row, y
+            hd_in, mw_in = diag_out(m, i, d, cw & CWM)
+        pre = _block_excl_max(run, a0)
+        # pass 2
+        zr, left = full(-1), pre
+        for k in range(C):
+            z = torch.where(Y[k] >= left, (c0 + k + 1) * 4 + torch.where(NM[k] >= NI[k], 0, 1), -1)
+            zr = torch.maximum(zr, z.to(i32))
+            left = torch.maximum(left, Y[k])
+        z0 = (4 + (0 if am0 >= ai0 else 1)) if a0 >= NEG - ext_gap else -1
+        zpre = _block_excl_max(zr, max(z0, 0))
+        # pass 3
+        left, orun = pre, zpre
+        for k in range(C):
+            c = c0 + k
+            d_row = left - ext_gap * (c - 1)
+            z = torch.where(Y[k] >= left, (c + 1) * 4 + torch.where(NM[k] >= NI[k], 0, 1), -1).to(i32)
+            sd = orun & 3
+            ed = torch.clamp(c - (orun >> 2) + 1, max=255)
+            cw = torch.where(active, NCW[k], CW[k])
+            plane[r - 1, :, k::C] = cw | (sd << 4) | (ed << 24)
+            if free_end1:
+                upd = active & (c == sl[:, None]) & (NM[k] >= best[:, None])
+                hit = upd.any(dim=1)
+                best = torch.where(hit, NM[k].masked_fill(~upd, I32_MIN).amax(dim=1), best)
+                brow = torch.where(hit, r, brow).to(i32)
+            M[k] = torch.where(active, NM[k], M[k])
+            I[k] = torch.where(active, NI[k], I[k])
+            D[k] = torch.where(active, d_row, D[k])
+            CW[k] = torch.where(active, NCW[k], CW[k])
+            left = torch.maximum(left, Y[k])
+            orun = torch.maximum(orun, z)
+        m0 = torch.where(active[:, 0], NEG, m0).to(i32)
+        i0 = torch.where(active[:, 0], i0n, i0).to(i32)
+        d0 = torch.where(active[:, 0], NEG, d0).to(i32)
+
+    plane = plane[:, :, :Ls]  # column t*C+k+1 sits at index k + C*t above
+    cols = lambda X: torch.stack(X, dim=2).reshape(B, T * C)  # (B, T, C) -> columns
+    m, i, d = cols(M), cols(I), cols(D)
+    zeros = torch.zeros(B, dtype=i32)
+    if free_end1:
+        return plane, best, sl, zeros, brow
+    c = torch.arange(1, T * C + 1)[None, :]
+    if free_end2:
+        key = torch.where(c <= sl[:, None], m, NEG).long() * (1 << 32) + c
+        best = torch.maximum(key[:, :Ls].amax(dim=1), m0.long() * (1 << 32))
+        end_j = best & 0xFFFFFFFF
+        return plane, ((best - end_j) // (1 << 32)).to(i32), end_j.to(i32), zeros, ql.to(i32)
+    sc = sl.clamp(0, Ls).long()[:, None]
+    pick = lambda x, x0: torch.cat([x0[:, None], x], dim=1).gather(1, sc)[:, 0]
+    mc, ic, dc = pick(m, m0), pick(i, i0), pick(d, d0)
+    score = torch.where(ic > mc, ic, mc)
+    sk = torch.where(ic > mc, 1, 0)
+    score = torch.where(dc > score, dc, score)
+    sk = torch.where(dc > torch.maximum(mc, ic), 2, sk)
+    return plane, score, sl, sk.to(i32), ql.to(i32)
+
+
+_WIDE_CFGS = _CFGS + [
+    dict(free_start1=False, free_end1=True, free_start2=True, free_end2=False),
+    dict(free_start1=True, free_end1=False, free_start2=False, free_end2=True),
+]
+_WIDE_CFG_IDS = _CFG_IDS + ["tier2-left", "tier2-right"]
+
+
+@pytest.mark.parametrize("cfg", _WIDE_CFGS, ids=_WIDE_CFG_IDS)
+@pytest.mark.parametrize(
+    "B,Lq,Ls", [(5, 30, 1025), (3, 24, 2100), (4, 300, 1100), (6, 20, 300)],
+    ids=["Ls1025", "Ls2100-C3", "saturating-runs", "Ls300-C1"],
+)
+def test_wide_kernel_decomposition_reproduces_plain_plane(B, Lq, Ls, cfg):
+    """Full plane and final vectors of the wide kernel's model against the
+    plain version: ragged qlen with qlen 0, N runs, slen 0, runs past 255."""
+    rng = np.random.default_rng(B * 7 + Lq + Ls)
+    q, ql, s, sl = _noisy(rng, B, Lq, Ls)
+    if Lq >= 300:  # M and I runs longer than the 8-bit saturation
+        q[0] = 1
+        s[0] = 1
+        ql[0], sl[0] = Lq, Ls
+        q[1] = 4
+        ql[1] = Lq
+    ql[-1] = 0
+    sl[-2] = 0
+    q[2, Lq // 2 :] = 4
+    s[2, Ls // 2 :] = 4
+    want = gotoh_forward_plane_ref(T(q), T(ql), T(s), T(sl), **cfg)
+    got = _wide_kernel_model(T(q), T(ql), T(s), T(sl), **cfg)
+    if Lq >= 300:
+        assert int(((want[0] >> 8) & 255).max()) == 255
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[3])
+    assert torch.equal(got[3], want[4])
+    assert torch.equal(got[4], want[2])
+
+
+@pytest.mark.parametrize("cfg", _CFGS, ids=_CFG_IDS)
+def test_gotoh_plane_ref_wide_matches_pallas(cfg):
+    """Ls 1,536 (a multiple of the Pallas kernel's 128 lanes, B its one
+    tile of 256): the plane on the cells the Pallas kernel defines and the
+    final vectors, tolerance 0."""
+    rng = np.random.default_rng(1536)
+    q, ql, s, sl = _noisy(rng, 256, 16, 1536)
+    jplane, jscore, jend_j, jstart_k = gotoh_forward_plane_pallas(
+        q, ql, s, sl, interpret=True, **cfg
+    )
+    plane, score, end_i, end_j, start_k = gotoh_forward_plane_ref(
+        T(q), T(ql), T(s), T(sl), **cfg
+    )
+    mask = _plane_mask(q.shape[1], s.shape[1], ql, sl)
+    assert np.array_equal(plane.numpy()[mask], np.asarray(jplane).view(np.int32)[mask])
+    assert np.array_equal(score.numpy(), np.asarray(jscore))
+    assert np.array_equal(end_j.numpy(), np.asarray(jend_j))
+    assert np.array_equal(start_k.numpy(), np.asarray(jstart_k))
+
+
+@pytest.mark.parametrize("cfg", _WIDE_CFGS, ids=_WIDE_CFG_IDS)
+def test_runs_wide_match_jax_scan(cfg):
+    """Ls 1,536 at a small B through the JAX package's XLA scan and the
+    run-jump walk with the tier-2 budget R = Lq + Ls: every output equal."""
+    rng = np.random.default_rng(7)
+    q, ql, s, sl = _noisy(rng, 5, 40, 1536)
+    ql[-1] = 0
+    R = q.shape[1] + s.shape[1]
+    j = _to_np(jpw.affine_gap_align_runs(q, ql, s, sl, walk_runs=R, **cfg))
+    t = tpw.affine_gap_align_runs(T(q), T(ql), T(s), T(sl), walk_runs=R, **cfg)
+    _assert_runs_equal(t, j)
+
+
+# ---------------------------------------------------------------------------
 # argument checks of the wrapper, made before the device branch
 
 def _valid_args(B=4, Lq=8, Ls=16):
@@ -529,13 +761,14 @@ def _valid_args(B=4, Lq=8, Ls=16):
 
 @pytest.mark.parametrize(
     "case,exc",
-    [("wide", ValueError), ("empty", ValueError), ("dtype", TypeError),
+    [("wide", None), ("empty", ValueError), ("dtype", TypeError),
      ("subject_dtype", TypeError), ("batch", ValueError), ("qlen_shape", ValueError)],
 )
 def test_gotoh_wrapper_rejects_bad_arguments(case, exc):
     q, ql, s, sl = _valid_args()
-    if case == "wide":
+    if case == "wide":  # no width limit: 1,025 columns run as any other
         s = torch.zeros((4, 1025), dtype=torch.int8)
+        sl = torch.full((4,), 1025, dtype=torch.int32)
     elif case == "empty":
         s = torch.zeros((4, 0), dtype=torch.int8)
     elif case == "dtype":
@@ -546,6 +779,9 @@ def test_gotoh_wrapper_rejects_bad_arguments(case, exc):
         s = torch.zeros((5, 16), dtype=torch.int8)
     elif case == "qlen_shape":
         ql = ql[:3]
+    if exc is None:
+        assert gotoh_forward_plane(q, ql, s, sl)[0].shape == (8, 4, 1025)
+        return
     with pytest.raises(exc):
         gotoh_forward_plane(q, ql, s, sl)
     # what the checks let through still runs

@@ -4,9 +4,9 @@ kernel): per-column ops of the two flank configurations, flank results and
 composed alignments of Tier2STRAligner on the tests/test_str_tier2.py
 workloads, classic SAM lines and fused records with a known-STR catalogue,
 fused records on a slice of a genome with bench.py-style tandem arrays,
-and the candidate classifier's STR demotion; the one known divergence (a
-region too long for the kernels' subject width) is pinned.  Everything compared is an
-integer or a string, so equality is exact.  A torch model of the CUDA
+and the candidate classifier's STR demotion; a region longer than 1,024
+minus the read (the wide Gotoh kernel's case) included.  Everything
+compared is an integer or a string, so equality is exact.  A torch model of the CUDA
 kernels' free-query-end statements is held against the plain version, since
 the kernels themselves run only on the card."""
 import numpy as np
@@ -363,7 +363,7 @@ def test_fused_records_repeat_genome_slice_equal_jax():
     jk = [_record_key(r) for r in jpipe.run_reads(blk)]
     tk = [_record_key(r) for r in tpipe.run_reads(_port_reads(blk))]
     assert len(jk) > 150 and tk == jk
-    assert tpipe.aligner.tier2_reads > 200 and tpipe.aligner.tier2_skipped == 0
+    assert tpipe.aligner.tier2_reads > 200
 
 
 def test_full_width_false_snv_calls_equal_jax():
@@ -440,11 +440,9 @@ def test_full_width_false_snv_calls_equal_jax():
     assert not any(156_480 <= c.first <= 156_521 for c in sim.calls)
 
 
-def test_long_region_skips_tier2_unlike_jax():
-    """The one known divergence: a region whose length plus the read's
-    exceeds the Gotoh kernels' 1,024 subject columns.  The JAX package
-    splits the read around it; the port leaves the read to tiers 1 and 3,
-    says so once and counts the cells (ROADMAP.md Queue 3)."""
+def _long_region_case():
+    """A 6 kb genome with a 1,000 bp array at 2001-3000 and a short known
+    STR at 1001-1040; reads of 100 bp from 1941, 2951 and 981."""
     from ngsepcore_tpu.core.genome import ReferenceGenome
     from ngsepcore_tpu.core.sequences import QualifiedSequence, QualifiedSequenceList
 
@@ -454,32 +452,48 @@ def test_long_region_skips_tier2_unlike_jax():
     seqs = QualifiedSequenceList()
     seqs.add(QualifiedSequence(name="chr1", codes=codes))
     genome = ReferenceGenome(seqs)
-    tgen = _port_genome(genome)
     short, long_ = (1001, 1040), (2001, 3000)
-    jt = JTier2(genome, {"chr1": [JRegion("chr1", *short), JRegion("chr1", *long_)]})
-    tstrs = {"chr1": [TRegion("chr1", *short), TRegion("chr1", *long_)]}
-    tt = TTier2(tgen, tstrs, device="cpu")
-    assert TTier2.MAX_SUBJECT == 1024
-    j = jt.region_for(0, 1941, 2040)
-    assert (j.first, j.last) == long_
-    with pytest.warns(RuntimeWarning, match="chr1:2001-3000"):
-        assert tt.region_for(0, 1941, 2040) is None
-    assert tt.region_for(0, 2950, 3049) is None and tt.skipped_long == 2
-    t = tt.region_for(0, 981, 1080)  # regions that fit are found as before
-    assert (t.first, t.last) == short == (lambda r: (r.first, r.last))(
-        jt.region_for(0, 981, 1080))
-    # a region of 924 bp with a 100 bp read is the widest that still fits
-    tt2 = TTier2(tgen, {"chr1": [TRegion("chr1", 2001, 2924)]}, device="cpu")
-    assert tt2.region_for(0, 1941, 2040) is not None and tt2.skipped_long == 0
-    # through the aligner: the reads still align, by tier 1, and are counted
-    reads = [TRawRead(name=f"r{i}", sequence=decode_dna(codes[st : st + 100]),
-                      qualities="F" * 100) for i, st in enumerate((1940, 2950, 980))]
-    ta = TAligner(tgen, known_strs=tstrs, device="cpu")
-    with pytest.warns(RuntimeWarning):
-        per_read = ta.align_batch(reads)
-    assert ta.tier2_skipped >= 2 and ta.tier2_reads >= 1
-    assert per_read[0] and per_read[0][0].first == 1941
-    assert per_read[2] and per_read[2][0].first == 981
+    jreads = [JRawRead(name=f"r{i}", sequence=decode_dna(codes[st : st + 100]),
+                       qualities="F" * 100) for i, st in enumerate((1940, 2950, 980))]
+    return dict(
+        genome=genome, tgen=_port_genome(genome), jreads=jreads,
+        treads=[TRawRead(name=r.name, sequence=r.sequence, qualities=r.qualities)
+                for r in jreads],
+        jstrs={"chr1": [JRegion("chr1", *short), JRegion("chr1", *long_)]},
+        tstrs={"chr1": [TRegion("chr1", *short), TRegion("chr1", *long_)]},
+    )
+
+
+def test_long_region_tier2_equals_jax():
+    """A region whose length plus the read's is over 1,024 columns goes
+    through tier 2 as in the JAX package (on the card the wide Gotoh
+    kernel takes its flanks): the region found is JAX's, and three reads
+    over a 1,000 bp array and a short one give JAX's SAM lines through
+    ReadsAligner(known_strs=...)."""
+    c = _long_region_case()
+    jt, tt = JTier2(c["genome"], c["jstrs"]), TTier2(c["tgen"], c["tstrs"], device="cpu")
+    for span in ((1941, 2040), (2950, 3049), (981, 1080), (3500, 3599)):
+        j, t = jt.region_for(0, *span), tt.region_for(0, *span)
+        assert (j is None and t is None) or (t.first, t.last) == (j.first, j.last)
+    assert (tt.region_for(0, 1941, 2040).first, tt.region_for(0, 2950, 3049).last) == (2001, 3000)
+    ja = JAligner(c["genome"], known_strs=c["jstrs"])
+    ta = TAligner(c["tgen"], known_strs=c["tstrs"], device="cpu")
+    js, ts = _sam(ja.align_batch(c["jreads"])), _sam(ta.align_batch(c["treads"]))
+    assert ts == js and len(js) >= 3
+    assert ta.tier2_reads >= 3
+    # the read over the long array's left edge is split around it
+    assert {l.split("\t")[0]: l.split("\t")[5] for l in ts}["r0"].endswith("S")
+
+
+def test_tier2_plane_cap_chunks_change_no_output():
+    """With a plane cap of one byte every flank chunk halves down to one
+    row: the SAM lines stay those of 256-row chunks."""
+    c = _long_region_case()
+    want = _sam(TAligner(c["tgen"], known_strs=c["tstrs"], device="cpu")
+                .align_batch(c["treads"]))
+    ta = TAligner(c["tgen"], known_strs=c["tstrs"], device="cpu")
+    ta.tier2.PLANE_CAP_BYTES = 1
+    assert _sam(ta.align_batch(c["treads"])) == want
 
 
 def test_classify_candidates_str_demotion_equals_jax():
