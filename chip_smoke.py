@@ -41,9 +41,11 @@ through the CLI (ReadsAligner -p PACBIO, SingleSampleVariantsDetector
 -runLongReadSVs), with a planted insertion and deletion to find; phase
 15 aligns bench_configs.bench_long_reads' 600 reads of 10 kb against
 4 Mbp with its accuracy gates, then calls long-read SVs on them.
-Phase 2 also holds the wide Gotoh kernel (Ls > 1024) at Ls 1025-8192 and
-at every narrower case, and phase 9's genome carries a 1,500 bp tandem
-array whose flanks take it.  De-novo assembly follows: phase 16 runs the
+Phase 2 also holds the seg Gotoh kernel (256 < Ls <= 3,584) and the wide
+one (above) at Ls 1025-8192 and, forced, at every narrower case; phase 9's
+genome carries a 1,500 bp tandem array whose flanks take the seg kernel,
+and phase 9 also runs the known-STR detector through the CLI, CUDA against
+the CPU.  De-novo assembly follows: phase 16 runs the
 reference's legacy assembler row (30 kb, 15x of 2.5 kb reads) and a
 ploidy-2 assembly on the card against the CPU, Assembler,
 AssemblyGraphStatistics and SIH through the CLI; phase 17 assembles
@@ -254,7 +256,7 @@ def reset_counts(counters) -> None:
 
 def tier2_shapes(gotoh) -> dict:
     """Gotoh launches with a free query end since the last reset_counts:
-    {flank side: Counter of (B, Lq, Ls, "warp" or "block")}."""
+    {flank side: Counter of (B, Lq, Ls, "warp", "seg" or "wide")}."""
     key = lambda cfg: tuple(bool(cfg.get(f, d)) for f, d in (
         ("free_start1", False), ("free_end1", False),
         ("free_start2", True), ("free_end2", True)))
@@ -437,10 +439,11 @@ def _saturating(rng, B, Lq, Ls):
 
 
 def _edge_cases(rng):
-    """Shapes that are edges of the two Gotoh kernels' layouts: (name,
-    inputs).  The warp-per-alignment kernel takes Ls <= 256 with
-    ceil(Ls/32) columns a lane and four alignments a block; wider subjects
-    take the block-per-alignment kernel."""
+    """Shapes that are edges of the Gotoh kernels' layouts: (name, inputs).
+    The warp-per-alignment kernel takes Ls <= 256 with ceil(Ls/32) columns
+    a lane and four alignments a block; wider subjects take the seg kernel
+    (seg_layout: W = ceil(Ls/256) warps an alignment, ceil(Ls/224) with
+    a free query end, K = ceil(Ls/(32W)) columns a lane)."""
     q0, ql0, s0, sl0 = _noisy(rng, 203, 48, 128)
     ql0[::3] = 0
     sl0[::5] = 0
@@ -450,9 +453,9 @@ def _edge_cases(rng):
     return [
         ("Ls 256 (widest register variant), B 301", _noisy(rng, 301, 64, 256)),
         ("Ls 256, runs past 255", _saturating(rng, 30, 300, 256)),
-        ("Ls 288 (block kernel)", _noisy(rng, 130, 64, 288)),
-        ("Ls 512 (block kernel)", _noisy(rng, 67, 96, 512)),
-        ("Ls 1024 (block kernel's widest)", _noisy(rng, 19, 64, 1024)),
+        ("Ls 288 (seg kernel)", _noisy(rng, 130, 64, 288)),
+        ("Ls 512 (seg kernel)", _noisy(rng, 67, 96, 512)),
+        ("Ls 1024 (seg kernel)", _noisy(rng, 19, 64, 1024)),
         ("Ls 33", _random_jobs(rng, 37, 40, 33)),
         ("Ls 1", _random_jobs(rng, 9, 12, 1)),
         ("Lq 1", _random_jobs(rng, 50, 1, 70)),
@@ -501,9 +504,10 @@ def _skip_seventh(rng, B, W):
     return q, np.full(B, kept.shape[1], np.int32), s, np.full(B, W, np.int32)
 
 
-# phase 2's timed shapes of the wide kernel, a flank over a ~1,500 bp STR
-WIDE_TIMED = {side: f"tier-2 {side} flank 256x160x1664 (wide kernel)"
-              for side in ("left", "right")}
+# phase 2's timed shapes of a flank over a ~1,500 bp STR (phase 9's long
+# array; the seg kernel since the wide kernel's range starts above it)
+STR1500_TIMED = {side: f"tier-2 {side} flank 256x160x1664"
+                 for side in ("left", "right")}
 TIER2_LEFT = dict(free_end1=True, free_start2=True, free_end2=False)
 TIER2_RIGHT = dict(free_start1=True, free_start2=False, free_end2=True)
 # the long-read segment kinds' free subject ends (long_reads._run_dp_jobs)
@@ -535,18 +539,20 @@ def _gotoh_mismatches(got, ref):
 
 def phase_gotoh():
     """The three Gotoh kernels against the plain version, bit for bit on
-    the full plane; times of the kernel the wrapper picks, of the
-    block-per-alignment kernel (the only one before the redesign) where it
-    takes the width, and of the plain version at the shapes the main paths
-    use.  The wide kernel (Ls > 1024) is also held at every narrower case."""
+    the full plane; times of the kernel the wrapper picks and of the plain
+    version at the shapes the main paths use.  The seg kernel is also held
+    at every narrower case (one warp, 4-8 columns a lane), and the wide
+    kernel at every case it does not take by shape."""
     import torch
 
     from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
+        SEG_MAX_LS,
         gotoh_forward_plane,
-        gotoh_forward_plane_block,
         gotoh_forward_plane_ref,
+        gotoh_forward_plane_seg,
         gotoh_forward_plane_wide,
         kernel_for,
+        seg_layout,
     )
 
     rng = np.random.default_rng(0)
@@ -560,9 +566,14 @@ def phase_gotoh():
     timed_t2 = [
         ("tier-2 left flank 256x160x224", _tier2_chunk(rng, 256, "left"), TIER2_LEFT),
         ("tier-2 right flank 256x160x224", _tier2_chunk(rng, 256, "right"), TIER2_RIGHT),
+        # phase 10's top shapes (the known-STR run at 4.6 Mbp)
+        ("tier-2 left flank 256x160x384", _tier2_chunk(rng, 256, "left", Ls=384),
+         TIER2_LEFT),
+        ("tier-2 right flank 256x160x352", _tier2_chunk(rng, 256, "right", Ls=352),
+         TIER2_RIGHT),
         # a flank window over a known STR of ~1,500 bp (phase 9's long array)
-        (WIDE_TIMED["left"], _tier2_chunk(rng, 256, "left", Ls=1664), TIER2_LEFT),
-        (WIDE_TIMED["right"], _tier2_chunk(rng, 256, "right", Ls=1664), TIER2_RIGHT),
+        (STR1500_TIMED["left"], _tier2_chunk(rng, 256, "left", Ls=1664), TIER2_LEFT),
+        (STR1500_TIMED["right"], _tier2_chunk(rng, 256, "right", Ls=1664), TIER2_RIGHT),
     ]
     cases += timed_t2
     timed_lr = [
@@ -576,23 +587,34 @@ def phase_gotoh():
     for name, data in _edge_cases(rng):
         for cfg in _GOTOH_CFGS:
             cases.append((f"{name} {cfg}", data, cfg))
-    for Ls in (1025, 1536, 2048, 4096, 8192):  # the wide kernel's widths
+    # the seg kernel's widths up to SEG_MAX_LS, then the wide kernel's
+    for Ls in (1025, 1536, 2048, 3584, 4096, 8192):
         q, ql, s, sl = _noisy(rng, 37, 160, Ls)
         ql[::5] = 0
         sl[1] = 0
         for cfg in (LONG_READ_CFGS["center"], TIER2_LEFT, TIER2_RIGHT, _GOTOH_CFGS[0]):
-            cases.append((f"wide Ls {Ls}, B 37, qlen 0 rows {cfg}", (q, ql, s, sl), cfg))
-    cases.append(("wide Ls 2100, runs past 255", _saturating(rng, 9, 300, 2100), {}))
+            cases.append((f"Ls {Ls} ({kernel_for(Ls)}), B 37, qlen 0 rows {cfg}",
+                          (q, ql, s, sl), cfg))
+    qn, qln, sn, sln = _noisy(rng, 40, 96, 700)
+    qn[:] = 4
+    sn[:] = 4
+    for cfg in _GOTOH_CFGS:
+        cases.append((f"seg Ls 600, B 1 {cfg}", _noisy(rng, 1, 160, 600), cfg))
+        cases.append((f"seg Ls 700, all-N query and subject {cfg}", (qn, qln, sn, sln), cfg))
+    cases.append(("seg Ls 300, runs past 255", _saturating(rng, 30, 300, 300), {}))
+    cases.append(("seg Ls 2100, runs past 255", _saturating(rng, 9, 300, 2100), {}))
+    cases.append(("wide Ls 5000, runs past 255", _saturating(rng, 5, 300, 5000), {}))
     timed_names = {n for n, _ in timed} | {n for n, _, _ in timed_t2 + timed_lr}
     timing = {}
     n_cells = 0
     for name, (q, ql, s, sl), cfg in cases:
         args = [torch.from_numpy(a).cuda() for a in (q, ql, s, sl)]
         ref = gotoh_forward_plane_ref(*args, **cfg)
+        Ls = s.shape[1]
         kernels = [("kernel", gotoh_forward_plane)]
-        if s.shape[1] <= 256:  # wider subjects take the block kernel anyway
-            kernels.append(("block kernel", gotoh_forward_plane_block))
-        if s.shape[1] <= 1024:  # wider subjects take the wide kernel anyway
+        if Ls <= 256:  # wider subjects take the seg kernel anyway
+            kernels.append(("seg kernel", gotoh_forward_plane_seg))
+        if Ls <= SEG_MAX_LS:  # wider subjects take the wide kernel anyway
             kernels.append(("wide kernel", gotoh_forward_plane_wide))
         err = 0
         for label, fn in kernels:
@@ -607,23 +629,24 @@ def phase_gotoh():
             n_cells += got[0].numel()
             del got
         if name in timed_names:
-            B, Lq, Ls = q.shape[0], q.shape[1], s.shape[1]
+            B, Lq = q.shape
+            kern = kernel_for(Ls)
+            if kern == "seg":
+                kern_text = "seg, K {}, W {}".format(
+                    *seg_layout(Ls, cfg.get("free_end1", False)))
+            else:
+                kern_text = kern
             ms = cuda_ms(lambda: gotoh_forward_plane(*args, **cfg), calls=20)
-            old = (cuda_ms(lambda: gotoh_forward_plane_block(*args, **cfg), calls=20)
-                   if Ls <= 1024 else None)
             g_ms = graph_ms(lambda: gotoh_forward_plane(*args, **cfg))
             plain = cuda_ms(lambda: gotoh_forward_plane_ref(*args, **cfg))
             b_ms, b_by = gotoh_bound(B, Lq, Ls)
-            block = ("no block kernel at this width" if old is None else
-                     f"block kernel {old:.4f} ms at {100 * b_ms / old:.1f}% of the bound")
-            log(f"  time {name}: kernel ({kernel_for(Ls)}) {ms:.4f} ms (median of 5 x 20 "
+            log(f"  time {name}: kernel ({kern_text}) {ms:.4f} ms (median of 5 x 20 "
                 f"calls), {g_ms:.4f} ms in a CUDA graph of 20 calls, plain {plain:.3f} ms "
                 f"(median of 5); bound {b_ms:.4f} ms by {b_by}, kernel at "
-                f"{100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% in the graph); "
-                f"{block}")
+                f"{100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% in the graph)")
             timing[name] = dict(ms=ms, plain_ms=plain, max_abs_err=err, graph_ms=g_ms,
-                                bound_ms=b_ms, bound_by=b_by, block_ms=old,
-                                shape=f"{B}x{Lq}x{Ls}", kernel=kernel_for(Ls))
+                                bound_ms=b_ms, bound_by=b_by,
+                                shape=f"{B}x{Lq}x{Ls}", kernel=kern)
         del ref
     log(f"phase 2 gotoh: {len(cases)} cases, {n_cells} plane cells compared, "
         "0 differing")
@@ -681,10 +704,10 @@ def phase_walk():
         ("runs past 255, R = Lq + Ls", _saturating(rng, 30, 300, 256), {}, 556),
         ("budget runs out 256x160x160", _skip_seventh(rng, 256, 160), {}, tier3(160)),
         ("empty query with a free query end", empty, TIER2_LEFT, 160 + 224),
-        # tier 2 over a ~1,500 bp STR: a wide-kernel plane, R = Lq + Ls
-        ("tier-2 left flank 64x160x1664 (wide kernel)",
+        # tier 2 over a ~1,500 bp STR: R = Lq + Ls
+        ("tier-2 left flank 64x160x1664",
          _tier2_chunk(rng, 64, "left", Ls=1664), TIER2_LEFT, 160 + 1664),
-        ("tier-2 right flank 64x160x1664 (wide kernel)",
+        ("tier-2 right flank 64x160x1664",
          _tier2_chunk(rng, 64, "right", Ls=1664), TIER2_RIGHT, 160 + 1664),
         ("long reads budget runs out 512x512x512",
          _skip_seventh(rng, 512, 512), LONG_READ_CFGS["center"], tier3(512)),
@@ -1323,9 +1346,9 @@ def _simulate_str_50kb(seed: int = 31):
     or two whole units (homozygous; three for the long one) and that
     carries a few SNVs, and 6,300 reads of 100 bp with 0.4% substitutions:
     3,000 placed to straddle a short array, 300 an edge of the long one.
-    A flank window over the long array is wider than 1,024 columns, so
-    tier 2 takes the wide Gotoh kernel there.  Returns (genome, reads,
-    catalogue)."""
+    A flank window over the long array is 1,504-1,600 columns wide, so
+    tier 2 takes the seg Gotoh kernel with 6-8 warps an alignment there.
+    Returns (genome, reads, catalogue)."""
     from ngsepcore_tpu_torch.core.genome import ReferenceGenome
     from ngsepcore_tpu_torch.core.sequences import (
         QualifiedSequence,
@@ -1385,12 +1408,15 @@ def _simulate_str_50kb(seed: int = 31):
         "chrS", sorted([a[:2] for a in arrays] + [LONG_STR]))
 
 
-def _run_str(genome, reads, strs, device):
+def _run_str(genome, reads, strs, device, mark=lambda: 0):
     """Classic then fused with a known-STR catalogue: (SAM lines, classic
-    record keys, fused record keys, tier-2 candidate cells of each flow)."""
+    record keys, fused record keys, tier-2 candidate cells of each flow,
+    what mark() counted in each flow: it is called before and after
+    each)."""
     from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
     from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
 
+    marks = [mark()]
     aligner = ReadsAligner(genome, known_strs=strs, device=device)
     alns = []
     for i in range(0, len(reads), 1024):
@@ -1400,25 +1426,71 @@ def _run_str(genome, reads, strs, device):
     det = SingleSampleVariantsDetector(genome, sample_id="s1", device=device)
     det.known_strs = strs
     classic = [record_key(r) for r in det.find_variants(alns)]
+    marks.append(mark())
     pipe = _make_pipeline(genome, device, 1024, table=aligner.table, known_strs=strs)
     fused = [record_key(r) for r in pipe.run_reads(reads)]
-    return sam, classic, fused, aligner.tier2_reads, pipe.aligner.tier2_reads
+    marks.append(mark())
+    return (sam, classic, fused, aligner.tier2_reads, pipe.aligner.tier2_reads,
+            (marks[1] - marks[0], marks[2] - marks[1]))
+
+
+def _seg_over_long_str(gotoh) -> int:
+    """Gotoh launches since the last reset_counts that the seg kernel took
+    at subjects wider than 1,024 columns: phase 9's flanks over its long
+    array."""
+    return sum(n for (_, _, _, Ls, kern), n in gotoh.launch_shapes.items()
+               if kern == "seg" and Ls > 1024)
+
+
+def _known_str_cli(pool, d, genome, sam, strs):
+    """Write phase 9's genome, SAM lines and catalogue to `d` and start
+    SingleSampleVariantsDetector -knownSTRs through the CLI on the card and
+    on the CPU in `pool`, in the background: (futures by device, VCF path
+    by device)."""
+    from ngsepcore_tpu_torch.io.fasta import save_fasta
+    from ngsepcore_tpu_torch.io.sam import ReadAlignmentFileWriter
+
+    g, alns, cat = (os.path.join(d, f) for f in ("genome.fa", "s1.sam", "strs.txt"))
+    save_fasta(genome.sequences, g)
+    with open(alns, "w") as fh:
+        ReadAlignmentFileWriter(genome.sequences, fh, sample_id="s1")
+        fh.write("".join(line + "\n" for line in sam))
+    with open(cat, "w") as fh:
+        fh.write("".join(f"{r.sequence_name}\t{r.first}\t{r.last}\n"
+                         for regions in strs.values() for r in regions))
+    out = {dev: os.path.join(d, f"calls_{dev}") for dev in ("cuda", "cpu")}
+    runs = {dev: pool.submit(
+        _cli_plain, ["SingleSampleVariantsDetector", "-r", g, "-i", alns, "-o", out[dev],
+                     "-sampleId", "s1", "-knownSTRs", cat], dev, 900,
+        3 if dev == "cpu" else None) for dev in out}
+    return runs, {dev: p + ".vcf" for dev, p in out.items()}
 
 
 def phase_str_50kb(counters):
+    """Known STRs at 50 kb, CUDA against CPU: the classic and fused flows
+    in process, then SingleSampleVariantsDetector -knownSTRs through the
+    CLI on the CUDA run's alignments (the CPU side in the background).
+    Returns the seg-kernel launches over the long array."""
+    from concurrent.futures import ThreadPoolExecutor
+
     genome, reads, strs = _simulate_str_50kb()
     gotoh = counters[0]
     reset_counts(counters)
     t0 = time.perf_counter()
-    sam_c, cl_c, fu_c, t2_classic, t2_fused = _run_str(genome, reads, strs, "cuda")
+    sam_c, cl_c, fu_c, t2_classic, t2_fused, seg_flows = _run_str(
+        genome, reads, strs, "cuda", mark=lambda: _seg_over_long_str(gotoh))
     sync("cuda")
     t_cuda = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
     shapes = tier2_shapes(gotoh)
     t2 = tier2_launches(shapes)
-    t0 = time.perf_counter()
-    sam_p, cl_p, fu_p, _, _ = _run_str(genome, reads, strs, "cpu")
-    t_cpu = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d, ThreadPoolExecutor(2) as pool:
+        cli, vcf = _known_str_cli(pool, d, genome, sam_c, strs)
+        t0 = time.perf_counter()
+        sam_p, cl_p, fu_p, _, _, _ = _run_str(genome, reads, strs, "cpu")
+        t_cpu = time.perf_counter() - t0
+        t_cli = {dev: run.result()[0] for dev, run in cli.items()}
+        body = {dev: [l for l in open(p) if not l.startswith("#")] for dev, p in vcf.items()}
     n_sam_diff = sum(a != b for a, b in zip(sam_c, sam_p))
     n_indel = sum(len(k[2][0]) != len(k[2][1]) for k in fu_c)
     log(f"phase 9 known STRs 50 kb, {len(strs['chrS'])} arrays: {len(sam_c)} SAM "
@@ -1428,29 +1500,35 @@ def phase_str_50kb(counters):
         f"of them tier-2 flanks {t2}")
     for side, by in shapes.items():
         log(f"  tier-2 {side} flank launches: {shapes_text(by)}")
+    n_cli_diff = len(set(body["cuda"]) ^ set(body["cpu"]))
+    log(f"  CLI SingleSampleVariantsDetector -knownSTRs: {len(body['cuda'])} records on "
+        f"CUDA ({t_cli['cuda']:.2f}s), {len(body['cpu'])} on the CPU ({t_cli['cpu']:.2f}s, "
+        f"in the background), differing {n_cli_diff}; in process {len(cl_c)}")
     if len(sam_c) != len(sam_p) or n_sam_diff:
         fail("known-STR classic CUDA and CPU SAM lines differ")
     if len(fu_c) <= 10 or fu_c != fu_p or cl_c != cl_p:
         fail("known-STR CUDA and CPU records differ")
     if cl_c != fu_c:
         fail("known-STR classic and fused records differ")
+    if len(body["cuda"]) <= 10 or body["cuda"] != body["cpu"]:
+        fail("the known-STR CLI detector's CUDA and CPU VCF records differ")
     if n_indel < 5 or not any(("I" in l.split("\t")[5] or "D" in l.split("\t")[5])
                               for l in sam_c):
         fail("the repeat-length differences were not called")
     if min(t2_classic, t2_fused) == 0 or min(t2.values()) == 0:
         fail(f"the tier-2 flanks did not launch the Gotoh kernel: {t2}")
-    wide = sum(n for by in shapes.values() for (_, _, _, kern), n in by.items()
-               if kern == "wide")
     long_reads = {f"r_{i}" for i in range(6000, 6300)}
     split = sum(_split_at_long_str(line) for line in sam_c
                 if line.split("\t", 1)[0] in long_reads)
-    log(f"  wide-kernel launches {wide}; reads over the long array's edges split around "
-        f"it {split} of {len(long_reads)}")
-    if wide == 0:
-        fail("tier 2 did not launch the wide Gotoh kernel over the long array")
+    log(f"  seg-kernel launches over the long array (Ls > 1024): classic {seg_flows[0]}, "
+        f"fused {seg_flows[1]}; reads over the long array's edges split around it "
+        f"{split} of {len(long_reads)}")
+    if min(seg_flows) < 2:
+        fail(f"tier 2 did not launch the seg Gotoh kernel twice in each flow over the "
+             f"long array: {seg_flows}")
     if split < len(long_reads) // 2:
         fail("fewer than half of the reads over the long array were split around it")
-    return wide
+    return sum(seg_flows)
 
 
 def _split_at_long_str(sam_line) -> bool:
@@ -2782,9 +2860,10 @@ def kernel_entries(t: dict) -> list:
         out.append(entry("run_walk" if p == "15" else f"run_walk_{tag}", *walk,
                          launches["_runs_from_plane"], w[f"long reads center 512x{W}x{W}"]))
     if "9" in t and g:
-        # the wide kernel: tier 2 over phase 9's 1,500 bp array at 50 kb,
-        # timed at a flank chunk over such an array
-        out.append(entry("gotoh_forward_wide", *gotoh, t["9"], g[WIDE_TIMED["left"]]))
+        # tier 2 over phase 9's 1,500 bp array at 50 kb (the seg kernel at
+        # 6-8 warps), timed at a flank chunk over such an array
+        out.append(entry("gotoh_forward_long_str", *gotoh, t["9"],
+                         g[STR1500_TIMED["left"]]))
     if "5 launches" in t and "3" in t:
         out.append(entry("shear_hist", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
                          "ngsepcore_tpu/kernels/shear_pileup.py:227",

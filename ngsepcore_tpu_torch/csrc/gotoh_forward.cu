@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas kernel ngsepcore_tpu/kernels/pairwise_pallas.py:243
 // (gotoh_forward_plane_pallas).  Semantics and the plane layout are those
-// of kernels/pairwise_cuda.py:gotoh_forward_plane_ref, which both kernels
-// of this file match bit for bit on every cell of the plane.
+// of kernels/pairwise_cuda.py:gotoh_forward_plane_ref, which every kernel
+// of this file matches bit for bit on every cell of the plane.
 //
 // What bounds the function on an H100 (SXM: 3.35 TB/s; 132 SMs with 64
 // INT32 lanes each at 1.98 GHz, about 16.7 T integer operations a second;
@@ -57,28 +57,66 @@
 //   * Rows past qlen are warp-uniform: the state is simply not committed,
 //     while sd/ed are computed fresh, as the plain version does.
 //
-// gotoh_forward_block_kernel, 256 < Ls <= 1024: one block per alignment,
-// one thread per column, previous row and scans through shared memory
-// with block barriers.
+// gotoh_forward_seg_kernel<K>, 256 < Ls <= kSegMaxLs (3,584): THE WARP
+// KERNEL'S ROW SPLIT OVER THE W = ceil(Ls/256) WARPS OF ONE BLOCK, one
+// alignment a block, K = ceil(Ls/(32W)) columns a lane (4 to 8; with a
+// free query end W = ceil(Ls/224) and K at most 7, see below).
+//   * Warp w owns columns w*32K+1 .. (w+1)*32K, lane l of it K contiguous
+//     ones, and runs the warp kernel's row body (the same source, kSeg):
+//     M, I, D, run carries and subject codes in registers, no scratch in
+//     global memory.
+//   * Four ints cross a warp boundary a row, written by lane 31 of warp
+//     w-1: after its row r, the inclusive maxima of y = A + ext*c and of
+//     the packed D-run source z over every column left of warp w (seeded
+//     with column 0's values), and the diagonal hand-off (hd, mw) of its
+//     last column for row r+1.  Warp w seeds its own blocked scans with the
+//     two maxima and passes max(incoming, own total) on: one max a hop.  I
+//     is column-local, and D and its pointer come from the prefix.
+//   * The messages sit in a shared ring of kRing rows a boundary (SegLink):
+//     slot r holds row r's maxima and the hand-off into row r, is published
+//     by a release store of r and freed by the consumer's release store of
+//     the last row it read.  Warp w waits for row r's slot before it starts
+//     the row, so the row's body is one stretch of code for ptxas: waiting
+//     in the middle of the row (after the y pass) kept more values live
+//     across the wait, and the K = 8 variants spilled 16-168 bytes and ran
+//     0.7932 against 0.6575 ms at 512x512x512.  Warp w-1 may be up to
+//     kRing rows ahead, warp w is one row behind it at the least, and no
+//     __syncthreads() runs in the row loop.
+//   * Bound, like the warp kernel's, by INT32 issue; the hand-off adds
+//     about 15 instructions a warp and row to the ~550 of its 32K cells
+//     at K = 8.  The block kernel it replaced (a thread a column, 9 shared
+//     arrays and 9 block barriers a row) ran at 22-25% of the bound
+//     (1.4247-1.5782 ms at 512x512x512).
+//   * Registers: 16 warps x 32 lanes x at most 128 registers fill an SM's
+//     65,536, which the launch bound asks of ptxas.  Each quarter of the
+//     register file holds a quarter of the warps, so any block of more
+//     than 12 warps caps a thread at 128 (15 warps did not raise it); 8
+//     warps and up to 255 registers (173 at K = 8) ran 13% slower at
+//     256x160x1664: one block of 7 warps an SM.  At K = 8 the free_end1
+//     variants spilled 4-16 bytes at 128 in every arrangement tried (the
+//     running best, its row and the owner index on top of the row), so
+//     free_end1 takes at most 7 columns a lane and kSegMaxLs is 16 x 32 x
+//     7 = 3,584 for every configuration: the dispatch stays on Ls alone.
 //
-// gotoh_forward_wide_kernel, Ls > 1024: one block per alignment, thread t
-// owning the C = ceil(Ls/1024) contiguous columns t*C+1 .. t*C+C, as the
-// warp kernel's lanes own theirs.  The owned columns' previous-row M, I, D
-// and run carries, and the row's values between passes, live in a global
-// scratch of 8 ints a column that the wrapper allocates (interleaved by
-// thread, so a warp's accesses coalesce); only each thread's last column
-// crosses to its neighbour (a shuffle, or between warps shared memory),
-// and the two max-scans are the warp kernel's blocked scans with a block
-// scan of the thread totals (block_excl_max).  Shared memory is
-// O(threads), so no width limit is left short of the plane's own size.  A
-// first, simple kernel: each cell moves ~80 bytes of scratch through L1/L2
-// on top of its plane word, and a row takes 8 block barriers; 0.949 ms at
-// 256x160x1664, 19% of its operations bound (chip_smoke.py phase 2).
+// gotoh_forward_wide_kernel, Ls > kSegMaxLs: one block per alignment,
+// thread t owning the C = ceil(Ls/1024) contiguous columns t*C+1 .. t*C+C,
+// as the warp kernel's lanes own theirs.  The owned columns' previous-row
+// M, I, D and run carries, and the row's values between passes, live in a
+// global scratch of 8 ints a column that the wrapper allocates
+// (interleaved by thread, so a warp's accesses coalesce); only each
+// thread's last column crosses to its neighbour (a shuffle, or between
+// warps shared memory), and the two max-scans are the warp kernel's
+// blocked scans with a block scan of the thread totals (block_excl_max).
+// Shared memory is O(threads), so no width limit is left short of the
+// plane's own size.  A first, simple kernel: each cell moves ~80 bytes of
+// scratch through L1/L2 on top of its plane word, and a row takes 8 block
+// barriers; 0.949 ms at 256x160x1664, 19% of its operations bound.  None
+// of chip_smoke.py's paths launches it (their widest row: 1,664 columns).
 //
 // gotoh_forward_launch picks the kernel BY SHAPE (Ls); nothing falls back
 // from one to another.
 //
-// Free QUERY ends (the tier-2 STR flank alignments), all three kernels:
+// Free QUERY ends (the tier-2 STR flank alignments), every kernel:
 //   * free_start1: column 0 of the I state is 0 in every row instead of
 //     -open - ext*(r-1); everything derived from it (the column-0 D-open
 //     test, lane 0's diagonal hand-off) follows unchanged.
@@ -87,7 +125,7 @@
 //     (value, row) maximum in two registers while the row is active; there
 //     is no second pass over the plane.  end_i is written only here; in
 //     the other configurations it is qlen and the wrapper returns that.
-//   Both flags are template parameters of both kernels, so the tier-3
+//   Both flags are template parameters of every kernel, so the tier-3
 //   instantiations carry none of this (as a runtime select on column 0
 //   alone the 256-row tier-3 shape ran 8% slower: 0.0871 against 0.0807 ms).
 #include <cuda_runtime.h>
@@ -98,10 +136,15 @@ namespace {
 
 constexpr int kNeg = -10000000;
 constexpr int kWarps = 4;      // alignments (warps) per block, warp kernel
-constexpr int kMaxLaneCols = 8;  // widest register variant: Ls <= 256
+constexpr int kMaxLaneCols = 8;  // widest register variant: Ls <= 256 a warp
+constexpr int kSegMinLaneCols = 4;  // narrowest seg variant
+constexpr int kSegEnd1LaneCols = 7;  // widest seg variant with free_end1
+constexpr int kSegMaxWarps = 16;  // 16 x 32 threads x 128 registers = an SM's
+constexpr int kSegMaxLs = kSegMaxWarps * 32 * kSegEnd1LaneCols;  // 3,584
+constexpr int kRing = 8;  // rows of messages in flight across a warp boundary
 
 // ---------------------------------------------------------------------------
-// warp-per-alignment kernel
+// the row body of the warp and seg kernels
 
 // max(a, b) and whether a >= b.  Hopper's DPX form of this pair,
 // __vibmax_s32, measured slower here (0.263 against 0.245 ms at
@@ -111,14 +154,18 @@ __device__ __forceinline__ int max_ge(int a, int b, bool* ge) {
   return max(a, b);
 }
 
-// Exclusive max-scan of the lane totals: lane l gets
-// max(seed, v[0..l-1]).  __shfl_up_sync hands lanes below the offset their
-// own value back, which max() absorbs.
-__device__ __forceinline__ int warp_excl_max(int v, int seed, int lane) {
+// Inclusive max-scan over the lanes.  __shfl_up_sync hands lanes below the
+// offset their own value back, which max() absorbs.
+__device__ __forceinline__ int warp_scan_max(int v) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1)
     v = max(v, __shfl_up_sync(0xffffffffu, v, o));
-  const int up = __shfl_up_sync(0xffffffffu, v, 1);
+  return v;
+}
+
+// Exclusive from inclusive: lane l gets max(seed, incl[l-1]), lane 0 seed.
+__device__ __forceinline__ int excl_from_incl(int incl, int seed, int lane) {
+  const int up = __shfl_up_sync(0xffffffffu, incl, 1);
   return lane == 0 ? seed : max(seed, up);
 }
 
@@ -142,25 +189,72 @@ __device__ __forceinline__ long long warp_max64(long long v) {
   return v;
 }
 
-template <int K, bool kFreeStart1, bool kFreeEnd1>
-__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_kernel(
-    const int8_t* __restrict__ query, const int* __restrict__ qlen,
-    const int8_t* __restrict__ subject, const int* __restrict__ slen,
-    int* __restrict__ plane, int* __restrict__ score_out,
-    int* __restrict__ endi_out, int* __restrict__ endj_out,
-    int* __restrict__ startk_out,
-    int B, int Lq, int Ls, int match, int mismatch, int open_gap,
-    int ext_gap, int free_start2, int free_end2) {
-  // word i of a row sits at tile[i + i/32]
-  __shared__ int tiles[kWarps][K * 33];
+// The seg kernel's messages from warp w-1 to warp w, in link[w]: slot[r %
+// kRing] carries row r, the y and z prefixes (.x, .y, written after warp
+// w-1's row r) and the diagonal hand-off (.z, .w, written after its row
+// r-1); seq[r % kRing] = r publishes it and done = r frees the slots of
+// the rows up to r.
+struct SegLink {
+  int4 slot[kRing];
+  int seq[kRing];
+  int done;
+};
+
+// Block-scope acquire load and release store of a shared int: the seg
+// kernel's flags.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];"
+               : "=r"(v)
+               : "r"((unsigned)__cvta_generic_to_shared(p))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(p)),
+               "r"(v)
+               : "memory");
+}
+
+#define GOTOH_PARAMS                                                        \
+  const int8_t *__restrict__ query, const int *__restrict__ qlen,           \
+      const int8_t *__restrict__ subject, const int *__restrict__ slen,     \
+      int *__restrict__ plane, int *__restrict__ score_out,                 \
+      int *__restrict__ endi_out, int *__restrict__ endj_out,               \
+      int *__restrict__ startk_out, int B, int Lq, int Ls, int match,       \
+      int mismatch, int open_gap, int ext_gap, int free_start2, int free_end2
+#define GOTOH_FWD                                                           \
+  query, qlen, subject, slen, plane, score_out, endi_out, endj_out,         \
+      startk_out, B, Lq, Ls, match, mismatch, open_gap, ext_gap,            \
+      free_start2, free_end2
+
+// kSeg false: warp w of the block is alignment blockIdx.x * kWarps + w and
+// owns all its columns.  kSeg true: the block is alignment blockIdx.x and
+// warp w owns its columns w*32K+1 .. (w+1)*32K.
+template <int K, bool kSeg, bool kFreeStart1, bool kFreeEnd1>
+__device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kWarps + warp;
-  if (b >= B) return;  // whole warp; nothing below synchronises the block
-  int* tile = tiles[warp];
+  const int b = kSeg ? blockIdx.x : blockIdx.x * kWarps + warp;
+  if (!kSeg && b >= B) return;  // whole warp; nothing below synchronises the block
+  const int w = kSeg ? warp : 0;  // the warp's segment of the row
+  const int nw = kSeg ? blockDim.x >> 5 : 1;
+  // word i of a warp's row sits at tile[i + i/32]
+  int* tile;
+  if constexpr (kSeg) {
+    extern __shared__ int seg_tiles[];
+    tile = seg_tiles + warp * (K * 33);
+  } else {
+    __shared__ int tiles[kWarps][K * 33];
+    tile = tiles[warp];
+  }
+  __shared__ SegLink links[kSeg ? kSegMaxWarps : 1];
+  SegLink* in = links + warp;  // seg: from warp w-1; in + 1 to warp w+1
   const int ql = qlen[b];
   const int sl = slen[b];
-  const int c0 = lane * K + 1;  // first owned column
+  const int c0 = w * 32 * K + lane * K + 1;  // first owned column
 
   // previous-row state of the owned columns (columns past Ls compute
   // values nobody reads: the scans only look to the left)
@@ -176,6 +270,18 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
     cwi[k] = 0;
   }
   int m0 = 0, i0 = 0, d0 = 0;  // column 0 (its run carries stay 0)
+  if constexpr (kSeg) {
+    if (lane < kRing) in->seq[lane] = 0;
+    if (lane == 0) {
+      in->done = 0;
+      // row 1's hand-off into column w*32K+1: column w*32K's initial state
+      const int cb = w * 32 * K;
+      int2* hand = reinterpret_cast<int2*>(&in->slot[1 % kRing]) + 1;
+      diag_out(kNeg, kNeg, free_start2 ? 0 : -open_gap - ext_gap * (cb - 1), 0,
+               &hand->x, &hand->y);
+    }
+    __syncthreads();
+  }
   // free_end1: running best M[r][sl] of the lane that owns column sl, ties
   // to the largest row.  Row 0 counts (as 0) only when sl == 0; rows past
   // qlen count as kNeg, so an alignment with no active row ends at Lq.
@@ -185,19 +291,33 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
 
   const int8_t* qrow = query + (size_t)b * Lq;
   const size_t row_stride = (size_t)B * Ls;
-  int* prow = plane + (size_t)b * Ls;
+  int* prow = plane + (size_t)b * Ls + w * 32 * K;
+  const int cols = Ls - w * 32 * K;  // columns of the row from the warp's first
   const int neg_mismatch = -mismatch;
   int q_next = qrow[0];
 
   for (int r = 1; r <= Lq; ++r) {
     const int q = q_next;
     if (r < Lq) q_next = qrow[r];  // in flight during this row
-    const bool active = r <= ql;   // warp-uniform
+    const bool active = r <= ql;   // uniform over the block
     // column 0 of row r
     const int i0n = kFreeStart1 ? 0 : -open_gap - ext_gap * (r - 1);
     const int am0 = kNeg - open_gap;
     const int ai0 = i0n - open_gap;
     const int a0 = max(am0, ai0);
+    // seg, w > 0: warp w-1's message for row r, awaited before the row so
+    // that the row's body stays one stretch of code for the scheduler
+    int4 msg = make_int4(0, 0, 0, 0);
+    if constexpr (kSeg) {
+      if (w > 0) {
+        const int slot = r % kRing;
+        while (ld_acquire(&in->seq[slot]) != r) {
+        }
+        msg = in->slot[slot];
+        __syncwarp();  // every lane has read the slot
+        if (lane == 0) st_release(&in->done, r);
+      }
+    }
 
     // diagonal hand-off from the previous row
     int hd[K], mw[K];
@@ -205,7 +325,14 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
     for (int k = 0; k < K; ++k) diag_out(m[k], i[k], d[k], cwm[k], &hd[k], &mw[k]);
     int hd_in = __shfl_up_sync(0xffffffffu, hd[K - 1], 1);
     int mw_in = __shfl_up_sync(0xffffffffu, mw[K - 1], 1);
-    if (lane == 0) diag_out(m0, i0, d0, 0, &hd_in, &mw_in);
+    if (lane == 0) {
+      if (kSeg && w > 0) {
+        hd_in = msg.z;
+        mw_in = msg.w;
+      } else {
+        diag_out(m0, i0, d0, 0, &hd_in, &mw_in);
+      }
+    }
 
     // M, I, y = A + ext*c and the lane's running max of y
     int m_row[K], i_row[K], cwi_row[K], y[K], run[K];
@@ -225,7 +352,10 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
       y[k] = a + ext_gap * (c0 + k);
       run[k] = k == 0 ? y[0] : max(run[k - 1], y[k]);
     }
-    const int pre = warp_excl_max(run[K - 1], a0, lane);
+    // the scans' seeds: column 0, or in the seg kernel warp w-1's prefixes
+    const int yincl = warp_scan_max(run[K - 1]);
+    const int yseed = kSeg && w > 0 ? msg.x : a0;
+    const int pre = excl_from_incl(yincl, yseed, lane);
 
     // D of this row; z = packed source if column c+1's D pointer opens
     // from this column (y >= everything to its left), else -1
@@ -240,7 +370,9 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
     }
     // column 0: its D is banned, so column 1 opens unless a0 is banned too
     const int z0 = a0 >= kNeg - ext_gap ? 4 + (am0 >= ai0 ? 0 : 1) : -1;
-    const int zpre = warp_excl_max(zrun[K - 1], max(z0, 0), lane);
+    const int zincl = warp_scan_max(zrun[K - 1]);
+    const int zseed = kSeg && w > 0 ? msg.y : max(z0, 0);
+    const int zpre = excl_from_incl(zincl, zseed, lane);
 
     if (active) {
 #pragma unroll
@@ -265,27 +397,44 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
       }
     }
 
+    if constexpr (kSeg) {
+      // to warp w+1: row r's prefixes, and row r+1's hand-off into the slot
+      // of row r+1 once warp w+1 has read row r+1 - kRing from it
+      if (w + 1 < nw) {
+        SegLink* out = in + 1;
+        while (r + 1 > kRing && ld_acquire(&out->done) < r + 1 - kRing) {
+        }
+        if (lane == 31) {
+          int2* pre_r = reinterpret_cast<int2*>(&out->slot[r % kRing]);
+          int2* hand = reinterpret_cast<int2*>(&out->slot[(r + 1) % kRing]) + 1;
+          *pre_r = make_int2(max(yseed, yincl), max(zseed, zincl));
+          diag_out(m[K - 1], i[K - 1], d[K - 1], cwm[K - 1], &hand->x, &hand->y);
+          st_release(&out->seq[r % kRing], r);
+        }
+      }
+    }
+
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int c = c0 + k;
       const int orun = k == 0 ? zpre : max(zpre, zrun[k - 1]);
       const int sd = orun & 3;
       const int ed = min(c - (orun >> 2) + 1, 255);
-      const int idx = c - 1;
+      const int idx = lane * K + k;
       tile[idx + (idx >> 5)] = cwm[k] | cwi[k] | (sd << 4) | (ed << 24);
     }
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       const int idx = j * 32 + lane;
-      if (idx < Ls) prow[idx] = tile[idx + j];
+      if (idx < cols) prow[idx] = tile[idx + j];
     }
     __syncwarp();
     prow += row_stride;
   }
 
   if (kFreeEnd1) {
-    if ((own >= 0 && own < K) || (sl == 0 && lane == 0)) {
+    if ((own >= 0 && own < K) || (sl == 0 && w == 0 && lane == 0)) {
       score_out[b] = best;
       endi_out[b] = brow;
       endj_out[b] = sl;
@@ -306,12 +455,19 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
         key = key > kc ? key : kc;
       }
     }
-    if (lane == 0) {
+    if (w == 0 && lane == 0) {
       const long long k0 = (long long)m0 * kCol;  // column 0 <= slen
       key = key > k0 ? key : k0;
     }
     key = warp_max64(key);
-    if (lane == 0) {
+    if constexpr (kSeg) {
+      __shared__ long long warp_best[kSegMaxWarps];
+      if (lane == 0) warp_best[warp] = key;
+      __syncthreads();
+      key = warp_best[0];
+      for (int v = 1; v < nw; ++v) key = warp_best[v] > key ? warp_best[v] : key;
+    }
+    if (w == 0 && lane == 0) {
       const int ej = (int)(key & 0xffffffffLL);
       score_out[b] = (int)((key - ej) / kCol);
       endj_out[b] = ej;
@@ -320,7 +476,7 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
   } else {
     const int sc = min(max(sl, 0), Ls);  // callers keep slen <= Ls
     int mc = m0, ic = i0, dc = d0;
-    bool mine = lane == 0 && sc == 0;
+    bool mine = w == 0 && lane == 0 && sc == 0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (c0 + k == sc) {
@@ -340,17 +496,35 @@ __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps) gotoh_forward_warp_k
   }
 }
 
+template <int K, bool kFreeStart1, bool kFreeEnd1>
+__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps)
+    gotoh_forward_warp_kernel(GOTOH_PARAMS) {
+  gotoh_forward_rows<K, false, kFreeStart1, kFreeEnd1>(GOTOH_FWD);
+}
+
+// blockDim.x = 32 * W; K * 33 * W ints of dynamic shared memory (the tiles)
+template <int K, bool kFreeStart1, bool kFreeEnd1>
+__global__ void __launch_bounds__(kSegMaxWarps * 32, 1)
+    gotoh_forward_seg_kernel(GOTOH_PARAMS) {
+  gotoh_forward_rows<K, true, kFreeStart1, kFreeEnd1>(GOTOH_FWD);
+}
+
+// One alignment a block of nw warps.  free_end1 never takes more than
+// kSegEnd1LaneCols columns a lane, so its wider variants are not built.
+template <int K, bool kFreeStart1, bool kFreeEnd1>
+cudaError_t launch_seg(int nw, cudaStream_t stream, GOTOH_PARAMS) {
+  if constexpr (!kFreeEnd1 || K <= kSegEnd1LaneCols) {
+    gotoh_forward_seg_kernel<K, kFreeStart1, kFreeEnd1>
+        <<<B, nw * 32, (size_t)nw * K * 33 * sizeof(int), stream>>>(GOTOH_FWD);
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
 // ---------------------------------------------------------------------------
-// block-per-alignment kernel (256 < Ls <= 1024): one thread per subject
-// column c = t+1.  Per row:
-//   phase A  M/I and their run carries from the previous row (own column
-//            in registers, diagonal neighbour from shared memory);
-//   scan 1   block-wide inclusive max of y[h] = A[h] + ext*h, seeded with
-//            the column-0 value, gives D[c] = Y[c-1] - ext*(c-1);
-//   phase B  D-open pointer from column c-1, then scan 2 (inclusive max of
-//            c*4 + dp) gives the D-run source and length;
-//   write    the row of the plane, coalesced, then publish this row's
-//            M/I/D/em/sm to shared memory for the next row.
+// wide kernel (Ls > kSegMaxLs): contiguous columns per thread, state in
+// scratch
 
 __device__ __forceinline__ int warp_incl_max(int v, int lane) {
 #pragma unroll
@@ -360,193 +534,6 @@ __device__ __forceinline__ int warp_incl_max(int v, int lane) {
   }
   return v;
 }
-
-// Block-wide inclusive max-scan over threadIdx.x order.  `warp_tot` holds
-// 32 ints of shared memory; the trailing barrier lets callers reuse it.
-__device__ __forceinline__ int block_incl_max(int v, int* warp_tot) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  v = warp_incl_max(v, lane);
-  if (lane == 31) warp_tot[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    int t = lane < nw ? warp_tot[lane] : INT_MIN;
-    t = warp_incl_max(t, lane);
-    if (lane < nw) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  if (wid > 0) v = max(v, warp_tot[wid - 1]);
-  __syncthreads();
-  return v;
-}
-
-template <bool kFreeStart1, bool kFreeEnd1>
-__global__ void gotoh_forward_block_kernel(
-    const int8_t* __restrict__ query, const int* __restrict__ qlen,
-    const int8_t* __restrict__ subject, const int* __restrict__ slen,
-    int* __restrict__ plane, int* __restrict__ score_out,
-    int* __restrict__ endi_out, int* __restrict__ endj_out,
-    int* __restrict__ startk_out,
-    int B, int Lq, int Ls, int match, int mismatch, int open_gap,
-    int ext_gap, int free_start2, int free_end2) {
-  extern __shared__ int smem[];
-  __shared__ int warp_tot[32];
-  __shared__ long long warp_best[32];
-  const int S = Ls + 1;
-  int* pM = smem;       // previous row M, columns 0..Ls
-  int* pI = pM + S;     // previous row I
-  int* pD = pI + S;     // previous row D
-  int* pEM = pD + S;    // previous row M-run length
-  int* pSM = pEM + S;   // previous row M-run source pointer
-  int* sY = pSM + S;    // this row's scan of A[h] + ext*h
-  int* sAM = sY + S;    // this row's M - open
-  int* sAI = sAM + S;   // this row's I - open
-  int* sDr = sAI + S;   // this row's D (before the freeze)
-
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int c = t + 1;
-  const bool col = c <= Ls;
-  const int ql = qlen[b];
-  const int sl = slen[b];
-  const int s_ch = col ? subject[(size_t)b * Ls + t] : 0;
-  const int8_t* qrow = query + (size_t)b * Lq;
-
-  int m_p = kNeg, i_p = kNeg;
-  int d_p = free_start2 ? 0 : -open_gap - ext_gap * (c - 1);
-  int em_p = 0, ei_p = 0, sm_p = 0, si_p = 0;
-  // free_end1: running best M[r][sl] of the thread of column sl, as in
-  // the warp kernel
-  int best = sl == 0 ? 0 : kNeg;
-  int brow = sl == 0 ? 0 : Lq;
-  if (col) {
-    pM[c] = m_p; pI[c] = i_p; pD[c] = d_p; pEM[c] = 0; pSM[c] = 0;
-  }
-  if (t == 0) {
-    pM[0] = 0; pI[0] = 0; pD[0] = 0; pEM[0] = 0; pSM[0] = 0;
-  }
-  __syncthreads();
-
-  for (int r = 1; r <= Lq; ++r) {
-    const int q = qrow[r - 1];
-    const bool active = r <= ql;
-    // column 0 of row r
-    const int i0n = kFreeStart1 ? 0 : -open_gap - ext_gap * (r - 1);
-    const int am0 = kNeg - open_gap;
-    const int ai0 = i0n - open_gap;
-    const int a0 = max(am0, ai0);
-
-    int m_row = kNeg, i_row = kNeg, em_row = 0, sm_row = 0;
-    int ei_row = 0, si_row = 0, y = INT_MIN;
-    if (col) {
-      const int sub = s_ch == q ? match : -mismatch;
-      const int mpd = pM[c - 1], ipd = pI[c - 1], dpd = pD[c - 1];
-      m_row = max(max(mpd, ipd), dpd) + sub;
-      const int mp = mpd >= max(ipd, dpd) ? 0 : (ipd >= dpd ? 1 : 2);
-      em_row = min(1 + (mp == 0 ? pEM[c - 1] : 0), 255);
-      sm_row = mp != 0 ? mp : pSM[c - 1];
-      const int cm = m_p - open_gap, ci = i_p - ext_gap, cd = d_p - open_gap;
-      i_row = max(max(cm, ci), cd);
-      const int ip = cm >= max(ci, cd) ? 0 : (ci >= cd ? 1 : 2);
-      ei_row = min(1 + (ip == 1 ? ei_p : 0), 255);
-      si_row = ip != 1 ? ip : si_p;
-      const int am = m_row - open_gap, ai = i_row - open_gap;
-      sAM[c] = am;
-      sAI[c] = ai;
-      y = max(am, ai) + ext_gap * c;
-    }
-    const int Y = max(block_incl_max(y, warp_tot), a0);
-    if (col) sY[c] = Y;
-    if (t == 0) {
-      sY[0] = a0; sAM[0] = am0; sAI[0] = ai0; sDr[0] = kNeg;
-    }
-    __syncthreads();
-    int d_row = kNeg;
-    if (col) {
-      d_row = sY[c - 1] - ext_gap * (c - 1);
-      sDr[c] = d_row;
-    }
-    __syncthreads();
-    int ov = INT_MIN;
-    if (col) {
-      const int amp = sAM[c - 1], aip = sAI[c - 1];
-      const bool opened = max(amp, aip) >= sDr[c - 1] - ext_gap;
-      const int dp = opened ? (amp >= aip ? 0 : 1) : 2;
-      ov = dp != 2 ? c * 4 + dp : -1;
-    }
-    const int orun = max(block_incl_max(ov, warp_tot), 0);  // column 0: 0
-    if (!active) {
-      m_row = m_p; i_row = i_p; d_row = d_p;
-      em_row = em_p; ei_row = ei_p; sm_row = sm_p; si_row = si_p;
-    }
-    if (col) {
-      const unsigned sd = orun & 3;
-      const unsigned ed = min(c - (orun >> 2) + 1, 255);
-      const unsigned w = (unsigned)sm_row | ((unsigned)si_row << 2) |
-                         (sd << 4) | ((unsigned)em_row << 8) |
-                         ((unsigned)ei_row << 16) | (ed << 24);
-      plane[((size_t)(r - 1) * B + b) * Ls + t] = (int)w;
-      pM[c] = m_row; pI[c] = i_row; pD[c] = d_row;
-      pEM[c] = em_row; pSM[c] = sm_row;
-    }
-    if (t == 0 && active) {
-      pM[0] = kNeg; pI[0] = i0n; pD[0] = kNeg;
-    }
-    if (kFreeEnd1 && active && c == sl && m_row >= best) {
-      best = m_row;
-      brow = r;
-    }
-    m_p = m_row; i_p = i_row; d_p = d_row;
-    em_p = em_row; ei_p = ei_row; sm_p = sm_row; si_p = si_row;
-    __syncthreads();
-  }
-
-  if (kFreeEnd1) {
-    if (c == sl || (sl == 0 && t == 0)) {
-      score_out[b] = best;
-      endi_out[b] = brow;
-      endj_out[b] = sl;
-      startk_out[b] = 0;
-    }
-    return;
-  }
-  if (free_end2) {
-    // best M over columns 0..Ls, as in the warp kernel
-    constexpr long long kCol = 1LL << 32;
-    long long key = LLONG_MIN;
-    if (col) key = (long long)(c <= sl ? pM[c] : kNeg) * kCol + c;
-    if (t == 0) {
-      const long long k0 = (long long)pM[0] * kCol;  // column 0 <= slen
-      key = key > k0 ? key : k0;
-    }
-    key = warp_max64(key);
-    if ((t & 31) == 0) warp_best[t >> 5] = key;
-    __syncthreads();
-    if (t == 0) {
-      long long best = warp_best[0];
-      for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
-        best = warp_best[w] > best ? warp_best[w] : best;
-      const int ej = (int)(best & 0xffffffffLL);
-      score_out[b] = (int)((best - ej) / kCol);
-      endj_out[b] = ej;
-      startk_out[b] = 0;
-    }
-  } else if (t == 0) {
-    const int sc = min(max(sl, 0), Ls);  // callers keep slen <= Ls
-    const int mc = pM[sc], ic = pI[sc], dc = pD[sc];
-    int score = mc, sk = 0;
-    if (ic > mc) { score = ic; sk = 1; }
-    if (dc > score) score = dc;
-    if (dc > max(mc, ic)) sk = 2;
-    score_out[b] = score;
-    endj_out[b] = sl;
-    startk_out[b] = sk;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// wide kernel (Ls > 1024): contiguous columns per thread, state in scratch
 
 // scratch fields of an owned column: committed previous-row state (M, I,
 // D, CW = the run carries cwm | cwi), then this row's values between
@@ -788,6 +775,8 @@ __global__ void __launch_bounds__(1024) gotoh_forward_wide_kernel(
 #undef ST
 }
 
+#undef GOTOH_FWD
+#undef GOTOH_PARAMS
 #define GOTOH_ARGS                                                          \
   (const int8_t*)query, (const int*)qlen, (const int8_t*)subject,           \
       (const int*)slen, (int*)plane, (int*)score, (int*)end_i, (int*)end_j, \
@@ -802,10 +791,13 @@ __global__ void __launch_bounds__(1024) gotoh_forward_wide_kernel(
 
 }  // namespace
 
-// Launches the warp-per-alignment kernel for Ls <= 256, the
-// block-per-alignment kernel for 256 < Ls <= 1024 and the wide kernel
-// above; `kernel` 1 asks for the block kernel at any Ls <= 1024 and 2 for
-// the wide kernel at any Ls (to check and time them at narrow shapes).
+// Launches the warp-per-alignment kernel for Ls <= 256, the seg kernel for
+// 256 < Ls <= kSegMaxLs and the wide kernel above; `kernel` 1 asks for the
+// seg kernel at any Ls <= kSegMaxLs and 2 for the wide kernel at any Ls
+// (to check them at narrow shapes).  The seg kernel takes the fewest warps
+// of at most kMaxLaneCols columns a lane (kSegEnd1LaneCols with
+// free_end1), then the fewest columns a lane, at least kSegMinLaneCols
+// (kernels/pairwise_cuda.py:seg_layout).
 // `scratch` holds B * 8 * C * threads ints for the wide kernel, with C =
 // ceil(Ls/1024) and threads = ceil(ceil(Ls/C)/32)*32
 // (kernels/pairwise_cuda.py:wide_layout); the others ignore it.  The four
@@ -819,10 +811,10 @@ extern "C" int gotoh_forward_launch(
     int free_start2, int free_end2, int kernel, void* scratch,
     void* stream_ptr) {
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  if (Ls < 1 || (kernel == 1 && Ls > 1024)) return (int)cudaErrorInvalidValue;
+  if (Ls < 1 || (kernel == 1 && Ls > kSegMaxLs)) return (int)cudaErrorInvalidValue;
   if (free_end1 && free_end2) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (kernel == 2 || (kernel == 0 && Ls > 1024)) {
+  if (kernel == 2 || (kernel == 0 && Ls > kSegMaxLs)) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     const int C = (Ls + 1023) / 1024;
     const int threads = (((Ls + C - 1) / C + 31) / 32) * 32;
@@ -834,12 +826,26 @@ extern "C" int gotoh_forward_launch(
     return (int)cudaGetLastError();
   }
   if (kernel == 1 || Ls > 32 * kMaxLaneCols) {
-    const int threads = ((Ls + 31) / 32) * 32;
-    const size_t shmem = (size_t)9 * (Ls + 1) * sizeof(int);
-#define GOTOH_BLOCK(FS1, FE1) \
-  gotoh_forward_block_kernel<FS1, FE1><<<B, threads, shmem, stream>>>(GOTOH_ARGS)
-    GOTOH_BY_QUERY_ENDS(GOTOH_BLOCK)
-#undef GOTOH_BLOCK
+    const int most = free_end1 ? kSegEnd1LaneCols : kMaxLaneCols;
+    const int nw = (Ls + 32 * most - 1) / (32 * most);
+    const int lane_cols = max(kSegMinLaneCols, (Ls + 32 * nw - 1) / (32 * nw));
+#define GOTOH_SEG(FS1, FE1) \
+  return (int)launch_seg<KK, FS1, FE1>(nw, stream, GOTOH_ARGS)
+#define GOTOH_SEG_CASE(K)                                                   \
+  case K: {                                                                 \
+    constexpr int KK = K;                                                   \
+    GOTOH_BY_QUERY_ENDS(GOTOH_SEG)                                          \
+    break;                                                                  \
+  }
+    switch (lane_cols) {
+      GOTOH_SEG_CASE(4)
+      GOTOH_SEG_CASE(5)
+      GOTOH_SEG_CASE(6)
+      GOTOH_SEG_CASE(7)
+      GOTOH_SEG_CASE(8)
+    }
+#undef GOTOH_SEG_CASE
+#undef GOTOH_SEG
     return (int)cudaGetLastError();
   }
   const int blocks = (B + kWarps - 1) / kWarps;

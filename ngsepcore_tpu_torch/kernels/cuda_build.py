@@ -40,7 +40,7 @@ _SIGNATURES = {
         _I, _I, _I,  # B, Lq, Ls
         _I, _I, _I, _I,  # match, mismatch, open_gap, ext_gap
         _I, _I, _I, _I,  # free_start1, free_end1, free_start2, free_end2
-        _I,  # kernel: 0 by shape, 1 block, 2 wide
+        _I,  # kernel: 0 by shape, 1 seg, 2 wide
         _P,  # scratch of the wide kernel
         _P,  # stream
     ],

@@ -39,15 +39,27 @@ CUDA design (csrc/gotoh_forward.cu), three kernels picked by Ls:
                 no shared state in the row loop; the row leaves through a
                 per-warp shared tile as whole 128-byte lines.  Rows past
                 qlen are warp-uniform.
-    Ls <= 1024  one block per alignment, one thread per column, previous
-                row and scans in shared memory with block barriers (the
-                port's first kernel); reached by shape only.
-    Ls > 1024   the WIDE kernel: one block per alignment, a thread owning
+    Ls <= SEG_MAX_LS (3,584)
+                the SEG kernel: the warp kernel's row split over the W =
+                ceil(Ls/256) warps of one block (ceil(Ls/224) with a free
+                query end), K = ceil(Ls/(32W)) columns a lane
+                (seg_layout), state in registers, no global scratch.
+                Between neighbouring warps only four ints cross a row (the
+                y and D-run prefixes over every column to the left, the
+                last column's diagonal hand-off), through a shared ring of
+                8 rows with release/acquire flags, so warp w works on row r
+                while warp w-1 is already ahead: no block barrier in the
+                row loop.  Like the warp kernel it is bound by INT32 issue;
+                SEG_MAX_LS is the widest row whose 16 warps a block fit
+                the register file (128 a thread) without spills in every
+                configuration.
+    Ls > SEG_MAX_LS
+                the WIDE kernel: one block per alignment, a thread owning
                 C = ceil(Ls/1024) contiguous columns, their state in a
                 global scratch of 8 ints a column (the wrapper allocates
-                B x 8 x C x threads ints); the block kernel's barriers with
-                the warp kernel's blocked max-scans.  No width limit short
-                of the plane's size.
+                B x 8 x C x threads ints); block barriers with the warp
+                kernel's blocked max-scans.  No width limit short of the
+                plane's size.
 
 The plane is (Lq, B, Ls) int32: 1.34 GB at the tier-2 chunk of 256 rows,
 Lq 160 and Ls 8,192, so a caller with long subjects bounds its rows
@@ -72,19 +84,29 @@ from .cuda_build import check, library
 NEG = -(10**7)  # "banned" score
 FREE_END_FLAGS = ("free_start1", "free_end1", "free_start2", "free_end2")
 # widest subject of the warp-per-alignment kernel (32 lanes x kMaxLaneCols
-# of csrc/gotoh_forward.cu); wider ones take the block-per-alignment kernel
+# of csrc/gotoh_forward.cu); wider ones take the seg kernel
 WARP_KERNEL_MAX_LS = 256
-# widest subject of the block-per-alignment kernel (a thread a column);
-# wider ones take the wide kernel
-BLOCK_KERNEL_MAX_LS = 1024
-_KERNEL_CODES = {None: 0, "block": 1, "wide": 2}
+# widest subject of the seg kernel (kSegMaxLs: 16 warps of 7 columns a
+# lane, the most a free query end takes); wider ones take the wide kernel
+SEG_MAX_LS = 3584
+_KERNEL_CODES = {None: 0, "seg": 1, "wide": 2}
 WIDE_FIELDS = 8  # scratch ints an owned column of the wide kernel
+WIDE_THREADS = 1024  # the wide kernel's most threads a block
+
+
+def seg_layout(Ls: int, free_end1: bool = False) -> tuple[int, int]:
+    """(columns a lane K, warps W) of the seg kernel at Ls, as
+    gotoh_forward_launch computes them: the fewest warps of at most 8
+    columns a lane (7 with a free query end, whose 8-column variants spill
+    registers), then the fewest columns a lane, at least 4."""
+    W = -(-Ls // (32 * (7 if free_end1 else 8)))
+    return max(4, -(-Ls // (32 * W))), W
 
 
 def wide_layout(Ls: int) -> tuple[int, int]:
     """(columns a thread C, threads a block) of the wide kernel at Ls, as
     gotoh_forward_launch computes them."""
-    C = -(-Ls // BLOCK_KERNEL_MAX_LS)
+    C = -(-Ls // WIDE_THREADS)
     return C, -(-(-(-Ls // C)) // 32) * 32
 
 
@@ -92,7 +114,7 @@ def kernel_for(Ls: int) -> str:
     """The kernel gotoh_forward_plane launches at subject width Ls."""
     if Ls <= WARP_KERNEL_MAX_LS:
         return "warp"
-    return "block" if Ls <= BLOCK_KERNEL_MAX_LS else "wide"
+    return "seg" if Ls <= SEG_MAX_LS else "wide"
 
 
 def gotoh_forward_plane_ref(
@@ -259,14 +281,14 @@ def _check_args(query, qlen, subject, slen, free_end1, free_end2):
 
 def _launch(query, qlen, subject, slen, cfg, kernel: str | None):
     """Launch csrc/gotoh_forward.cu on checked CUDA tensors (kernel by Ls,
-    or the "block" or "wide" kernel when asked) or raise."""
+    or the "seg" or "wide" kernel when asked) or raise."""
     dev = query.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     B, Lq = query.shape
     Ls = subject.shape[1]
-    if kernel == "block" and Ls > BLOCK_KERNEL_MAX_LS:
-        raise ValueError(f"the block kernel takes Ls <= 1024, got {Ls}")
+    if kernel == "seg" and Ls > SEG_MAX_LS:
+        raise ValueError(f"the seg kernel takes Ls <= {SEG_MAX_LS}, got {Ls}")
     name = kernel or kernel_for(Ls)
     query = query.contiguous()
     subject = subject.contiguous()
@@ -323,8 +345,8 @@ def gotoh_forward_plane(
     CPU tensors run the plain version.  CUDA tensors launch a CUDA kernel
     (every free-end configuration: free subject ends for the tier-3 aligner,
     free query ends for the tier-2 STR flanks) or raise: the
-    warp-per-alignment kernel for Ls <= 256, the block-per-alignment kernel
-    up to 1024, the wide kernel above, a dispatch on the shape alone."""
+    warp-per-alignment kernel for Ls <= 256, the seg kernel up to
+    SEG_MAX_LS, the wide kernel above, a dispatch on the shape alone."""
     cfg = dict(
         match=match, mismatch=mismatch, open_gap=open_gap, ext_gap=ext_gap,
         free_start1=free_start1, free_end1=free_end1,
@@ -338,7 +360,7 @@ def gotoh_forward_plane(
 
 gotoh_forward_plane.launches = 0  # launches of any of the kernels
 # the same launches by ((free_start1, free_end1, free_start2, free_end2), B,
-# Lq, Ls, "warp", "block" or "wide"): what a path asked of which kernel
+# Lq, Ls, "warp", "seg" or "wide"): what a path asked of which kernel
 gotoh_forward_plane.launch_shapes = Counter()
 
 
@@ -350,11 +372,12 @@ def _forced(kernel, query, qlen, subject, slen, **cfg):
     return _launch(query, qlen, subject, slen, cfg, kernel=kernel)
 
 
-def gotoh_forward_plane_block(query, qlen, subject, slen, **cfg):
-    """The block-per-alignment kernel at any Ls <= 1024, CUDA tensors only:
-    lets a check or a timing reach it at shapes that gotoh_forward_plane
-    gives to the warp kernel.  Same keywords as gotoh_forward_plane."""
-    return _forced("block", query, qlen, subject, slen, **cfg)
+def gotoh_forward_plane_seg(query, qlen, subject, slen, **cfg):
+    """The seg kernel at any Ls <= SEG_MAX_LS, CUDA tensors only: lets a
+    check reach it at shapes that gotoh_forward_plane gives to the warp
+    kernel (seg_layout: one or two warps, 4-8 columns a lane).  Same
+    keywords as gotoh_forward_plane."""
+    return _forced("seg", query, qlen, subject, slen, **cfg)
 
 
 def gotoh_forward_plane_wide(query, qlen, subject, slen, **cfg):

@@ -15,8 +15,11 @@ from ngsepcore_tpu.kernels import pairwise as jpw
 from ngsepcore_tpu.kernels.pairwise_pallas import gotoh_forward_plane_pallas
 from ngsepcore_tpu_torch.kernels import pairwise as tpw
 from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
+    SEG_MAX_LS,
     gotoh_forward_plane,
     gotoh_forward_plane_ref,
+    kernel_for,
+    seg_layout,
     wide_layout,
 )
 
@@ -714,6 +717,245 @@ def test_wide_kernel_decomposition_reproduces_plain_plane(B, Lq, Ls, cfg):
     assert torch.equal(got[2], want[3])
     assert torch.equal(got[3], want[4])
     assert torch.equal(got[4], want[2])
+
+
+# ---------------------------------------------------------------------------
+# the seg kernel (256 < Ls <= SEG_MAX_LS): the warp kernel's row split over
+# W warps, pipelined along the rows
+
+def _diag_out(m, i, d, cwm):
+    """csrc/gotoh_forward.cu:diag_out: max(M, I, D) and the diagonal
+    successor's M fields."""
+    i_ge_d = i >= d
+    mx = torch.maximum(i, d)
+    grown = torch.minimum(cwm + 0x100, cwm | 0xFF00)
+    alt = torch.where(i_ge_d, 0x101, 0x102)
+    return torch.maximum(m, mx), torch.where(m >= mx, grown, alt).to(torch.int32)
+
+
+def _warp_scan_max(v):
+    """csrc/gotoh_forward.cu:warp_scan_max on (B, 32): inclusive max over
+    the lanes, __shfl_up_sync handing the low lanes their own value back."""
+    for o in (1, 2, 4, 8, 16):
+        v = torch.maximum(v, _shfl_up(v, o))
+    return v
+
+
+def _excl_from_incl(incl, seed):
+    """csrc/gotoh_forward.cu:excl_from_incl: lane l gets max(seed,
+    incl[l-1]), lane 0 the seed."""
+    out = torch.maximum(_shfl_up(incl, 1), seed[:, None])
+    out[:, 0] = seed
+    return out
+
+
+def _seg_kernel_model(q, ql, s, sl, *, K=None, W=None, match=1, mismatch=1,
+                      open_gap=3, ext_gap=1, free_start1=False, free_end1=False,
+                      free_start2=True, free_end2=True):
+    """gotoh_forward_seg_kernel<K, kFreeStart1, kFreeEnd1> of
+    csrc/gotoh_forward.cu on (B, 32, K) tensors a warp: warp w owns columns
+    w*32K+1 .. (w+1)*32K, lane l of it K contiguous ones (seg_layout, or
+    the K and W given).  A warp computes row r from its own registers, the
+    query code and warp w-1's message for row r, read before the row: the
+    inclusive maxima of y and of the packed D-run source z over every
+    column to its left (seeded by column 0's a0 and max(z0, 0)), written
+    after warp w-1's row r, and the diagonal hand-off (hd, mw) of warp
+    w-1's last column, written after its row r-1 (row 1's: that column's
+    initial state).  It runs in skewed order, step t taking warp w on row
+    t - w and the warps from the last to the first, so no message is read
+    in the step that wrote it; a ring of RING rows a boundary bounds the
+    rows in flight.  Returns (plane, score, end_j, start_k, end_i)."""
+    i32 = torch.int32
+    B, Lq = q.shape
+    Ls = s.shape[1]
+    if K is None:
+        K, W = seg_layout(Ls, free_end1)
+    n = 32 * K
+    NEG = -(10**7)
+    RING = 8
+    sl = sl.to(i32)
+    s_all = torch.zeros((B, W * n), dtype=i32)
+    s_all[:, :Ls] = s.to(i32)
+    plane = torch.empty((Lq, B, W * n), dtype=i32)
+    warps = []
+    for w in range(W):
+        c = torch.arange(w * n + 1, (w + 1) * n + 1, dtype=i32).reshape(1, 32, K)
+        st = dict(c=c, s_ch=s_all[:, w * n:(w + 1) * n].reshape(B, 32, K),
+                  m=torch.full((B, 32, K), NEG, dtype=i32),
+                  i=torch.full((B, 32, K), NEG, dtype=i32),
+                  d=(torch.zeros((B, 32, K), dtype=i32) if free_start2 else
+                     (-open_gap - ext_gap * (c - 1)).expand(B, 32, K).to(i32)),
+                  cwm=torch.zeros((B, 32, K), dtype=i32),
+                  cwi=torch.zeros((B, 32, K), dtype=i32))
+        if w == 0:
+            st["m0"] = st["i0"] = st["d0"] = torch.zeros(B, dtype=i32)
+        warps.append(st)
+    prefixes, hand = {}, {}  # (receiving warp, row): the two halves of a message
+    for w in range(1, W):  # row 1's hand-off: column w*32K's initial state
+        d_cb = 0 if free_start2 else -open_gap - ext_gap * (w * n - 1)
+        full = lambda v: torch.full((B,), v, dtype=i32)
+        hand[w, 1] = _diag_out(full(NEG), full(NEG), full(d_cb), full(0))
+    best = torch.where(sl == 0, 0, NEG).to(i32)
+    brow = torch.where(sl == 0, 0, Lq).to(i32)
+
+    def row(w, r):
+        st = warps[w]
+        c, m, i, d, cwm, cwi = (st[k] for k in ("c", "m", "i", "d", "cwm", "cwi"))
+        qc = q[:, r - 1].to(i32)[:, None, None]
+        active = (r <= ql)[:, None, None]
+        i0n = 0 if free_start1 else -open_gap - ext_gap * (r - 1)
+        am0 = NEG - open_gap
+        ai0 = i0n - open_gap
+        a0 = max(am0, ai0)
+        if w > 0:
+            yseed, zseed = prefixes.pop((w, r))
+            hd0, mw0 = hand.pop((w, r))
+        else:
+            hd0, mw0 = _diag_out(st["m0"], st["i0"], st["d0"], torch.zeros(B, dtype=i32))
+        hd, mw = _diag_out(m, i, d, cwm)
+        shift = lambda x, x0: torch.cat([x0[:, None], x.reshape(B, n)[:, :-1]],
+                                        dim=1).reshape(B, 32, K)
+        hd_in, mw_in = shift(hd, hd0), shift(mw, mw0)
+        m_row = hd_in + torch.where(st["s_ch"] == qc, match, -mismatch).to(i32)
+        cm, ci, cd = m - open_gap, i - ext_gap, d - open_gap
+        ci_ge_cd = ci >= cd
+        mx = torch.maximum(ci, cd)
+        cm_ge = cm >= mx
+        i_row = torch.maximum(cm, mx)
+        grown = torch.minimum(cwi + 0x10000, cwi | 0xFF0000)
+        cwi_row = torch.where(cm_ge, 0x10000, torch.where(ci_ge_cd, grown, 0x10008)).to(i32)
+        m_ge_i = m_row >= i_row
+        y = torch.maximum(m_row, i_row) - open_gap + ext_gap * c
+        run = torch.cummax(y, dim=2).values
+        yincl = _warp_scan_max(run[:, :, K - 1])
+        z0 = (4 + (0 if am0 >= ai0 else 1)) if a0 >= NEG - ext_gap else -1
+        if w == 0:
+            yseed = torch.full((B,), a0, dtype=i32)
+            zseed = torch.full((B,), max(z0, 0), dtype=i32)
+        pre = _excl_from_incl(yincl, yseed)[:, :, None]
+        left = torch.cat([pre, torch.maximum(pre, run[:, :, :-1])], dim=2)
+        d_row = left - ext_gap * (c - 1)
+        z = torch.where(y >= left, (c + 1) * 4 + torch.where(m_ge_i, 0, 1), -1).to(i32)
+        zrun = torch.cummax(z, dim=2).values
+        zincl = _warp_scan_max(zrun[:, :, K - 1])
+        zpre = _excl_from_incl(zincl, zseed)[:, :, None]
+        st["m"] = m = torch.where(active, m_row, m)
+        st["i"] = i = torch.where(active, i_row, i)
+        st["d"] = d = torch.where(active, d_row, d)
+        st["cwm"] = cwm = torch.where(active, mw_in, cwm)
+        st["cwi"] = cwi = torch.where(active, cwi_row, cwi)
+        if w == 0:
+            act = active[:, 0, 0]
+            st["m0"] = torch.where(act, NEG, st["m0"]).to(i32)
+            st["i0"] = torch.where(act, i0n, st["i0"]).to(i32)
+            st["d0"] = torch.where(act, NEG, st["d0"]).to(i32)
+        if w + 1 < W:  # lane 31: row r's prefixes, row r+1's hand-off
+            prefixes[w + 1, r] = (torch.maximum(yseed, yincl[:, 31]),
+                                  torch.maximum(zseed, zincl[:, 31]))
+            hand[w + 1, r + 1] = _diag_out(m[:, 31, K - 1], i[:, 31, K - 1],
+                                           d[:, 31, K - 1], cwm[:, 31, K - 1])
+            assert sum(key[0] == w + 1 for key in hand) <= RING
+        orun = torch.cat([zpre, torch.maximum(zpre, zrun[:, :, :-1])], dim=2)
+        sd = orun & 3
+        ed = torch.clamp(c - (orun >> 2) + 1, max=255)
+        plane[r - 1, :, w * n:(w + 1) * n] = (cwm | cwi | (sd << 4) | (ed << 24)).reshape(B, n)
+        return m.reshape(B, n), active[:, 0, 0]
+
+    for t in range(1, Lq + W):
+        for w in reversed(range(W)):
+            r = t - w
+            if not 1 <= r <= Lq:
+                continue
+            m_seg, act = row(w, r)
+            if free_end1:  # the lane that owns column slen
+                own = sl - w * n - 1
+                mine = (own >= 0) & (own < n)
+                at = m_seg.gather(1, own.clamp(0, n - 1).long()[:, None])[:, 0]
+                upd = mine & act & (at >= best)
+                best = torch.where(upd, at, best)
+                brow = torch.where(upd, r, brow).to(i32)
+    assert not prefixes and all(r == Lq + 1 for _, r in hand)
+
+    plane = plane[:, :, :Ls]
+    m, i, d = (torch.cat([st[k].reshape(B, n) for st in warps], dim=1) for k in "mid")
+    m0, i0, d0 = warps[0]["m0"], warps[0]["i0"], warps[0]["d0"]
+    zeros = torch.zeros(B, dtype=i32)
+    if free_end1:
+        return plane, best, sl, zeros, brow
+    c = torch.arange(1, W * n + 1)[None, :]
+    if free_end2:
+        key = torch.where(c <= sl[:, None], m, NEG).long() * (1 << 32) + c
+        key = torch.maximum(key[:, :Ls].amax(dim=1), m0.long() * (1 << 32))
+        end_j = key & 0xFFFFFFFF
+        return plane, ((key - end_j) // (1 << 32)).to(i32), end_j.to(i32), zeros, ql.to(i32)
+    sc = sl.clamp(0, Ls).long()[:, None]
+    pick = lambda x, x0: torch.cat([x0[:, None], x], dim=1).gather(1, sc)[:, 0]
+    mc, ic, dc = pick(m, m0), pick(i, i0), pick(d, d0)
+    score = torch.where(ic > mc, ic, mc)
+    sk = torch.where(ic > mc, 1, 0)
+    score = torch.where(dc > score, dc, score)
+    sk = torch.where(dc > torch.maximum(mc, ic), 2, sk)
+    return plane, score, sl, sk.to(i32), ql.to(i32)
+
+
+@pytest.mark.parametrize("cfg", _WIDE_CFGS, ids=_WIDE_CFG_IDS)
+@pytest.mark.parametrize(
+    "B,Lq,Ls,layout",
+    [(4, 24, 257, (8, 2)), (4, 20, 288, None), (4, 20, 384, None), (4, 16, 512, None),
+     (4, 12, 1024, (4, 8)), (4, 12, 1664, None), (4, 300, 300, None)],
+    ids=["Ls257-last-warp-one-column", "Ls288", "Ls384-K6", "Ls512", "Ls1024-K4-W8",
+         "Ls1664", "saturating-runs"],
+)
+def test_seg_kernel_decomposition_reproduces_plain_plane(B, Lq, Ls, layout, cfg):
+    """Full plane and final vectors of the seg kernel's model against the
+    plain version, in skewed order: ragged qlen with qlen 0, N runs, slen
+    0, runs past 255."""
+    rng = np.random.default_rng(B * 11 + Lq + Ls)
+    q, ql, s, sl = _noisy(rng, B, Lq, Ls)
+    if Lq >= 300:  # M and I runs longer than the 8-bit saturation
+        q[0] = 1
+        s[0] = 1
+        ql[0], sl[0] = Lq, Ls
+        q[1] = 4
+        ql[1] = Lq
+    ql[-1] = 0
+    sl[-2] = 0
+    q[2, Lq // 2 :] = 4
+    s[2, Ls // 2 :] = 4
+    K, W = layout or seg_layout(Ls, cfg.get("free_end1", False))
+    want = gotoh_forward_plane_ref(T(q), T(ql), T(s), T(sl), **cfg)
+    got = _seg_kernel_model(T(q), T(ql), T(s), T(sl), K=K, W=W, **cfg)
+    if Lq >= 300:
+        assert int(((want[0] >> 8) & 255).max()) == 255
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[3])
+    assert torch.equal(got[3], want[4])
+    assert torch.equal(got[4], want[2])
+
+
+def test_kernel_choice_at_the_width_boundaries():
+    """kernel_for and seg_layout where the kernels meet: the warp kernel up
+    to 256 columns, the seg kernel (the fewest warps of at most 8 columns a
+    lane, 7 with a free query end, then the fewest columns a lane) up to
+    SEG_MAX_LS, the wide kernel above."""
+    assert SEG_MAX_LS >= 2048
+    assert [kernel_for(Ls) for Ls in (1, 256, 257, SEG_MAX_LS, SEG_MAX_LS + 1)] == [
+        "warp", "warp", "seg", "seg", "wide"]
+    assert seg_layout(257) == (5, 2)
+    assert seg_layout(384) == (6, 2)
+    assert seg_layout(512) == (8, 2)
+    assert seg_layout(1664) == (8, 7)
+    assert seg_layout(512, free_end1=True) == (6, 3)
+    assert seg_layout(1664, free_end1=True) == (7, 8)
+    assert seg_layout(SEG_MAX_LS, free_end1=True) == (7, 16)  # 16 warps a block
+    for free_end1, most in ((False, 8), (True, 7)):
+        for Ls in range(1, SEG_MAX_LS + 1):
+            K, W = seg_layout(Ls, free_end1)
+            assert 4 <= K <= most and W <= 16
+            assert 32 * K * W >= Ls  # every column owned
+            assert 32 * K * (W - 1) < Ls  # no warp without a column
+            assert W == -(-Ls // (32 * most))
 
 
 @pytest.mark.parametrize("cfg", _CFGS, ids=_CFG_IDS)
