@@ -32,10 +32,16 @@ commands.  Phase 13 calls 3 individuals of phase 5's genome jointly (6x
 each, 552,000 reads) and runs the four CNV algorithms on the one that
 carries a 20 kb duplication and a 10 kb deletion, with accuracy gates.
 The long-read path follows.  Phase 2c holds the run-jump walk kernel
-(csrc/run_walk.cu, behind every Gotoh launch) against the plain walk on
-Gotoh planes of every path's shapes and of the edges (tier 2's budget,
-saturated runs, exhausted budgets, empty queries, a plane past 2^31
-cells) and times it in CUDA graphs; phase 14 runs LongReadsAligner and
+(csrc/run_walk.cu, behind every Gotoh launch) in its three modes against
+the plain composites (runs: the plain walk; tier3: the plain walk then
+dp_stats_runs; hamming: then dp_stats_runs_hamming) on Gotoh planes of
+every path's shapes and of the edges (tier 2's budget, saturated runs,
+exhausted budgets, empty queries, a plane past 2^31 cells) and on
+synthetic planes for the left-alignment's edges, and times each path's
+mode in CUDA graphs beside what it replaces; the main-path phases fail
+unless every walk launch took the path's mode, one a Gotoh launch, and
+phases 4, 6 and 14 run their CUDA side with the plain walk and
+post-passes made to raise; phase 14 runs LongReadsAligner and
 the long-read SV caller at 60 kb on CUDA against the CPU, in process and
 through the CLI (ReadsAligner -p PACBIO, SingleSampleVariantsDetector
 -runLongReadSVs), with a planted insertion and deletion to find; phase
@@ -212,16 +218,67 @@ def viterbi_bound(T: int, S: int):
 L2_HIT_CYCLES = 260
 
 
-def walk_bound(B: int, R: int, loads):
-    """(bound_ms, bound_by) of the walk over B alignments with budget R:
-    bytes are the three (B,) int32 inputs, the plane words the walk reads
-    (`loads`, per row, from walk_loads), the (B, R) int32 rop and rlen and
-    the four (B,) outputs; the chain is the longest row's loads at one L2
-    hit each ("operations": dependent instructions, as for the Viterbi)."""
+def walk_bound(B: int, R: int, loads, mode: str = "runs", code_reads: int = 0):
+    """(bound_ms, bound_by) of the walk kernel in `mode` over B alignments
+    with budget R.  Bytes: the plane words the walk reads (`loads`, per
+    row, from walk_loads) and, by mode, "runs": three (B,) int32 inputs,
+    the (B, R) int32 rop and rlen and four (B,) outputs (13 bytes a row);
+    "tier3": four (B,) int32 inputs (score too), the codes that the
+    left-alignment's backward compare reads (`code_reads`, from
+    walk_code_reads), the (B, R) int16 rle and six (B,) outputs (18 bytes
+    a row); "hamming": four (B,) int32 inputs, the rle and four (B,)
+    outputs (13 bytes a row).  The chain is the longest row's loads at one
+    L2 hit each ("operations": dependent instructions, as for the
+    Viterbi)."""
     n_loads = int(loads.sum())
-    t_bytes = (12 * B + 4 * n_loads + 8 * B * R + 13 * B) / HBM_BYTES_PER_S * 1e3
+    n_bytes = 4 * n_loads + {
+        "runs": 12 * B + 8 * B * R + 13 * B,
+        "tier3": 16 * B + code_reads + 2 * B * R + 18 * B,
+        "hamming": 16 * B + 2 * B * R + 13 * B,
+    }[mode]
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_chain = int(loads.max(initial=0)) * L2_HIT_CYCLES / SM_CLOCK_HZ * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "operations")
+
+
+def walk_code_reads(runs, query, subject) -> int:
+    """Query and subject codes that the tier-3 epilogue's backward compare
+    reads over the merged runs `runs` (the runs mode's output for the same
+    walk), as csrc/run_walk.cu's pass over the slots takes them: for a gap
+    run of length l (1..LA_LMAX) after an M run, the compare of the codes
+    at u and u + l from u = pos down, until a pair differs, min(lens[t-1],
+    p) pairs are equal, or u leaves the row; c compares read c + min(c, l)
+    distinct codes.  The data-dependent bytes of the tier-3 mode."""
+    la_lmax = 16  # kernels/pairwise.LA_LMAX
+    rop, rlen = runs["rop"].tolist(), runs["rlen"].tolist()
+    n_runs, start_j = runs["n_runs"].tolist(), runs["start_j"].tolist()
+    qs, ss = query.tolist(), subject.tolist()
+    Lq, Ls = query.shape[1], subject.shape[1]
+    total = 0
+    for b, n in enumerate(n_runs):
+        ops, lens = rop[b], rlen[b]
+        pq, ps, prev_op, prev_len, carry = 0, start_j[b], 0, 0, 0
+        for t in range(n):
+            op, ln = ops[t], lens[t]
+            k = 0
+            if t >= 1:
+                if op in (2, 3) and prev_op == 1 and 1 <= ln <= la_lmax:
+                    x, L, p = (qs[b], Lq, pq) if op == 2 else (ss[b], Ls, ps)
+                    u, cap, c = min(max(p - 1, 0), L - 1), min(prev_len, p), 0
+                    while k < cap and u >= 0 and u + ln < L:
+                        c += 1
+                        if x[u] != x[u + ln]:
+                            break
+                        k += 1
+                        u -= 1
+                    total += c + min(c, ln)
+                if not (t + 1 < n and ops[t + 1] == 1):
+                    k = 0
+                prev_len -= k
+            pq += ln if op in (1, 2) else 0
+            ps += ln if op in (1, 3) else 0
+            prev_op, prev_len, carry = op, ln + carry, k
+    return total
 
 
 def walk_loads(plane, end_i, end_j, start_k, R):
@@ -274,14 +331,58 @@ def tier2_launches(shapes: dict) -> dict:
 
 def tier2_walk_launches(walk) -> dict:
     """Walk launches of the tier-2 flanks since the last reset_counts, from
-    the walk's own counter: {flank side: n}.  Tier 2 walks with the budget
-    R = Lq + Ls (tier 3 and long reads with Lq // 8 + 8); the left flank's
-    subject start is free, the right flank's is not."""
+    the walk's own counter: {flank side: n}.  Tier 2 walks in the "runs"
+    mode with the budget R = Lq + Ls (tier 3 and long reads take the
+    "tier3" and "hamming" modes); the left flank's subject start is free,
+    the right flank's is not."""
     out = {"left": 0, "right": 0}
-    for (B, Lq, Ls, R, free_start2), n in walk.launch_shapes.items():
-        if R == Lq + Ls:
+    for (mode, B, Lq, Ls, R, free_start2), n in walk.launch_shapes.items():
+        if mode == "runs" and R == Lq + Ls:
             out["left" if free_start2 else "right"] += n
     return out
+
+
+def walk_route(counters, mode: str, where: str) -> None:
+    """Fail unless every walk launch since the last reset_counts took
+    `mode` and there is one a Gotoh launch (counters: gotoh, walk, ...)."""
+    gotoh, walk = counters[0], counters[1]
+    modes = Counter()
+    for key, n in walk.launch_shapes.items():
+        modes[key[0]] += n
+    if set(modes) != {mode} or walk.launches != gotoh.launches:
+        fail(f"{where}: walk launches by mode {dict(modes)} for {gotoh.launches} Gotoh "
+             f"launches; every one should take the {mode} mode")
+
+
+class plain_post_pass_forbidden:
+    """Within it (on `device` "cuda") the plain walk and post-passes raise:
+    a CUDA route that reaches them fails instead of falling back."""
+
+    NAMES = ("_runs_from_plane_ref", "dp_stats_runs", "_left_align_rle",
+             "dp_stats_runs_hamming")
+
+    def __init__(self, device="cuda"):
+        self.names = self.NAMES if device == "cuda" else ()
+
+    def __enter__(self):
+        from ngsepcore_tpu_torch.kernels import pairwise
+
+        def trip(name):
+            def f(*args, **kwargs):
+                raise RuntimeError(f"the CUDA route ran the plain {name}")
+            return f
+
+        self.saved = {n: getattr(pairwise, n) for n in self.names}
+        for n in self.names:
+            setattr(pairwise, n, trip(n))
+        return self
+
+    def __exit__(self, *exc):
+        from ngsepcore_tpu_torch.kernels import pairwise
+
+        for n, f in self.saved.items():
+            setattr(pairwise, n, f)
+        return False
 
 
 def shapes_text(by: Counter) -> str:
@@ -329,9 +430,14 @@ def phase_build():
     cuda_build.library()
     log(f"phase 1 build: {time.perf_counter() - t0:.2f}s -> "
         f"{cuda_build.build_info['path']}")
+    name = ""
     for line in cuda_build.build_info["ptxas"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:  # the kernel's name and its template arguments, still mangled
+            k = re.search(r"([A-Za-z_]+_kernel)((?:I|L[a-z]-?\d+E)*)", m.group(1))
+            name = "".join(k.groups()) if k else m.group(1)[:48]
         if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+            print(f"  ptxas: {name}:", line.strip(), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -672,12 +778,88 @@ def _wide_plane(rng, B, Lq, Ls):
     return plane
 
 
+def _runs_plane(rng, B, Lq, Ls, free_start2):
+    """Synthetic walk inputs for the left-alignment's edges: random forward
+    runs per row (M runs of 1-12 between gaps of 1-20 columns, some of
+    17-30, an I and a D back to back, gaps at either end) put in a plane
+    that the walk turns into them (`pairwise.plane_from_runs`), over
+    codes of a two-letter alphabet with N stretches, N padded.  Returns
+    (plane, score, end_i, end_j, start_k, query, subject) on the card."""
+    import torch
+
+    from ngsepcore_tpu_torch.kernels.pairwise import plane_from_runs
+
+    rows = []
+    q = rng.integers(0, 2, (B, Lq)).astype(np.int8)
+    s = rng.integers(0, 2, (B, Ls)).astype(np.int8)
+    for b in range(B):
+        runs, sj = [], int(rng.integers(0, 6))
+        ni = nj = 0
+        if rng.random() < 0.25:
+            runs.append((1 + int(rng.integers(1, 3)) if not free_start2 else 2,
+                         int(rng.integers(1, 6))))
+        while True:
+            runs.append((1, int(rng.integers(1, 13))))
+            u = rng.random()
+            gaps = [2 + int(rng.integers(0, 2))] if u < 0.8 else [2, 3] if u < 0.9 else []
+            for op in gaps:
+                ln = int(rng.integers(17, 31)) if rng.random() < 0.08 else int(rng.integers(1, 5))
+                runs.append((op, ln))
+            ni = sum(ln for op, ln in runs if op in (1, 2))
+            nj = sj + sum(ln for op, ln in runs if op in (1, 3))
+            if ni > Lq - 80 or nj > Ls - 80 or rng.random() < 0.1:
+                break
+        if rng.random() < 0.7 and runs[-1][0] != 1:
+            runs.append((1, int(rng.integers(1, 13))))
+        ni = sum(ln for op, ln in runs if op in (1, 2))
+        nj = sj + sum(ln for op, ln in runs if op in (1, 3))
+        rows.append((runs, sj))
+        if rng.random() < 0.2:  # an N stretch, and Ns to the end of the row
+            a = int(rng.integers(0, max(1, ni - 8)))
+            q[b, a : a + 8] = 4
+            q[b, ni - 3 :] = 4
+        q[b, ni:] = 4
+        s[b, nj:] = 4
+    plane, end_i, end_j, start_k = plane_from_runs(rows, Lq, Ls)
+    score = torch.from_numpy(rng.integers(-80, 80, B).astype(np.int32))
+    return tuple(x.cuda() for x in (plane, score, end_i, end_j, start_k,
+                                    torch.from_numpy(q), torch.from_numpy(s)))
+
+
+WALK_MODES = ("runs", "tier3", "hamming")
+
+
+def _walk_fns(wargs, q, s):
+    """{mode: the wrapper call} and {mode: the plain post-pass on walk
+    output} for one set of walk arguments."""
+    from ngsepcore_tpu_torch.kernels import pairwise
+
+    fs2 = wargs[7]
+    kernel = {
+        "runs": lambda: pairwise._runs_from_plane(*wargs),
+        "tier3": lambda: pairwise.tier3_walk_stats(*wargs[:7], q, s, free_start2=fs2),
+        "hamming": lambda: pairwise.segment_walk_stats(*wargs),
+    }
+    post = {
+        "runs": lambda out: out,
+        "tier3": lambda out: pairwise.dp_stats_runs(out, q, s),
+        "hamming": pairwise.dp_stats_runs_hamming,
+    }
+    return kernel, post
+
+
 def phase_walk():
-    """The run-jump walk kernel (csrc/run_walk.cu) against the plain walk
-    on the card, every output equal, on planes from the Gotoh kernel at the
-    shapes of phase 2 and of the main paths; the shapes that the main paths
-    launch are timed beside the plain walk and the bound.  One call runs
-    under torch.cuda.set_sync_debug_mode("error"): the kernel's route never
+    """The run-jump walk kernel (csrc/run_walk.cu) in its three modes
+    against the plain composites on the card: "runs" against the plain
+    walk, "tier3" against the plain walk then dp_stats_runs, "hamming"
+    against the plain walk then dp_stats_runs_hamming; every output equal,
+    on planes from the Gotoh kernel at the shapes of phase 2 and of the
+    main paths, and on synthetic planes for the left-alignment's edges.
+    The shapes that the main paths launch are timed in the mode each path
+    takes, beside the bound, the plain composite and what the mode
+    replaces (the walk kernel's runs then the plain post-pass, from Python
+    and in a CUDA graph).  One call of each mode runs under
+    torch.cuda.set_sync_debug_mode("error"): the kernel's route never
     waits for the card.  Returns {case: timing}."""
     import torch
 
@@ -702,6 +884,7 @@ def phase_walk():
     empty[1][::4] = 0
     cases = timed + [
         ("runs past 255, R = Lq + Ls", _saturating(rng, 30, 300, 256), {}, 556),
+        ("runs past 255, tier-3 budget", _saturating(rng, 30, 300, 256), {}, tier3(300)),
         ("budget runs out 256x160x160", _skip_seventh(rng, 256, 160), {}, tier3(160)),
         ("empty query with a free query end", empty, TIER2_LEFT, 160 + 224),
         # tier 2 over a ~1,500 bp STR: R = Lq + Ls
@@ -718,52 +901,109 @@ def phase_walk():
             cases.append((f"{name} {cfg}", data, cfg, tier3(Lq)))
             cases.append((f"{name} {cfg}, R = Lq + Ls", data, cfg, Lq + Ls))
     timed_names = {c[0] for c in timed}
+    path_mode = lambda name: ("tier3" if "tier 3" in name else
+                              "hamming" if name.startswith("long reads") else "runs")
     timing = {}
 
-    def compare(name, plane, score, end_i, end_j, start_k, R, fs2):
-        B = plane.shape[1]
-        got = pairwise._runs_from_plane(plane, score, end_i, end_j, start_k, B, R, fs2)
-        ref = pairwise._runs_from_plane_ref(plane, score, end_i, end_j, start_k, B, R, fs2)
-        bad = {k: int((got[k] != ref[k]).sum()) for k in ref}
-        if any(bad.values()) or any(got[k].dtype != ref[k].dtype for k in ref):
-            fail(f"the walk kernel disagrees with the plain walk on {name}: {bad}")
+    def compare(name, wargs, q, s):
+        """Every mode against its plain composite: {mode: kernel outputs}."""
+        kernel, post = _walk_fns(wargs, q, s)
+        ref = pairwise._runs_from_plane_ref(*wargs)
+        got = {}
+        for mode in WALK_MODES:
+            got[mode] = kernel[mode]()
+            want = post[mode](ref)
+            bad = {k: int((got[mode][k] != want[k]).sum()) for k in want}
+            if (set(got[mode]) != set(want) or any(bad.values())
+                    or any(got[mode][k].dtype != want[k].dtype for k in want)):
+                fail(f"the walk kernel's {mode} mode disagrees with its plain composite "
+                     f"on {name}: {bad}")
         return got
 
-    n_rows = 0
+    n_rows = n_out = 0
     for name, (q, ql, s, sl), cfg, R in cases:
         args = [torch.from_numpy(a).cuda() for a in (q, ql, s, sl)]
         plane, score, end_i, end_j, start_k = gotoh_forward_plane(*args, **cfg)
         fs2 = cfg.get("free_start2", True)
-        got = compare(name, plane, score, end_i, end_j, start_k, R, fs2)
-        torch.cuda.synchronize()
         B, Lq, Ls = plane.shape[1], plane.shape[0], plane.shape[2]
+        wargs = (plane, score, end_i, end_j, start_k, B, R, fs2)
+        got = compare(name, wargs, args[0], args[2])
+        torch.cuda.synchronize()
         n_rows += B
-        ok = int(got["walk_ok"].sum())
-        log(f"phase 2c walk {name}, R {R}: equal on {B} rows; walk_ok {ok} of {B}, "
-            f"runs up to {int(got['n_runs'].max())}, longest run {int(got['rlen'].max())}")
+        n_out += sum(v.numel() for g in got.values() for v in g.values())
+        runs, t3 = got["runs"], got["tier3"]
+        ok = int(runs["walk_ok"].sum())
+        log(f"phase 2c walk {name}, R {R}: runs, tier3, hamming equal on {B} rows; "
+            f"walk_ok {ok} of {B}, runs up to {int(runs['n_runs'].max())}, longest run "
+            f"{int(runs['rlen'].max())}; gapped rows {int(t3['has_gap'].sum())}, "
+            f"la_fallback {int(t3['la_fallback'].sum())}")
         if "budget runs out" in name and ok == B:
             fail(f"no row ran out of its budget on {name}")
-        if name.startswith("runs past") and int(got["rlen"].max()) <= 255:
+        if "budget runs out" in name and not bool((t3["mism"] == 32000).any()):
+            fail(f"no tier-3 row reports the exhausted budget on {name}")
+        if name.startswith("runs past") and int(runs["rlen"].max()) <= 255:
             fail("no run past 255 on the saturating case")
         if name.startswith("empty query"):
             rows = torch.from_numpy(ql == 0).cuda()
-            if not bool((got["n_ops"][rows] == 0).all()) or int(rows.sum()) == 0:
+            if not bool((runs["n_ops"][rows] == 0).all()) or int(rows.sum()) == 0:
                 fail("the empty-query rows emitted columns")
         if name in timed_names:
-            wargs = (plane, score, end_i, end_j, start_k, B, R, fs2)
-            ms = cuda_ms(lambda: pairwise._runs_from_plane(*wargs), calls=20)
-            g_ms = graph_ms(lambda: pairwise._runs_from_plane(*wargs))
-            plain = cuda_ms(lambda: pairwise._runs_from_plane_ref(*wargs))
+            mode = path_mode(name)
+            kernel, post = _walk_fns(wargs, args[0], args[2])
+            ms = cuda_ms(kernel[mode], calls=20)
+            g_ms = graph_ms(kernel[mode])
+            plain = cuda_ms(lambda: post[mode](pairwise._runs_from_plane_ref(*wargs)))
             loads = walk_loads(plane, end_i, end_j, start_k, R)
-            b_ms, b_by = walk_bound(B, R, loads)
-            log(f"  time {name} R {R}: kernel {ms:.4f} ms (median of 5 x 20 calls), "
-                f"{g_ms:.4f} ms in a CUDA graph of 20 calls, plain {plain:.3f} ms "
+            reads = walk_code_reads(runs, args[0], args[2]) if mode == "tier3" else 0
+            b_ms, b_by = walk_bound(B, R, loads, mode, reads)
+            t = dict(ms=ms, plain_ms=plain, max_abs_err=0, bound_ms=b_ms, bound_by=b_by,
+                     graph_ms=g_ms, shape=f"{B}x{Lq}x{Ls} R {R}", mode=mode)
+            text = ""
+            if mode != "runs":
+                # what the mode replaces: the walk's runs, then the plain post-pass
+                replaced = lambda: post[mode](kernel["runs"]())
+                t.update(walk_graph_ms=graph_ms(kernel["runs"]),
+                         replaced_ms=cuda_ms(replaced, calls=5),
+                         replaced_graph_ms=graph_ms(replaced, calls=5))
+                text = (f"; replaces the runs mode ({t['walk_graph_ms']:.4f} ms in a graph) "
+                        f"and the plain post-pass: {t['replaced_ms']:.4f} ms (median of 5 "
+                        f"x 5 calls), {t['replaced_graph_ms']:.4f} ms in a CUDA graph of 5 "
+                        f"calls")
+            log(f"  time {name} R {R}, {mode} mode: kernel {ms:.4f} ms (median of 5 x 20 "
+                f"calls), {g_ms:.4f} ms in a CUDA graph of 20 calls, plain {plain:.3f} ms "
                 f"(median of 5); plane words read {int(loads.sum())}, longest chain "
-                f"{int(loads.max())}; bound {b_ms:.4f} ms by {b_by}, kernel at "
-                f"{100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% in the graph)")
-            timing[name] = dict(ms=ms, plain_ms=plain, max_abs_err=0, bound_ms=b_ms,
-                                bound_by=b_by, graph_ms=g_ms,
-                                shape=f"{B}x{Lq}x{Ls} R {R}")
+                f"{int(loads.max())}, codes read {reads}; bound {b_ms:.4f} ms by {b_by}, "
+                f"kernel at {100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% in the graph)"
+                + text)
+            timing[name] = t
+        del plane, got
+    # the left-alignment's edges on synthetic planes, at both subject starts
+    for fs2 in (True, False):
+        B, Lq, Ls, R = 4096, 160, 192, 64
+        plane, score, end_i, end_j, start_k, q, s = _runs_plane(rng, B, Lq, Ls, fs2)
+        wargs = (plane, score, end_i, end_j, start_k, B, R, fs2)
+        name = f"synthetic runs, free_start2 {fs2}"
+        got = compare(name, wargs, q, s)
+        runs, t3 = got["runs"], got["tier3"]
+        valid = torch.arange(R, device="cuda")[None, :] < runs["n_runs"][:, None]
+        gap = (runs["rop"] >= 2) & valid
+        last = runs["rop"].gather(1, (runs["n_runs"] - 1).clamp(min=0).long()[:, None])[:, 0]
+        reached = {
+            "rows shifted": int(((t3["rle"].int() >> 2) != runs["rlen"]).any(dim=1).sum()),
+            "la_fallback": int(t3["la_fallback"].sum()),
+            "gap > LA_LMAX": int((gap & (runs["rlen"] > 16)).any(dim=1).sum()),
+            "I then D": int((gap[:, 1:] & gap[:, :-1]).any(dim=1).sum()),
+            "leading gap": int(gap[:, 0].sum()),
+            "trailing gap": int((last >= 2).sum()),
+            "N inside the alignment": int(((q == 4) & (torch.arange(Lq, device="cuda")[None, :]
+                                                       < end_i[:, None])).any(dim=1).sum()),
+        }
+        log(f"phase 2c walk {name}, {B}x{Lq}x{Ls}, R {R}: runs, tier3, hamming equal; "
+            f"reached {reached}")
+        if min(reached.values()) == 0:
+            fail(f"the synthetic runs did not reach every edge: {reached}")
+        n_rows += B
+        n_out += sum(v.numel() for g in got.values() for v in g.values())
         del plane, got
     # one chain alone: the kernel's own time a dependent step on this card
     q, ql, s, sl = _skip_seventh(rng, 1, 1024)
@@ -785,25 +1025,31 @@ def phase_walk():
     end_i = torch.full((B,), Lq, dtype=torch.int32, device="cuda")
     end_j = torch.from_numpy(rng.integers(Ls // 2, Ls + 1, B).astype(np.int32)).cuda()
     start_k = torch.from_numpy(rng.integers(0, 3, B).astype(np.int32)).cuda()
-    got = compare("a plane of more than 2^31 cells", plane, end_j * 0, end_i, end_j,
-                  start_k, 72, False)
-    log(f"phase 2c walk {B}x{Lq}x{Ls} ({B * Lq * Ls} cells), R 72: equal; runs up to "
-        f"{int(got['n_runs'].max())}")
-    del plane, got
+    q = torch.randint(0, 5, (B, Lq), dtype=torch.int8, device="cuda")
+    s = torch.randint(0, 5, (B, Ls), dtype=torch.int8, device="cuda")
+    got = compare("a plane of more than 2^31 cells",
+                  (plane, end_j * 0, end_i, end_j, start_k, B, 72, False), q, s)
+    log(f"phase 2c walk {B}x{Lq}x{Ls} ({B * Lq * Ls} cells), R 72: runs, tier3, hamming "
+        f"equal; runs up to {int(got['runs']['n_runs'].max())}")
+    del plane, got, q, s
     torch.cuda.empty_cache()
-    # no host sync on the kernel's route
+    # no host sync on the kernel's route, in any mode
     q, ql, s, sl = _bench_chunk(rng, 2048, 160, 160)
     args = [torch.from_numpy(a).cuda() for a in (q, ql, s, sl)]
     plane, score, end_i, end_j, start_k = gotoh_forward_plane(*args)
+    kernel, _ = _walk_fns((plane, score, end_i, end_j, start_k, 2048, 28, True),
+                          args[0], args[2])
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pairwise._runs_from_plane(plane, score, end_i, end_j, start_k, 2048, 28, True)
+        for mode in WALK_MODES:
+            kernel[mode]()
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log(f"phase 2c walk: {len(cases) + 1} cases, {n_rows} rows equal; one call under "
-        "set_sync_debug_mode('error') ran without a sync")
+    log(f"phase 2c walk: {len(cases) + 3} cases, {n_rows} rows, {n_out} outputs in the "
+        "three modes, 0 differing; one call a mode under set_sync_debug_mode('error') "
+        "ran without a sync")
     return timing
 
 
@@ -1010,10 +1256,12 @@ def phase_cuda_vs_cpu(counters):
     genome, reads = _simulate_50kb()
     reset_counts(counters)
     t0 = time.perf_counter()
-    _, rec_cuda = _run_pipeline(genome, reads, "cuda", 1024)
+    with plain_post_pass_forbidden():
+        _, rec_cuda = _run_pipeline(genome, reads, "cuda", 1024)
     torch.cuda.synchronize()
     t_cuda = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
+    walk_route(counters, "tier3", "phase 4, fused")
     t0 = time.perf_counter()
     _, rec_cpu = _run_pipeline(genome, reads, "cpu", 1024)
     t_cpu = time.perf_counter() - t0
@@ -1176,6 +1424,8 @@ def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS):
         fail("accuracy gates: " + "; ".join(acc["gates"]))
     if device == "cuda" and min(launches.values()) == 0:
         fail(f"a kernel was not launched on the main path: {launches}")
+    if device == "cuda":
+        walk_route(counters, "tier3", "phase 5, fused")
     truth = (truth_snv, truth_indel_pos, in_repeat)
     return launches, dt, records, genome, reads, truth, table, tandem, acc["metrics"]
 
@@ -1201,10 +1451,12 @@ def phase_classic(counters, fused_keys):
     genome, reads = _simulate_50kb()
     reset_counts(counters)
     t0 = time.perf_counter()
-    sam_cuda, rec_cuda, al = _run_classic(genome, reads, "cuda")
+    with plain_post_pass_forbidden():
+        sam_cuda, rec_cuda, al = _run_classic(genome, reads, "cuda")
     sync("cuda")
     t_cuda = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counters}
+    walk_route(counters, "tier3", "phase 6, classic")
     t0 = time.perf_counter()
     sam_cpu, rec_cpu, _ = _run_classic(genome, reads, "cpu")
     t_cpu = time.perf_counter() - t0
@@ -1687,7 +1939,7 @@ def phase_tier2_shapes(shapes):
             f"at {100 * b_ms / ms:.1f}% of it ({100 * b_ms / g_ms:.1f}% in the graph)")
         entries[side]["walk"] = dict(ms=ms, plain_ms=plain, max_abs_err=0, bound_ms=b_ms,
                                      bound_by=b_by, graph_ms=g_ms,
-                                     shape=f"{B}x{Lq}x{Ls} R {Lq + Ls}")
+                                     shape=f"{B}x{Lq}x{Ls} R {Lq + Ls}", mode="runs")
         del plane, got, ref
     return entries
 
@@ -2284,10 +2536,13 @@ def phase_long_reads_small(counters, device="cuda"):
     with tempfile.TemporaryDirectory() as d:
         reset_counts(counters)
         t0 = time.perf_counter()
-        sam_d, sv_d, vcf_d = _long_reads_in_process(genome, reads, device, d)
+        with plain_post_pass_forbidden(device):
+            sam_d, sv_d, vcf_d = _long_reads_in_process(genome, reads, device, d)
         sync(device)
         t_dev = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
+        if device == "cuda":
+            walk_route(counters, "hamming", "phase 14, long reads")
         t0 = time.perf_counter()
         sam_c, sv_c, vcf_c = _long_reads_in_process(genome, reads, "cpu", d)
         t_cpu = time.perf_counter() - t0
@@ -2405,7 +2660,7 @@ def phase_long_reads_real_size(counters, device="cuda"):
         print(f"  stage {name:<28} {total:9.3f}s x{calls}", flush=True)
     log("  gotoh launches by (kind, B, Lq, Ls, kernel): " + ", ".join(
         f"{n} x {k}" for k, n in sorted(gotoh_shapes.items())))
-    log("  walk launches by (B, Lq, Ls, R, free_start2): " + ", ".join(
+    log("  walk launches by (mode, B, Lq, Ls, R, free_start2): " + ", ".join(
         f"{n} x {k}" for k, n in sorted(walk_shapes.items())))
     t0 = time.perf_counter()
     svs = LongReadStructuralVariantDetector(genome).find_variants(
@@ -2416,6 +2671,8 @@ def phase_long_reads_real_size(counters, device="cuda"):
         fail(f"long-read accuracy gates: aligned_frac {aligned}, placed {placed}")
     if device == "cuda" and min(launches.values()) == 0:
         fail(f"the long-read run did not launch every kernel: {launches}")
+    if device == "cuda":
+        walk_route(counters, "hamming", "phase 15, long reads")
     return launches, gotoh_shapes, walk_shapes
 
 
@@ -2665,15 +2922,16 @@ def phase_assembly_real_size(counters, row="lin100", device="cuda"):
     log("  gotoh launches by (kind, Lq, Ls, kernel): " + ", ".join(
         f"{n} x {k} ({rows[k]} rows)" for k, n in sorted(by.items(), key=lambda kv: -kv[1])))
     by, rows = Counter(), Counter()
-    for (B, Lq, Ls, R, fs2), n in walk_shapes.items():
-        by[Lq, Ls, R, fs2] += n
-        rows[Lq, Ls, R, fs2] += n * B
-    log("  walk launches by (Lq, Ls, R, free_start2): " + ", ".join(
+    for (mode, B, Lq, Ls, R, fs2), n in walk_shapes.items():
+        by[mode, Lq, Ls, R, fs2] += n
+        rows[mode, Lq, Ls, R, fs2] += n * B
+    log("  walk launches by (mode, Lq, Ls, R, free_start2): " + ", ".join(
         f"{n} x {k} ({rows[k]} rows)" for k, n in sorted(by.items(), key=lambda kv: -kv[1])))
     if st["identity"] < 0.90:
         fail(f"assembly identity {st['identity']} below the 0.90 gate")
     if min(launches.values()) == 0:
         fail(f"the assembly did not launch every kernel: {launches}")
+    walk_route(counters, "hamming", "phase 17, assembly")
     return launches, gotoh_shapes, walk_shapes
 
 
@@ -2804,29 +3062,39 @@ def kernel_entries(t: dict) -> list:
         }
         # where the shape came from the run: which one, and which kernel;
         # graph_ms, where measured: 20 calls in one CUDA graph, without the
-        # launch cost from Python that ms (20 back-to-back calls) includes
-        out.update({k: timing[k] for k in ("shape", "kernel", "graph_ms") if k in timing})
+        # launch cost from Python that ms (20 back-to-back calls) includes;
+        # the walk's mode, and for the tier3 and hamming modes what they
+        # replace: the runs mode alone in a graph, then with the plain
+        # post-pass from Python and in a graph
+        out.update({k: timing[k] for k in (
+            "shape", "kernel", "graph_ms", "mode", "walk_graph_ms", "replaced_ms",
+            "replaced_graph_ms") if k in timing})
         return out
 
     gotoh = ("ngsepcore_tpu_torch/csrc/gotoh_forward.cu",
              "ngsepcore_tpu/kernels/pairwise_pallas.py:243")
-    # a lax.scan in the JAX package with no Pallas counterpart
-    walk = ("ngsepcore_tpu_torch/csrc/run_walk.cu", "ngsepcore_tpu/kernels/pairwise.py:595")
+    # lax.scans and array passes in the JAX package with no Pallas
+    # counterpart, by the mode timed: the walk (:595), in the tier3 mode
+    # with dp_stats_runs (:693) and _left_align_rle (:1015), in the hamming
+    # mode with dp_stats_runs_hamming (:746)
+    walk_replaces = {"runs": "595", "tier3": "595,693,1015", "hamming": "595,746"}
+    walk = lambda timing: ("ngsepcore_tpu_torch/csrc/run_walk.cu",
+                           "ngsepcore_tpu/kernels/pairwise.py:" + walk_replaces[timing["mode"]])
     g, w, out = t.get("2"), t.get("2c"), []
     if "5 launches" in t and g:
         out.append(entry("gotoh_forward", *gotoh, t["5 launches"]["gotoh_forward_plane"],
                          g["main-path chunk 2048x160x160"]))
     if "5 launches" in t and w:
         # the walk of the fused path's tier 3 (phase 5)
-        out.append(entry("run_walk_fused", *walk, t["5 launches"]["_runs_from_plane"],
-                         w["fused tier 3 2048x160x160"]))
+        wt = w["fused tier 3 2048x160x160"]
+        out.append(entry("run_walk_fused", *walk(wt), t["5 launches"]["_runs_from_plane"], wt))
     if "6" in t and g:
         # the same kernels on the classic path (phase 6), at its tier-3 shape
         out.append(entry("gotoh_forward_classic", *gotoh, t["6"]["gotoh_forward_plane"],
                          g["classic tier-3 2048x192x192"]))
     if "6" in t and w:
-        out.append(entry("run_walk_classic", *walk, t["6"]["_runs_from_plane"],
-                         w["classic tier 3 2048x192x192"]))
+        wt = w["classic tier 3 2048x192x192"]
+        out.append(entry("run_walk_classic", *walk(wt), t["6"]["_runs_from_plane"], wt))
     if "10" in t:
         # the tier-2 STR flanks of the known-STR run at full width (phase
         # 10), each side timed at the launched shape that takes most of its
@@ -2835,8 +3103,8 @@ def kernel_entries(t: dict) -> list:
         for side in ("left", "right"):
             out.append(entry(f"gotoh_forward_tier2_{side}", *gotoh, t2_launches[side],
                              t2[side]))
-            out.append(entry(f"run_walk_tier2_{side}", *walk, t2_walk[side],
-                             t2[side]["walk"]))
+            out.append(entry(f"run_walk_tier2_{side}", *walk(t2[side]["walk"]),
+                             t2_walk[side], t2[side]["walk"]))
     for p, tag in (("15", "long_reads"), ("17", "assembly")):
         if p not in t or not (g and w):
             continue
@@ -2854,11 +3122,12 @@ def kernel_entries(t: dict) -> list:
         out.append(entry(f"gotoh_forward_{tag}", *gotoh, sum(gotoh_shapes.values()),
                          g[f"long reads {kind} 512x{W}x{W}"]))
         per = Counter()
-        for (B, Lq, Ls, _, _), n in walk_shapes.items():
+        for (_, B, Lq, Ls, _, _), n in walk_shapes.items():
             per[Lq] += n * B / 512 * w[f"long reads center 512x{Lq}x{Ls}"]["graph_ms"]
         W = max(per, key=per.get)
-        out.append(entry("run_walk" if p == "15" else f"run_walk_{tag}", *walk,
-                         launches["_runs_from_plane"], w[f"long reads center 512x{W}x{W}"]))
+        wt = w[f"long reads center 512x{W}x{W}"]
+        out.append(entry("run_walk" if p == "15" else f"run_walk_{tag}", *walk(wt),
+                         launches["_runs_from_plane"], wt))
     if "9" in t and g:
         # tier 2 over phase 9's 1,500 bp array at 50 kb (the seg kernel at
         # 6-8 warps), timed at a flank chunk over such an array

@@ -12,8 +12,8 @@ decode:
   screen, kernels/seeding.seed_cluster_screen) per read batch, host-side
   candidate selection, the tier-2 STR split alignment for candidates over
   a known STR (align/str_tier2.py), the tier-3 affine-gap DP over host-packed query and
-  subject rows (kernels/pairwise.affine_gap_align_runs, whose forward pass
-  is the CUDA Gotoh kernel on the card), then select_final_alignments;
+  subject rows (kernels/pairwise.tier3_stats: the CUDA Gotoh kernel, then
+  the CUDA walk with its statistics, on the card), then select_final_alignments;
 - the fused align+call pipeline (call/fused_pipeline.py), which drives the
   tier-3 sweep over device-gathered inputs (kernels/pairwise.dp_run_all)
   and decodes into an array store.
@@ -537,14 +537,15 @@ class ReadsAligner:
             )
 
     def _tier3_dispatch(self, jobs: list, concat: np.ndarray):
-        """Pack one chunk on the host and launch the DP + stats post-pass
-        on the aligner's device.  Returns (jobs, stats tensors).
+        """Pack one chunk on the host and launch the DP with its walk and
+        statistics (kernels/pairwise.tier3_stats) on the aligner's device.
+        Returns (jobs, stats tensors).
 
         Query and subject widths round up to 64 and rows to a power of two
         in DP_ROWS_MIN..DP_ROWS (150 bp reads: up to 2048 x 192 x 192).
         Subject rows pack through one strided gather over the concatenated
         genome."""
-        from ..kernels.pairwise import affine_gap_align_runs, dp_stats_runs
+        from ..kernels.pairwise import tier3_stats
 
         n = len(jobs)
         max_q = max(len(j[1]) for j in jobs)
@@ -570,11 +571,9 @@ class ReadsAligner:
         self.dp_cells += rows * Lq * Ls
         dev = self.device
         qc_d, sc_d = torch.from_numpy(qc).to(dev), torch.from_numpy(sc).to(dev)
-        out = affine_gap_align_runs(
-            qc_d, torch.from_numpy(ql).to(dev), sc_d,
-            torch.from_numpy(sl).to(dev), free_start2=True, free_end2=True,
+        return jobs, tier3_stats(
+            qc_d, torch.from_numpy(ql).to(dev), sc_d, torch.from_numpy(sl).to(dev)
         )
-        return jobs, dp_stats_runs(out, qc_d, sc_d)
 
     # max DP rows per forward-kernel launch; the last chunk is padded to
     # CH rows (padded rows are discarded after the fetch)
@@ -658,7 +657,7 @@ class ReadsAligner:
     def _rle_runs(out: dict, gsel, n_ops) -> dict:
         """Per-row cigar run lists from the fetched device-side RLE.
 
-        The run-jump traceback (kernels/pairwise.affine_gap_align_runs)
+        The run-jump traceback (kernels/pairwise.tier3_walk_stats)
         sizes its RLE slots to cover every row acceptable under the 10%
         mismatch cap, and rows that exhausted the run budget carry a huge
         mismatch count so they never reach the accepted set — the former
@@ -725,8 +724,9 @@ class ReadsAligner:
         for i in gsel:
             t = pos_in_ok[int(i)]
             first = int(firsts[i])
-            # the RLE comes left-aligned from the device
-            # (kernels/pairwise._left_align_rle); only rows the device
+            # the RLE comes left-aligned from the device (the walk
+            # kernel's tier-3 mode, kernels/pairwise._left_align_rle on
+            # the CPU); only rows the device
             # pass could not normalize exactly re-run the host pass
             if la_fb[i]:
                 cigar = left_align_indels(
@@ -772,7 +772,7 @@ class ReadsAligner:
     ) -> None:
         """Decode one fetched stats chunk: mismatch accept, then CIGARs.
         The mismatch statistic, gap flag and the left-aligned RLE come
-        precomputed from the device (kernels/pairwise.dp_stats_runs);
+        precomputed from the device (kernels/pairwise.tier3_walk_stats);
         per-row math is vectorized over the chunk.  With `sink` set the
         rows land in the fused pipeline's DP result store; otherwise each
         accepted row becomes `cands[i].aln`, and a gapless row takes a

@@ -58,8 +58,10 @@ _SIGNATURES = {
     ],
     "run_walk_launch": [
         _P, _P, _P, _P,  # plane, end_i, end_j, start_k
-        _I, _I, _I, _I,  # B, Ls, R, free_start2
+        _P, _P, _P,  # score, query, subject
+        _I, _I, _I, _I, _I, _I,  # B, Lq, Ls, R, free_start2, mode
         _P, _P, _P, _P, _P, _P,  # rop, rlen, n_runs, n_ops, start_j, walk_ok
+        _P, _P, _P, _P,  # mism, rle, has_gap, la_fallback
         _P,  # stream
     ],
 }

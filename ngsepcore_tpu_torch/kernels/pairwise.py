@@ -7,13 +7,16 @@ flags for free subject ends, and a deterministic traceback preference order
 
 The forward pass (kernels/pairwise_cuda.gotoh_forward_plane: the CUDA
 kernel on the card, its plain version on the CPU) emits a packed
-run/pointer plane; a run-jump traceback (_runs_from_plane: csrc/run_walk.cu
-on the card, a plain step loop on the CPU) walks it emitting one CIGAR run
-per step, a post-pass derives the tier-3 statistics and left-aligns the
-gap runs.  The tier-2 STR flanks (align/str_tier2.py) take per-column ops
-from the same plane and walk (affine_gap_align_batch); the long-read
-segments (align/long_reads.py) take runs and Hamming-style statistics
-(dp_run_segments).  Every integer
+run/pointer plane; a run-jump traceback walks it emitting one CIGAR run
+per step.  On the card one launch of csrc/run_walk.cu walks and, by its
+mode, returns the runs (_runs_from_plane), or the tier-3 statistics with
+left-aligned gap runs (tier3_walk_stats), or the long-read segment
+statistics (segment_walk_stats); on the CPU the plain walk
+(_runs_from_plane_ref) and the plain post-passes (dp_stats_runs,
+dp_stats_runs_hamming) compute the same.  The tier-2 STR flanks
+(align/str_tier2.py) take per-column ops from the runs
+(affine_gap_align_batch); tier 3 the statistics (dp_run_all); the
+long-read segments the Hamming-style statistics (dp_run_segments).  Every integer
 tensor here has its dtype written out; the plane is int32 holding uint32
 bits, so every right shift is masked.
 """
@@ -194,57 +197,112 @@ def ops_to_cigar_and_strings(
     return cigar, mismatches
 
 
+WALK_MODES = {"runs": 0, "tier3": 1, "hamming": 2}  # csrc/run_walk.cu's Mode
+
+
+def _walk_launch(mode, plane, score, end_i, end_j, start_k, B, R, free_start2,
+                 query=None, subject=None):
+    """Launch csrc/run_walk.cu in `mode` (WALK_MODES; query and subject
+    for "tier3" only) on CUDA tensors: one launch, no host sync.  Returns
+    {name: tensor} of what the mode writes (the kernel's header): "runs"
+    rop, rlen (B, R) int32, n_runs, n_ops, start_j (B,) int32, walk_ok
+    (B,) bool; "tier3" mism, n_runs, n_ops, start_j (B,) int32, rle (B, R)
+    int16, has_gap, la_fallback (B,) int8; "hamming" rle, n_runs, mism,
+    start_j, walk_ok.  Only these are allocated, beside the (B, R) rop and
+    rlen rows in which the other two modes merge their runs."""
+    dev = plane.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if plane.dim() != 3 or plane.dtype != _I32 or plane.shape[1] != B:
+        raise ValueError("plane must be an int32 (Lq, B, Ls) tensor")
+    Lq, Ls = plane.shape[0], plane.shape[2]
+    vecs = [t.to(_I32).contiguous() for t in (end_i, end_j, start_k, score)]
+    if any(t.shape != (B,) or t.device != dev for t in vecs):
+        raise ValueError("end_i, end_j, start_k and score must be (B,) on the plane's device")
+    codes = [None, None]
+    if mode == "tier3":
+        codes = [x.to(torch.int8).contiguous() for x in (query, subject)]
+        if (codes[0].shape != (B, Lq) or codes[1].shape != (B, Ls)
+                or any(x.device != dev for x in codes)):
+            raise ValueError("query and subject must be (B, Lq) and (B, Ls) on the plane's device")
+    plane = plane.contiguous()
+    new = lambda shape, dtype=_I32: torch.empty(shape, dtype=dtype, device=dev)
+    rop, rlen = new((B, R)), new((B, R))
+    out = {"n_runs": new(B), "start_j": new(B)}
+    if mode != "hamming":
+        out["n_ops"] = new(B)
+    if mode != "tier3":
+        out["walk_ok"] = new(B, torch.bool)
+    if mode != "runs":
+        out["mism"] = new(B)
+        out["rle"] = new((B, R), torch.int16)
+    if mode == "tier3":
+        out["has_gap"] = new(B, torch.int8)
+        out["la_fallback"] = new(B, torch.int8)
+    ptr = lambda name: out[name].data_ptr() if name in out else None
+    if B:
+        lib = library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.run_walk_launch(
+                plane.data_ptr(), *(v.data_ptr() for v in vecs),
+                *(None if x is None else x.data_ptr() for x in codes),
+                B, Lq, Ls, R, int(free_start2), WALK_MODES[mode],
+                rop.data_ptr(), rlen.data_ptr(), ptr("n_runs"), ptr("n_ops"),
+                ptr("start_j"), ptr("walk_ok"), ptr("mism"), ptr("rle"),
+                ptr("has_gap"), ptr("la_fallback"), stream,
+            )
+        check("run_walk", rc)
+        _runs_from_plane.launches += 1
+        _runs_from_plane.launch_shapes[(mode, B, Lq, Ls, R, bool(free_start2))] += 1
+    if mode == "runs":
+        out.update(rop=rop, rlen=rlen)
+    return out
+
+
 def _runs_from_plane(plane, score, end_i, end_j, start_k, B, R, free_start2):
     """Run-jump traceback + merge over a (Lq, B, Ls) int32 pointer/run
     plane, R steps at most.  CPU tensors run the plain version
     (_runs_from_plane_ref); CUDA tensors launch csrc/run_walk.cu (one
     thread an alignment, no host sync) or raise.  Returns the dict of
     affine_gap_align_runs."""
-    dev = plane.device
-    if dev.type == "cpu":
+    if plane.device.type == "cpu":
         return _runs_from_plane_ref(plane, score, end_i, end_j, start_k, B, R, free_start2)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if plane.dim() != 3 or plane.dtype != _I32 or plane.shape[1] != B:
-        raise ValueError("plane must be an int32 (Lq, B, Ls) tensor")
-    vecs = [t.to(_I32).contiguous() for t in (end_i, end_j, start_k)]
-    if any(t.shape != (B,) or t.device != dev for t in vecs + [score]):
-        raise ValueError("end_i, end_j, start_k and score must be (B,) on the plane's device")
-    plane = plane.contiguous()
-    rop = torch.empty((B, R), dtype=_I32, device=dev)
-    rlen = torch.empty((B, R), dtype=_I32, device=dev)
-    fin = torch.empty((3, B), dtype=_I32, device=dev)  # n_runs, n_ops, start_j
-    walk_ok = torch.empty(B, dtype=torch.bool, device=dev)
-    if B:
-        lib = library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.run_walk_launch(
-                plane.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-                vecs[2].data_ptr(), B, plane.shape[2], R, int(free_start2),
-                rop.data_ptr(), rlen.data_ptr(), fin[0].data_ptr(),
-                fin[1].data_ptr(), fin[2].data_ptr(), walk_ok.data_ptr(), stream,
-            )
-        check("run_walk", rc)
-        _runs_from_plane.launches += 1
-        _runs_from_plane.launch_shapes[
-            (B, plane.shape[0], plane.shape[2], R, bool(free_start2))] += 1
-    return {
-        "score": score.to(_I32),
-        "rop": rop,
-        "rlen": rlen,
-        "n_runs": fin[0],
-        "n_ops": fin[1],
-        "start_j": fin[2],
-        "end_j": vecs[1],
-        "end_i": vecs[0],
-        "walk_ok": walk_ok,
-    }
+    out = _walk_launch("runs", plane, score, end_i, end_j, start_k, B, R, free_start2)
+    return dict(out, score=score.to(_I32), end_j=end_j.to(_I32), end_i=end_i.to(_I32))
 
 
-_runs_from_plane.launches = 0  # launches of csrc/run_walk.cu
-# the same by (B, Lq, Ls, R, free_start2)
+# launches of csrc/run_walk.cu in every mode (_runs_from_plane,
+# tier3_walk_stats, segment_walk_stats)
+_runs_from_plane.launches = 0
+# the same by (mode, B, Lq, Ls, R, free_start2)
 _runs_from_plane.launch_shapes = Counter()
+
+
+def tier3_walk_stats(plane, score, end_i, end_j, start_k, B, R, query, subject,
+                     free_start2=True):
+    """The walk and the tier-3 statistics in one step: the dict of
+    dp_stats_runs.  CPU tensors run the plain composite,
+    dp_stats_runs(_runs_from_plane_ref(...), query, subject); CUDA tensors
+    launch csrc/run_walk.cu's tier-3 epilogue (walk, statistics and
+    left-alignment in one launch, no host sync) or raise."""
+    if plane.device.type == "cpu":
+        out = _runs_from_plane_ref(plane, score, end_i, end_j, start_k, B, R, free_start2)
+        return dp_stats_runs(out, query, subject)
+    return _walk_launch("tier3", plane, score, end_i, end_j, start_k, B, R, free_start2,
+                        query, subject)
+
+
+def segment_walk_stats(plane, score, end_i, end_j, start_k, B, R, free_start2):
+    """The walk and the long-read segment statistics in one step: the dict
+    of dp_stats_runs_hamming.  CPU tensors run the plain composite,
+    dp_stats_runs_hamming(_runs_from_plane_ref(...)); CUDA tensors launch
+    csrc/run_walk.cu's hamming epilogue (no host sync) or raise."""
+    if plane.device.type == "cpu":
+        return dp_stats_runs_hamming(
+            _runs_from_plane_ref(plane, score, end_i, end_j, start_k, B, R, free_start2))
+    out = _walk_launch("hamming", plane, score, end_i, end_j, start_k, B, R, free_start2)
+    return dict(out, end_j=end_j.to(_I32))
 
 
 def _runs_from_plane_ref(plane, score, end_i, end_j, start_k, B, R, free_start2):
@@ -334,6 +392,39 @@ def _runs_from_plane_ref(plane, score, end_i, end_j, start_k, B, R, free_start2)
         "end_i": end_i.to(_I32),
         "walk_ok": walk_ok,
     }
+
+
+def plane_from_runs(rows, Lq, Ls):
+    """The inverse of the walk, for tests: a (Lq, B, Ls) plane that the
+    walk turns into given runs.  rows is a list of (forward runs [(op,
+    length)], subject start).  Each run's last cell holds its length in
+    its matrix's field (255, a saturated piece, for every 254 cells past
+    the first 254) and, in the pointer field, the matrix of the run
+    before it; every other cell is 0.  Returns plane (int32 holding uint32
+    bits), end_i, end_j, start_k as CPU tensors."""
+    B = len(rows)
+    plane = np.zeros((Lq, B, Ls), np.uint32)
+    ends = np.zeros((3, B), np.int32)
+    for b, (runs, sj) in enumerate(rows):
+        i = sum(ln for op, ln in runs if op in (OP_MATCH, OP_INS))
+        j = sj + sum(ln for op, ln in runs if op in (OP_MATCH, OP_DEL))
+        ends[:, b] = i, j, runs[-1][0] - 1
+        for idx in range(len(runs) - 1, -1, -1):
+            op, left = runs[idx]
+            k = op - 1
+            src = runs[idx - 1][0] - 1 if idx else 0
+            while left > 0 and i > 0 and j > 0:
+                field = 255 if left > 254 else left
+                piece = min(left, 254)
+                w = int(plane[i - 1, b, j - 1]) | (field << (8 * k + 8))
+                if field != 255:
+                    w |= src << (2 * k)
+                plane[i - 1, b, j - 1] = w
+                i -= piece if op in (OP_MATCH, OP_INS) else 0
+                j -= piece if op in (OP_MATCH, OP_DEL) else 0
+                left -= piece
+    return (torch.from_numpy(plane.view(np.int32)),) + tuple(
+        torch.from_numpy(e.copy()) for e in ends)
 
 
 def dp_stats_runs(out: dict, query: torch.Tensor, subject: torch.Tensor):
@@ -430,9 +521,10 @@ def dp_run_segments(
     in CH-row chunks (the last one may be shorter).  Each chunk gathers
     its query slices readmat[row, q0:q0+qlen] and subject slices
     concat[sfirst:sfirst+slen] on the tensors' device (padding code 4),
-    runs affine_gap_align_runs with free subject ends fs2/fe2 and returns
-    dp_stats_runs_hamming.  A chunk's plane (512 MiB at 512x512x512) is
-    freed before the next chunk runs.  Returns the stats of all B jobs, concatenated."""
+    runs the Gotoh forward pass with free subject ends fs2/fe2 and
+    segment_walk_stats (dp_stats_runs_hamming's dict; one walk launch a
+    chunk on the card).  A chunk's plane (512 MiB at 512x512x512) is freed
+    before the next chunk runs.  Returns the stats of all B jobs, concatenated."""
     dev = readmat.device
     Lp = readmat.shape[1]
     j = torch.arange(Lq, dtype=_I32, device=dev)[None, :]
@@ -446,8 +538,9 @@ def dp_run_segments(
         qc = torch.where(j < ql[:, None], sub.gather(1, idx), 4).to(torch.int8)
         sidx = torch.clamp(sfirst[s].long()[:, None] + js, 0, concat.shape[0] - 1)
         sc = torch.where(js < sl[:, None], concat[sidx], 4).to(torch.int8)
-        out = affine_gap_align_runs(qc, ql, sc, sl, free_start2=fs2, free_end2=fe2)
-        outs.append(dp_stats_runs_hamming(out))
+        fwd = gotoh_forward_plane(qc, ql, sc, sl, free_start2=fs2, free_end2=fe2)
+        outs.append(segment_walk_stats(*fwd, qc.shape[0], _walk_runs_for(Lq), fs2))
+        del fwd
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
@@ -488,8 +581,8 @@ def dp_run_all(
 ):
     """The whole tier-3 sweep: per CH-row chunk of the job arrays, gather
     the query/subject matrices (dp_gather_inputs), run the Gotoh DP and the
-    stats/RLE post-pass.  Returns the stats dict with a leading chunk axis
-    (n_chunks, CH, ...)."""
+    walk with its statistics and left-aligned RLE (tier3_stats).  Returns
+    the stats dict with a leading chunk axis (n_chunks, CH, ...)."""
     outs = []
     for ci in range(n_chunks):
         s = slice(ci * CH, (ci + 1) * CH)
@@ -497,11 +590,35 @@ def dp_run_all(
             bigpq, lengths, concat, rows[s], strand[s], firsts[s], slen[s],
             Lq=Lq, Ls=Ls,
         )
-        out = affine_gap_align_runs(
-            qc, ln, sc, slen[s], free_start2=True, free_end2=True
-        )
-        outs.append(dp_stats_runs(out, qc, sc))
+        outs.append(tier3_stats(qc, ln, sc, slen[s]))
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def tier3_stats(query, qlen, subject, slen):
+    """One tier-3 chunk: the Gotoh plane with free subject ends, then its
+    walk, statistics and left-alignment (tier3_walk_stats: one walk launch
+    on the card); the plane is freed on return.  Returns dp_stats_runs's
+    dict."""
+    fwd = gotoh_forward_plane(query, qlen, subject, slen, free_start2=True, free_end2=True)
+    B, Lq = query.shape
+    return tier3_walk_stats(*fwd, B, _walk_runs_for(Lq), query, subject)
+
+
+def _brl_tables(x):
+    """(B, LA_LMAX * L) int32 for codes x (B, L): for lag l (block l-1),
+    the count of consecutive t' <= t with eq_l[t'] = x[t'] == x[t'+l],
+    evaluated at every t; eq_l[t] is False where t + l >= L (every t when
+    the lag reaches past the row)."""
+    Bx, L = x.shape
+    idxs = torch.arange(L, dtype=_I32, device=x.device)[None, :]
+    tabs = []
+    for l in range(1, LA_LMAX + 1):
+        eq = torch.zeros((Bx, L), dtype=torch.bool, device=x.device)
+        if l < L:
+            eq[:, : L - l] = x[:, l:] == x[:, : L - l]
+        nf = torch.where(eq, -1, idxs)
+        tabs.append(idxs - torch.cummax(nf, dim=1).values)
+    return torch.cat(tabs, dim=1)
 
 
 def _left_align_rle(rop, rlen, n_runs, start_j, query, subject):
@@ -534,31 +651,13 @@ def _left_align_rle(rop, rlen, n_runs, start_j, query, subject):
     pq = torch.cumsum(qcons, dim=1, dtype=_I32) - qcons  # query offset at slot
     ps = start_j[:, None] + torch.cumsum(scons, dim=1, dtype=_I32) - scons
 
-    def brl_tables(x):
-        # (B, LA_LMAX * L): for lag l (block l-1), the count of consecutive
-        # t' <= t with x[t'] == x[t'+l], evaluated at every t
-        Bx, L = x.shape
-        idxs = torch.arange(L, dtype=_I32, device=dev)[None, :]
-        tabs = []
-        for l in range(1, LA_LMAX + 1):
-            eq = torch.cat(
-                [
-                    x[:, l:] == x[:, : L - l],
-                    torch.zeros((Bx, min(l, L)), dtype=torch.bool, device=dev),
-                ],
-                dim=1,
-            )[:, :L]
-            nf = torch.where(eq, -1, idxs)
-            tabs.append(idxs - torch.cummax(nf, dim=1).values)
-        return torch.cat(tabs, dim=1)
-
     Lq = query.shape[1]
     Ls = subject.shape[1]
     lidx = torch.clamp(rlen, 1, LA_LMAX) - 1
-    kq = brl_tables(query).gather(
+    kq = _brl_tables(query).gather(
         1, (lidx * Lq + torch.clamp(pq - 1, 0, Lq - 1)).long()
     )
-    kd = brl_tables(subject).gather(
+    kd = _brl_tables(subject).gather(
         1, (lidx * Ls + torch.clamp(ps - 1, 0, Ls - 1)).long()
     )
     k_raw = torch.where(is_i, kq, kd)

@@ -85,7 +85,7 @@ print(json.dumps({"jax": loaded("jax"), "tpu": loaded("ngsepcore_tpu")}))
 """
 
 
-@pytest.mark.parametrize("script", ["chip_smoke", "gotoh_bench", "viterbi_bench"])
+@pytest.mark.parametrize("script", ["chip_smoke", "gotoh_bench", "viterbi_bench", "walk_bench"])
 def test_card_scripts_import_without_jax(script):
     """The scripts that run on the machine with the GPU import like the
     package: no jax, nothing of ngsepcore_tpu, nothing run at import."""
