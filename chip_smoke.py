@@ -22,10 +22,15 @@ and timed on its own, which gives the run's tier-2 kernel time.
 Phase 11 runs the k-mer commands of the CLI on phase 8's FASTQ and FASTA
 (KmersExtractor, k = 15, both strands, with its counting invariants and
 CUDA against CPU) and ReadsFileErrorsCorrector on the first 20,000 reads.
-The population and read-depth callers follow.  Phase 2b holds the Viterbi
-kernel bit for bit against its plain version (shared and per-step
-transitions, -inf entries, a tie, T = 1 to 120,000) and times it at the
-46,000 bins of the 4.6 Mbp genome.  Phase 12 checks, CUDA against CPU at
+The population and read-depth callers follow.  Phase 2b measures the
+latency of each link of a Viterbi step's chain (the bound), holds the
+Viterbi kernel bit for bit against its plain version (shared and per-step
+transitions, -inf entries, a tie, signed zeros, T = 1 to 120,000, S = 1
+to 32, ragged batches of one launch), times it at the 46,000 bins of the
+4.6 Mbp genome, decodes a human genome's 24 sequences in 100 bp bins in
+one launch beside their 24 own launches, and runs find_cnv_calls over
+three sequences on the card against the CPU (one launch and one
+device-to-host copy an HMM algorithm).  Phase 12 checks, CUDA against CPU at
 50 kb, MultisampleVariantsDetector on 3 samples, the four read-depth CNV
 algorithms, the detector's read-pair SV stage and the four new CLI
 commands.  Phase 13 calls 3 individuals of phase 5's genome jointly (6x
@@ -190,20 +195,167 @@ def gotoh_bound(B: int, Lq: int, Ls: int):
 
 
 SM_CLOCK_HZ = 1.98e9
-# one Viterbi step cannot take less than three dependent instructions (the
-# shuffle that brings delta[i], the f64 add of the transition, the
-# compare-select) at the 4 cycles between dependent issues of Hopper's
-# fixed-latency pipes; the real shuffle and DADD latencies are several times
-# that, so no kernel reaches this bound
-VITERBI_CHAIN_CYCLES = 3 * 4
+
+# Latency microbenchmark of the links a Viterbi step chains: one warp runs
+# reps x 128 dependent links of one kind between two clock64() reads (the last
+# link's value is stored to shared memory before the second read, so the
+# chain cannot move past it); the cycles of an empty loop are taken off.
+VITERBI_LATENCY_CU = r"""
+#include <cuda_runtime.h>
+
+namespace {
+constexpr int kUnroll = 128;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ long long stamp() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+
+// kind 0: empty loop; 1: DADD; 2: f64 fmax; 3: compare-select of a
+// double (v > x ? v : x); 4: the same carrying an int index beside it;
+// 5: f64 __shfl_sync; 6: st.shared, __syncwarp, ld.shared of another
+// lane's double (two buffers by parity, as a step's exchange would)
+template <int kKind>
+__global__ void __launch_bounds__(32) chain_kernel(const double* __restrict__ in, int reps,
+                                                   long long* cycles, double* sink) {
+  __shared__ double s[64];
+  __shared__ double done[32];
+  const int lane = threadIdx.x;
+  double y[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) y[k] = in[k];
+  double x = in[8 + lane];
+  int a = 0;
+  const int src = (lane + 1) & 31;
+  __syncwarp();
+  const long long t0 = stamp();
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const double v = y[k & 7];
+      if (kKind == 1) {
+        x = x + v;
+      } else if (kKind == 2) {
+        x = fmax(x, v);
+      } else if (kKind == 3) {
+        x = v > x ? v : x;
+      } else if (kKind == 4) {
+        const bool up = v > x;
+        x = up ? v : x;
+        a = up ? k : a;
+      } else if (kKind == 5) {
+        x = __shfl_sync(kFull, x, src);
+      } else if (kKind == 6) {
+        s[(k & 1) * 32 + lane] = x;
+        __syncwarp();
+        x = s[(k & 1) * 32 + src];
+      }
+    }
+  }
+  done[lane] = x + a;
+  const long long t1 = stamp();
+  if (lane == 0) cycles[kKind] = t1 - t0;
+  sink[kKind * 32 + lane] = done[src];
+}
+}  // namespace
+
+extern "C" int viterbi_latency(const void* in, int reps, void* cycles, void* sink) {
+  long long* c = (long long*)cycles;
+  double* s = (double*)sink;
+  const double* i = (const double*)in;
+  chain_kernel<0><<<1, 32>>>(i, reps, c, s);
+  chain_kernel<1><<<1, 32>>>(i, reps, c, s);
+  chain_kernel<2><<<1, 32>>>(i, reps, c, s);
+  chain_kernel<3><<<1, 32>>>(i, reps, c, s);
+  chain_kernel<4><<<1, 32>>>(i, reps, c, s);
+  chain_kernel<5><<<1, 32>>>(i, reps, c, s);
+  chain_kernel<6><<<1, 32>>>(i, reps, c, s);
+  return (int)cudaGetLastError();
+}
+"""
+VITERBI_LATENCY_KINDS = ("dadd", "fmax", "select", "select_int", "shfl", "smem")
 
 
-def viterbi_bound(T: int, S: int):
+def _sass_ops(so_path: str) -> dict:
+    """SASS opcodes of each chain_kernel<kind> in the library (cuobjdump
+    -sass, where the toolkit has it): {kind: Counter of opcodes}."""
+    from ngsepcore_tpu_torch.kernels import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                         timeout=120).stdout
+    ops, kind = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : \S*chain_kernelILi(\d)E", line)
+        if m:
+            kind = int(m.group(1))
+            ops[kind] = Counter()
+        elif kind is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m:
+                ops[kind][m.group(1).split(".")[0]] += 1
+    return ops
+
+
+def viterbi_latencies(reps: int = 64) -> dict:
+    """Cycles a link of each chain kind (VITERBI_LATENCY_KINDS) on this
+    card, measured by VITERBI_LATENCY_CU (built into the package's build
+    directory), and the SASS opcodes of the f64 max and compare-select
+    chains ("fmax_ops", "select_ops")."""
+    import ctypes
+
+    import torch
+
+    from ngsepcore_tpu_torch.kernels import cuda_build
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda_build.BUILD_DIR / "viterbi_latency.cu"
+    src.write_text(VITERBI_LATENCY_CU)
+    lib, info = cuda_build.build([src], stem="libviterbi_latency")
+    fn = lib.viterbi_latency
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    inp = torch.from_numpy(np.random.default_rng(0).random(40)).cuda()
+    cycles = torch.zeros(7, dtype=torch.int64, device="cuda")
+    sink = torch.empty(7 * 32, dtype=torch.float64, device="cuda")
+    links = reps * 128
+    best = None
+    for _ in range(5):  # the least of 5 runs: the chains own the SM alone
+        cuda_build.check("viterbi_latency", fn(inp.data_ptr(), reps, cycles.data_ptr(),
+                                               sink.data_ptr()))
+        torch.cuda.synchronize()
+        c = cycles.cpu().numpy()
+        best = c if best is None else np.minimum(best, c)
+    out = {k: float(best[i + 1] - best[0]) / links for i, k in enumerate(VITERBI_LATENCY_KINDS)}
+    ops = _sass_ops(info["path"])
+    out["fmax_ops"] = dict(ops.get(2, {}))
+    out["select_ops"] = dict(ops.get(3, {}))
+    return out
+
+
+def viterbi_chain_cycles(lat: dict, S: int) -> float:
+    """Cycles of the shortest exact step's chain (csrc/viterbi.cu): the
+    exchange that brings every lane the previous deltas (the shorter of a
+    shuffle and a shared-memory round trip; none for one state), the add
+    of the transition, ceil(log2 S) levels of a compare-select (the first
+    maximum, exact to the sign of a zero; f64 fmax takes longer), the add
+    of the emission."""
+    levels = int(np.ceil(np.log2(S))) if S > 1 else 0
+    exchange = min(lat["shfl"], lat["smem"]) if S > 1 else 0.0
+    return exchange + lat["dadd"] + levels * lat["select"] + lat["dadd"]
+
+
+def viterbi_bound(T: int, S: int, chain_cycles: float):
     """(bound_ms, bound_by, bytes ms, chain ms): emissions f64 read and int8
     back pointers written once (T*S*9 bytes), the int32 path (4*T); the
-    serial chain of T steps."""
+    serial chain of T steps at `chain_cycles` a step (viterbi_chain_cycles
+    of this card's measured latencies)."""
     t_bytes = (T * S * 9 + 4 * T) / HBM_BYTES_PER_S * 1e3
-    t_chain = T * VITERBI_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+    t_chain = T * chain_cycles / SM_CLOCK_HZ * 1e3
     ms, by = (t_bytes, "bytes") if t_bytes >= t_chain else (t_chain, "operations")
     return ms, by, t_bytes, t_chain
 
@@ -1118,7 +1270,9 @@ def _poisson_hmm(rng, T, S=5, mean=4.0, p=0.001):
     trans = np.full((S, S), p / (S - 1))
     np.fill_diagonal(trans, 1 - p)
     lam = np.maximum(mean * np.arange(S)[None, :] / 2, mean * 0.05)
-    emit = _poisson_log10(np.round(_depth_vector(rng, T, mean))[:, None], lam)
+    # a row depends on its depth only: each distinct depth's row once
+    depth, row = np.unique(np.round(_depth_vector(rng, T, mean)), return_inverse=True)
+    emit = _poisson_log10(depth[:, None], lam)[row.reshape(-1)]
     return np.full(S, -math.log10(S)), np.log10(trans)[None], emit
 
 
@@ -1135,19 +1289,144 @@ def _random_hmm(rng, T, S, per_step=False, neg_inf=False):
     return start, trans, np.log10(rng.random((T, S)))
 
 
-def phase_viterbi():
-    """The Viterbi kernel against the plain step loop on the card: path
-    and best score bit for bit."""
+def _signed_zero_hmm(rng, T, S):
+    """Start -0.0, transitions +-0.0 at random, emissions -0.0 with a few
+    +0.0: every candidate ties, and the best score's sign is that of a
+    maximum that orders -0.0 below +0.0 (the JAX package's jnp.max), where
+    the first maximum's sum can be -0.0."""
+    start = np.full(S, -0.0)
+    trans = np.where(rng.random((1, S, S)) < 0.5, -0.0, 0.0)
+    return start, trans, np.where(rng.random((T, S)) < 0.03, 0.0, -0.0)
+
+
+# GRCh38's chromosome lengths (bp): a human genome in 100 bp bins is the
+# read-depth callers' sequences at user size
+GRCH38 = {
+    "chr1": 248_956_422, "chr2": 242_193_529, "chr3": 198_295_559, "chr4": 190_214_555,
+    "chr5": 181_538_259, "chr6": 170_805_979, "chr7": 159_345_973, "chr8": 145_138_636,
+    "chr9": 138_394_717, "chr10": 133_797_422, "chr11": 135_086_622, "chr12": 133_275_309,
+    "chr13": 114_364_328, "chr14": 107_043_718, "chr15": 101_991_189, "chr16": 90_338_345,
+    "chr17": 83_257_441, "chr18": 80_373_285, "chr19": 58_617_616, "chr20": 64_444_167,
+    "chr21": 46_709_983, "chr22": 50_818_468, "chrX": 156_040_895, "chrY": 57_227_415,
+}
+
+
+def _batch_of(hmms):
+    """(start (n,S), trans (n,S,S), emits (sum T,S), lengths) of shared-
+    transition HMMs, on the card."""
     import torch
 
-    from ngsepcore_tpu_torch.kernels.hmm import viterbi_log, viterbi_log_ref
+    lengths = [len(h[2]) for h in hmms]
+    emits = np.empty((sum(lengths), hmms[0][2].shape[1]))
+    r0 = 0
+    for h, T in zip(hmms, lengths):
+        emits[r0 : r0 + T] = h[2]
+        r0 += T
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).cuda()
+    return (up(np.stack([h[0] for h in hmms])), up(np.concatenate([h[1] for h in hmms])),
+            up(emits), lengths)
 
+
+def _viterbi_human_scale(rng, chain_cycles):
+    """24 sequences of Poisson emissions at GRCh38's lengths in 100 bp bins
+    (30.9 M steps) in one launch, timed beside the 24 batch-of-one launches
+    summed; every sequence's batched path and best equal to its own launch
+    (the plain loop would take over 20 minutes)."""
+    import torch
+
+    from ngsepcore_tpu_torch.kernels.hmm import viterbi_log, viterbi_log_batch
+
+    hmms = [_poisson_hmm(rng, -(-L // 100)) for L in GRCH38.values()]
+    start, trans, emits, lengths = _batch_of(hmms)
+    del hmms
+    batch = lambda: viterbi_log_batch(start, trans, emits, lengths)
+    paths, best = batch()
+    ms = cuda_ms(batch, reps=3)
+    alone_ms, r0 = 0.0, 0
+    for b, T in enumerate(lengths):
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        path, one = viterbi_log(start[b], trans[b : b + 1], emits[r0 : r0 + T])
+        z.record()
+        torch.cuda.synchronize()
+        alone_ms += a.elapsed_time(z)
+        if not (torch.equal(path, paths[r0 : r0 + T])
+                and bool(one.view(torch.int64) == best[b].view(torch.int64))):
+            fail(f"the batched path of {list(GRCH38)[b]} differs from its own launch")
+        r0 += T
+    n1 = lengths[0]
+    # the launch lasts as long as its longest sequence's chain; bytes of all
+    b_ms = max(viterbi_bound(n1, 5, chain_cycles)[0],
+               viterbi_bound(sum(lengths), 5, chain_cycles)[2])
+    log(f"  human scale, 24 GRCh38 sequences in 100 bp bins ({sum(lengths)} steps, chr1 "
+        f"{n1}): one launch {ms:.3f} ms ({ms * 1e6 / n1:.2f} ns a step of chr1), bound "
+        f"{b_ms:.3f} ms (chr1's chain), {100 * b_ms / ms:.1f}% of it; the 24 batch-of-one "
+        f"launches {alone_ms:.3f} ms summed; every batched path and best equal to its own "
+        f"launch's")
+    return dict(ms=ms, alone_ms=alone_ms, steps=sum(lengths), chr1=n1, bound_ms=b_ms)
+
+
+def _cnv_three_sequences(rng):
+    """A genome of three sequences (200, 100 and 50 kb) and 100 bp reads at
+    20x with a duplication on the first and a deletion on the second, as
+    alignments."""
+    from ngsepcore_tpu_torch.align.read_alignment import ReadAlignment
+    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
+    from ngsepcore_tpu_torch.core.sequences import QualifiedSequence, QualifiedSequenceList
+
+    seqs = QualifiedSequenceList()
+    alns = []
+    for name, L, event, factor in (("s1", 200_000, (60_000, 70_000), 2),
+                                    ("s2", 100_000, (40_000, 46_000), 0),
+                                    ("s3", 50_000, None, 1)):
+        seqs.add(QualifiedSequence(name=name, codes=rng.integers(0, 4, size=L).astype(np.int8)))
+        starts = rng.integers(1, L - 100, size=L * 20 // 100)
+        if factor == 0:
+            starts = starts[(starts < event[0]) | (starts >= event[1])]
+        elif factor == 2:
+            lo, hi = event
+            starts = np.concatenate([starts, rng.integers(lo, hi - 100, size=(hi - lo) // 5)])
+        alns += [ReadAlignment(sequence_name=name, first=int(s), cigar=[(100, "M")],
+                               read_chars="A" * 100) for s in np.sort(starts)]
+    return ReferenceGenome(seqs), alns
+
+
+def _device_to_host_copies(fn):
+    """fn()'s result and the device-to-host copies torch.profiler saw during
+    it, beside the CUDA kernels it saw (to tell an empty trace apart)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, sum("DtoH" in n for n in names), sum("viterbi_kernel" in n for n in names)
+
+
+def phase_viterbi():
+    """The Viterbi kernel against the plain step loop on the card: path
+    and best score bit for bit, one sequence a launch and ragged batches;
+    the human-scale batch against its sequences' own launches; a
+    three-sequence find_cnv_calls on the card against the CPU, one launch
+    and one device-to-host copy an HMM algorithm; the latency of each link
+    of a step's chain, whose sum at the timed S is the bound."""
+    import torch
+
+    from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
+    from ngsepcore_tpu_torch.kernels.hmm import viterbi_log, viterbi_log_batch, viterbi_log_ref
+
+    lat = viterbi_latencies()
+    log("phase 2b viterbi chain links, cycles: " + ", ".join(
+        f"{k} {lat[k]:.2f}" for k in VITERBI_LATENCY_KINDS))
     rng = np.random.default_rng(5)
     cases = [(f"Poisson S=5 T={T}", _poisson_hmm(rng, T))
              for T in (1, 2, 33, 46_000, 120_000)]
     cases += [
         ("random S=32 T=2000", _random_hmm(rng, 2000, 32)),
         ("random S=1 T=50", _random_hmm(rng, 50, 1)),
+        ("random S=7 T=777", _random_hmm(rng, 777, 7)),
+        ("random S=12 T=500", _random_hmm(rng, 500, 12)),
         ("per-step transitions S=5 T=5000", _random_hmm(rng, 5000, 5, per_step=True)),
         ("per-step transitions S=32 T=300", _random_hmm(rng, 300, 32, per_step=True)),
         ("-inf transitions S=6 T=3000", _random_hmm(rng, 3000, 6, neg_inf=True)),
@@ -1155,16 +1434,24 @@ def phase_viterbi():
          _random_hmm(rng, 1000, 6, per_step=True, neg_inf=True)),
         # every path scores the same: each argmax is a tie, state 0 must win
         ("tie S=4 T=500", (np.zeros(4), np.zeros((1, 4, 4)), -np.ones((500, 4)))),
+        ("signed zeros S=5 T=300", _signed_zero_hmm(rng, 300, 5)),
+        ("signed zeros S=3 T=40", _signed_zero_hmm(rng, 40, 3)),
+        # signed zeros, then random emissions: exact chunks, then plain ones
+        ("signed zeros then random S=5 T=3000", _signed_zero_hmm(rng, 3000, 5)[:2]
+         + (np.concatenate([_signed_zero_hmm(rng, 600, 5)[2],
+                            np.log10(rng.random((2400, 5)))]),)),
     ]
-    timing = None
+    same = lambda a, b: bool(a.view(torch.int64) == b.view(torch.int64))
+    timing, refs = None, {}
     for name, arrays in cases:
         args = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64)).cuda()
                 for a in arrays]
         path, best = viterbi_log(*args)
         torch.cuda.synchronize()
         want_path, want_best = viterbi_log_ref(*args)
+        refs[name] = (arrays, want_path, want_best)
         bad = int((path != want_path).sum())
-        same_best = bool(best.view(torch.int64) == want_best.view(torch.int64))
+        same_best = same(best, want_best)
         err = 0.0 if same_best else abs(float(best) - float(want_best))
         states = torch.bincount(path.long(), minlength=args[2].shape[1]).tolist()
         log(f"phase 2b viterbi {name}: path mismatches {bad} of {path.numel()}, best "
@@ -1179,13 +1466,64 @@ def phase_viterbi():
             T, S = args[2].shape
             ms = cuda_ms(lambda: viterbi_log(*args), calls=20)
             plain = cuda_ms(lambda: viterbi_log_ref(*args), reps=3)
-            b_ms, b_by, t_bytes, t_chain = viterbi_bound(T, S)
+            chain = viterbi_chain_cycles(lat, S)
+            b_ms, b_by, t_bytes, t_chain = viterbi_bound(T, S, chain)
             log(f"  time T={T} S={S}: kernel {ms:.4f} ms (median of 5 x 20 calls), "
-                f"plain {plain:.1f} ms (median of 3); bound {b_ms:.4f} ms by {b_by} "
-                f"(chain {t_chain:.4f}, bytes {t_bytes:.6f}), kernel at "
-                f"{100 * b_ms / ms:.1f}% of it")
+                f"{ms * 1e6 / T:.2f} ns a step, plain {plain:.1f} ms (median of 3); bound "
+                f"{b_ms:.4f} ms by {b_by} (measured chain {chain:.2f} cycles a step = "
+                f"{t_chain:.4f} ms at {SM_CLOCK_HZ / 1e9:.2f} GHz, bytes {t_bytes:.6f}), "
+                f"kernel at {100 * b_ms / ms:.1f}% of it")
             timing = dict(ms=ms, plain_ms=plain, max_abs_err=err + bad,
-                          bound_ms=b_ms, bound_by=b_by, shape=f"T={T} S={S}")
+                          bound_ms=b_ms, bound_by=b_by, shape=f"T={T} S={S}",
+                          chain_cycles=chain)
+
+    # ragged batches: every sequence against its own plain loop
+    batches = [(f"ragged S={S}", [_random_hmm(rng, T, S) for T in (1, 2, 33, 257, 4000)])
+               for S in (1, 5, 32)]
+    batches.append(("signed zeros, ragged S=5",
+                    [_signed_zero_hmm(rng, T, 5) for T in (1, 40, 300)]))
+    big = refs["Poisson S=5 T=120000"][0]
+    one = refs["Poisson S=5 T=1"][0]
+    batches.append(("T=1 beside T=120000", [one, big, one]))
+    for name, hmms in batches:
+        start, trans, emits, lengths = _batch_of(hmms)
+        paths, best = viterbi_log_batch(start, trans, emits, lengths)
+        torch.cuda.synchronize()
+        r0, bad = 0, 0
+        for b, (h, T) in enumerate(zip(hmms, lengths)):
+            want_path, want_best = (refs["Poisson S=5 T=120000"][1:] if h is big else
+                                    viterbi_log_ref(start[b], trans[b : b + 1],
+                                                    emits[r0 : r0 + T]))
+            bad += int((paths[r0 : r0 + T] != want_path).sum())
+            bad += not same(best[b], want_best)
+            r0 += T
+        log(f"phase 2b viterbi batch {name}, T {lengths}: one launch, {bad} path entries or "
+            f"best scores differ from the plain loop")
+        if bad:
+            fail(f"the Viterbi kernel's batch {name} disagrees with its plain version")
+
+    timing["human"] = _viterbi_human_scale(rng, timing["chain_cycles"])
+
+    # find_cnv_calls over three sequences, the card against the CPU
+    genome, alns = _cnv_three_sequences(rng)
+    calls = {}
+    for dev in ("cuda", "cpu"):
+        det = SingleSampleVariantsDetector(genome, alg_cnv=ALL_CNV_ALGORITHMS, device=dev)
+        calls[dev] = det.find_cnv_calls(alns)
+    if not calls["cuda"] or _call_fields(calls["cuda"]) != _call_fields(calls["cpu"]):
+        fail("three-sequence CNV calls differ between CUDA and CPU")
+    for alg in ("PoissonHMM", "MAXIMUMLIKELIHOOD"):
+        det = SingleSampleVariantsDetector(genome, alg_cnv=alg, device="cuda")
+        before = viterbi_log.launches
+        own, n_copies, n_kernels = _device_to_host_copies(lambda: det.find_cnv_calls(alns))
+        n_launch = viterbi_log.launches - before
+        log(f"  three sequences, {alg}: {len(own)} calls on {sorted({c.sequence_name for c in own})}, "
+            f"Viterbi launches {n_launch}, device-to-host copies {n_copies} (profiler: "
+            f"{n_kernels} Viterbi kernels)")
+        if n_launch != 1 or n_kernels != 1 or n_copies != 1:
+            fail(f"{alg}.call_cnvs over three sequences did not take one launch and one copy")
+    log(f"  three-sequence find_cnv_calls, {ALL_CNV_ALGORITHMS}: {len(calls['cuda'])} calls, "
+        f"equal on CUDA and the CPU")
     return timing
 
 
@@ -2435,13 +2773,18 @@ def phase_population_real_size(counters, genome, table, in_repeat, device="cuda"
     # a call does not name its algorithm: each HMM algorithm runs again alone
     for alg in ("PoissonHMM", "MAXIMUMLIKELIHOOD"):
         det.alg_cnv = alg
+        before = counters[-1].launches  # viterbi_log's
         own = det.find_cnv_calls(alns[2])
+        n_launch = counters[-1].launches - before
         cov_dup = _covering(own, *dup, lambda cn: cn >= 3)
         cov_del = _covering(own, *dele, lambda cn: cn <= 1)
         log(f"  {alg}: {len(own)} calls; duplication covered {cov_dup:.3f} by a call of "
-            f"copy number >= 3, deletion {cov_del:.3f} by one of copy number <= 1")
+            f"copy number >= 3, deletion {cov_del:.3f} by one of copy number <= 1; "
+            f"Viterbi launches {n_launch}")
         if cov_dup < 0.80 or cov_del < 0.80:
             fail(f"{alg} missed the planted duplication or deletion")
+        if device == "cuda" and n_launch != 1:
+            fail(f"{alg}.call_cnvs made {n_launch} Viterbi launches, not one")
     if device == "cuda" and launches["viterbi_log"] == 0:
         fail(f"the CNV stage did not launch the Viterbi kernel: {launches}")
     return launches
@@ -3061,6 +3404,8 @@ def kernel_entries(t: dict) -> list:
             "library_ms": None,
         }
         # where the shape came from the run: which one, and which kernel;
+        # the Viterbi kernel's measured chain a step and its human-scale
+        # batch (one launch, and its sequences' own launches summed);
         # graph_ms, where measured: 20 calls in one CUDA graph, without the
         # launch cost from Python that ms (20 back-to-back calls) includes;
         # the walk's mode, and for the tier3 and hamming modes what they
@@ -3068,7 +3413,7 @@ def kernel_entries(t: dict) -> list:
         # post-pass from Python and in a graph
         out.update({k: timing[k] for k in (
             "shape", "kernel", "graph_ms", "mode", "walk_graph_ms", "replaced_ms",
-            "replaced_graph_ms") if k in timing})
+            "replaced_graph_ms", "chain_cycles", "human") if k in timing})
         return out
 
     gotoh = ("ngsepcore_tpu_torch/csrc/gotoh_forward.cu",

@@ -11,8 +11,9 @@ Depth binning is one bincount; GC correction is a vectorized per-GC-bin
 renormalization; both stay on the host in numpy, as do the EWT and
 CNVnator callers and the emissions of the two HMM callers (math.lgamma,
 so that they equal the JAX package's bit for bit and no Viterbi tie falls
-the other way).  Only the copy-number recursion over all bins of a
-sequence runs on the callers' device (kernels/hmm.viterbi_log).
+the other way).  Only the copy-number recursion over all bins runs on the
+callers' device: every sequence of a call in one launch
+(kernels/hmm.viterbi_log_batch).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from ..align.read_alignment import ReadAlignment
 from ..core.genome import ReferenceGenome
-from ..kernels.hmm import viterbi_log
+from ..kernels.hmm import viterbi_log_batch
 from ..math.phred import phred_score
 from ..variants.model import CalledGenomicVariant, TYPE_CNV
 
@@ -125,14 +126,24 @@ class PoissonHMMReadDepthAlgorithm:
         self.change_probability = change_probability
         self.min_cnv_bins = min_cnv_bins
 
-    def _viterbi_path(self, log_start, log_trans, log_emit) -> np.ndarray:
-        """Most likely copy-number path of host float64 arrays, decoded on
-        the algorithm's device."""
+    def _viterbi_paths(self, log_start, log_trans, emits: list) -> list:
+        """Most likely copy-number path of each sequence's host float64
+        emissions (T_b, S), all decoded in one launch on the algorithm's
+        device: concatenated on the host, uploaded once, fetched once."""
+        if not emits:
+            return []
+        n = len(emits)
+        lengths = [len(e) for e in emits]
         up = lambda a: torch.from_numpy(
             np.ascontiguousarray(a, dtype=np.float64)
         ).to(self.device)
-        path, _ = viterbi_log(up(log_start), up(log_trans), up(log_emit))
-        return path.cpu().numpy()
+        paths, _ = viterbi_log_batch(
+            up(np.repeat(log_start[None], n, axis=0)),
+            up(np.repeat(log_trans, n, axis=0)),
+            up(np.concatenate(emits)),
+            lengths,
+        )
+        return np.split(paths.cpu().numpy(), np.cumsum(lengths)[:-1])
 
     def call_cnvs(
         self, distribution: ReadDepthDistribution
@@ -146,19 +157,22 @@ class PoissonHMMReadDepthAlgorithm:
         np.fill_diagonal(trans, 1 - p)
         log_trans = np.log10(trans)[None]
         log_start = np.full(S, -math.log10(S))
-        out: list[CalledGenomicVariant] = []
+        # Poisson log10 emissions per copy-number state; cn=0 keeps a small
+        # residual rate (mismapped reads)
+        lam = np.maximum(
+            mean * np.arange(S)[None, :] / self.normal_ploidy, mean * 0.05
+        )  # (1, S)
+        kept, emits = [], []
         for si in range(distribution.genome.num_sequences):
             depth = distribution.bins_per_seq[si]
             if len(depth) < 2 or depth.sum() == 0:
                 continue
-            # Poisson log10 emissions per copy-number state; cn=0 keeps a
-            # small residual rate (mismapped reads)
-            lam = np.maximum(
-                mean * np.arange(S)[None, :] / self.normal_ploidy, mean * 0.05
-            )  # (1, S)
-            d = np.round(depth)[:, None]
-            log_emit = _poisson_log10(d, lam)
-            path = self._viterbi_path(log_start, log_trans, log_emit)
+            kept.append(si)
+            emits.append(_poisson_log10(np.round(depth)[:, None], lam))
+        paths = self._viterbi_paths(log_start, log_trans, emits)
+        out: list[CalledGenomicVariant] = []
+        for si, path in zip(kept, paths):
+            depth = distribution.bins_per_seq[si]
             # extract maximal runs of non-normal copy number
             seq_name = distribution.genome.sequence_name(si)
             bs = distribution.bin_size
@@ -471,21 +485,23 @@ class MaximumLikelihoodReadDepthAlgorithm(PoissonHMMReadDepthAlgorithm):
         log_trans = np.log10(trans)[None]
         log_start = np.full(S, -math.log10(S))
         mu = np.maximum(mean * np.arange(S) / self.normal_ploidy, mean * 0.05)
-        out = []
+        # per-state sigma scales with sqrt of the expected copies
+        sd = sigma * np.sqrt(np.maximum(np.arange(S), 0.25) / self.normal_ploidy)
+        kept, emits = [], []
         for si in range(distribution.genome.num_sequences):
             depth = distribution.bins_per_seq[si]
             if len(depth) < 2 or depth.sum() == 0:
                 continue
-            # per-state sigma scales with sqrt of the expected copies
-            sd = sigma * np.sqrt(np.maximum(np.arange(S), 0.25) / self.normal_ploidy)
-            log_emit = (
+            kept.append(si)
+            emits.append((
                 -0.5 * ((depth[:, None] - mu[None, :]) / sd[None, :]) ** 2
                 - np.log(sd[None, :] * math.sqrt(2 * math.pi))
-            ) / math.log(10.0)
-            path = self._viterbi_path(log_start, log_trans, log_emit)
-            out.extend(
-                self._calls_from_path(distribution, si, path, depth, mu)
-            )
+            ) / math.log(10.0))
+        paths = self._viterbi_paths(log_start, log_trans, emits)
+        out = []
+        for si, path in zip(kept, paths):
+            out.extend(self._calls_from_path(
+                distribution, si, path, distribution.bins_per_seq[si], mu))
         return out
 
     def _calls_from_path(self, distribution, si, path, depth, mu):

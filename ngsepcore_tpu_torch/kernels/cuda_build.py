@@ -52,7 +52,8 @@ _SIGNATURES = {
     ],
     "viterbi_launch": [
         _P, _P, _P,  # log_start, log_trans, log_emit
-        _I, _I, _I, _I,  # batch, T, S, per_step
+        _P,  # offsets (hmm.ragged_layout)
+        _I, _I, _I,  # n_seq, S, per_step
         _P, _P, _P,  # back, path, best
         _P,  # stream
     ],

@@ -15,7 +15,9 @@ clusters) builds that matrix and reuses these functions.  Transitions are
 `viterbi_log` is the one recursion on a ported main path (the read-depth
 HMM callers, ~46,000 steps a sequence): on a CUDA tensor it launches the
 hand-written kernel csrc/viterbi.cu, on a CPU tensor it runs the plain step
-loop `viterbi_log_ref`.  forward_log, backward_log, posterior_log and
+loop `viterbi_log_ref`.  `viterbi_log_batch` decodes every sequence of a
+call (concatenated, ragged) in one launch, which is how the callers use
+it.  forward_log, backward_log, posterior_log and
 baum_welch_expected_counts are plain step loops on either device.
 """
 from __future__ import annotations
@@ -99,16 +101,22 @@ def posterior_log(log_start, log_trans, log_emit):
 def viterbi_log_ref(log_start, log_trans, log_emit):
     """Plain step loop of viterbi_log on the tensors' device: the first
     maximum wins a tie, at every step and at the end (torch.max's rule,
-    and jnp.argmax's)."""
+    and jnp.argmax's).  A step's maximum orders -0.0 below +0.0, as the
+    JAX package's jnp.max does, so that a best score of zero has its sign."""
     per_step = _check_hmm_args(log_start, log_trans, log_emit)
     T, S = log_emit.shape
     delta = log_start + log_emit[0]
     back = torch.empty((T - 1, S), dtype=torch.int64, device=log_emit.device)
     for t in range(1, T):
         trans_t = log_trans[t - 1 if per_step else 0]
-        top, back[t - 1] = torch.max(delta[:, None] + trans_t, dim=0)
-        delta = top + log_emit[t]
-    best, last = torch.max(delta, dim=0)
+        scores = delta[:, None] + trans_t
+        top, back[t - 1] = torch.max(scores, dim=0)
+        # where a score is +0.0 the maximum is >= +0.0: adding +0.0 turns a
+        # -0.0 maximum into +0.0 and leaves any other as it is
+        pos_zero = (scores.view(torch.int64) == 0).any(dim=0)
+        delta = torch.where(pos_zero, top + 0.0, top) + log_emit[t]
+    last = torch.argmax(delta)
+    best = delta[last]
     # the backtrace is T dependent one-element reads: walk it on the host
     back = back.cpu().numpy()
     path = [int(last)]
@@ -118,15 +126,102 @@ def viterbi_log_ref(log_start, log_trans, log_emit):
     return path, best
 
 
-def back_pointer_scratch(T: int, S: int, device) -> torch.Tensor:
-    """The kernel's back-pointer scratch for one sequence: a 64-bit word
-    per state and block of 8 steps, one byte a step."""
-    return torch.empty(((T + 6) // 8, S), dtype=torch.int64, device=device)
+def ragged_layout(lengths, S: int) -> torch.Tensor:
+    """csrc/viterbi.cu's offsets of a batch of sequences of `lengths` steps
+    and S states: a (2, n+1) int64 CPU tensor whose row 0 holds the first
+    row of each sequence in the concatenated emissions (and paths) and row 1
+    its first back-pointer word (ceil((T-1)/8) x S 64-bit words a sequence,
+    one byte a step and state); column n holds the totals."""
+    rows, words = [0], [0]
+    for T in lengths:
+        T = int(T)
+        if T < 1:
+            raise ValueError("every sequence needs T >= 1")
+        rows.append(rows[-1] + T)
+        words.append(words[-1] + (T + 6) // 8 * S)
+    return torch.tensor([rows, words], dtype=torch.int64)
+
+
+def _check_batch_args(log_start, log_trans, log_emits, lengths):
+    """Shapes, dtype and device of a batch; True when the transitions differ
+    per step (a batch of one only)."""
+    for name, t in (("log_start", log_start), ("log_trans", log_trans),
+                    ("log_emits", log_emits)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float64:
+            raise TypeError(f"{name} must be a float64 tensor")
+        if t.device != log_emits.device:
+            raise ValueError("log_start, log_trans and log_emits must share a device")
+    n = len(lengths)
+    if log_emits.dim() != 2 or log_emits.shape[1] < 1:
+        raise ValueError("log_emits must be (sum T, S) with S >= 1")
+    S = log_emits.shape[1]
+    if sum(int(T) for T in lengths) != log_emits.shape[0] or min(lengths, default=1) < 1:
+        raise ValueError("lengths must be >= 1 and sum to the rows of log_emits")
+    if log_start.shape != (n, S):
+        raise ValueError(f"log_start must be ({n}, {S})")
+    per_step = n == 1 and log_trans.dim() == 3 and log_trans.shape[0] != 1
+    steps = int(lengths[0]) - 1 if per_step else n
+    if log_trans.shape != (steps, S, S):
+        raise ValueError(f"log_trans must be ({n}, {S}, {S})"
+                         + (f" or ({steps}, {S}, {S})" if n == 1 else ""))
+    return per_step
+
+
+def viterbi_log_batch(log_start, log_trans, log_emits, lengths):
+    """Most likely state paths of n sequences in one call: log_start (n, S),
+    log_trans (n, S, S), one matrix a sequence shared by its steps (or, for
+    n = 1, (T-1, S, S) per step), log_emits (sum T, S) the sequences'
+    emissions concatenated, lengths their T.  Returns (paths (sum T,) int32
+    concatenated the same way, best (n,) f64).  CPU tensors run
+    viterbi_log_ref on each sequence; CUDA tensors launch csrc/viterbi.cu
+    once for the whole batch."""
+    lengths = [int(T) for T in lengths]
+    per_step = _check_batch_args(log_start, log_trans, log_emits, lengths)
+    n, S = len(lengths), log_emits.shape[1]
+    dev = log_emits.device
+    if dev.type == "cpu":
+        paths, bests, r0 = [], [], 0
+        for b, T in enumerate(lengths):
+            trans = log_trans if per_step else log_trans[b : b + 1]
+            path, best = viterbi_log_ref(log_start[b], trans, log_emits[r0 : r0 + T])
+            paths.append(path)
+            bests.append(best)
+            r0 += T
+        return (torch.cat(paths) if paths else torch.empty(0, dtype=torch.int32),
+                torch.stack(bests) if bests else torch.empty(0, dtype=torch.float64))
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if S > MAX_STATES:
+        raise ValueError(f"{S} states: the Viterbi kernel takes at most {MAX_STATES}")
+    layout = ragged_layout(lengths, S)
+    # pinned, so that the copy does not wait for the stream's earlier work
+    offsets = layout.pin_memory().to(dev, non_blocking=True)
+    back = torch.empty(int(layout[1, -1]), dtype=torch.int64, device=dev)
+    path = torch.empty(int(layout[0, -1]), dtype=torch.int32, device=dev)
+    best = torch.empty(n, dtype=torch.float64, device=dev)
+    if n == 0:
+        return path, best
+    log_start = log_start.contiguous()
+    log_trans = log_trans.contiguous()
+    log_emits = log_emits.contiguous()
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.viterbi_launch(
+            log_start.data_ptr(), log_trans.data_ptr(), log_emits.data_ptr(),
+            offsets.data_ptr(), n, S, int(per_step), back.data_ptr(), path.data_ptr(),
+            best.data_ptr(), stream,
+        )
+    check("viterbi_log", rc)
+    viterbi_log.launches += 1
+    return path, best
 
 
 def viterbi_log(log_start, log_trans, log_emit):
     """Most likely state path; returns (path (T,) int32, best log prob).
-    CPU tensors run viterbi_log_ref; CUDA tensors launch the kernel.
+    CPU tensors run viterbi_log_ref; CUDA tensors launch the kernel, as
+    viterbi_log_batch of one sequence.  `launches` counts every launch of
+    the kernel, this function's and viterbi_log_batch's.
 
     Ref: AbstractHMM.getViterbiPath.
     """
@@ -134,28 +229,9 @@ def viterbi_log(log_start, log_trans, log_emit):
         return viterbi_log_ref(log_start, log_trans, log_emit)
     if log_emit.device.type != "cuda":
         raise ValueError(f"unsupported device {log_emit.device}")
-    per_step = _check_hmm_args(log_start, log_trans, log_emit)
-    T, S = log_emit.shape
-    if S > MAX_STATES:
-        raise ValueError(f"{S} states: the Viterbi kernel takes at most {MAX_STATES}")
-    dev = log_emit.device
-    log_start = log_start.contiguous()
-    log_trans = log_trans.contiguous()
-    log_emit = log_emit.contiguous()
-    back = back_pointer_scratch(T, S, dev)
-    path = torch.empty(T, dtype=torch.int32, device=dev)
-    best = torch.empty((), dtype=torch.float64, device=dev)
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.viterbi_launch(
-            log_start.data_ptr(), log_trans.data_ptr(), log_emit.data_ptr(),
-            1, T, S, int(per_step), back.data_ptr(), path.data_ptr(),
-            best.data_ptr(), stream,
-        )
-    check("viterbi_log", rc)
-    viterbi_log.launches += 1
-    return path, best
+    _check_hmm_args(log_start, log_trans, log_emit)
+    path, best = viterbi_log_batch(log_start[None], log_trans, log_emit, [log_emit.shape[0]])
+    return path, best[0]
 
 
 viterbi_log.launches = 0

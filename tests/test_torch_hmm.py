@@ -3,7 +3,9 @@ CPU, on seeded numpy inputs: Viterbi path and best score equal (ties and
 -inf transitions included), forward/backward/posterior within 1e-10
 absolute in log10, Baum-Welch expected counts within 1e-10 relative in
 linear space.  A torch model of csrc/viterbi.cu's lane decomposition is
-held against the plain step loop bit for bit."""
+held against the plain step loop bit for bit, and viterbi_log_batch's CPU
+path (ragged batches) against the loop and the JAX package; best scores
+are compared by bit pattern, the sign of a zero included."""
 import numpy as np
 import pytest
 import torch
@@ -39,6 +41,22 @@ def _tie_hmm(T=40, S=4):
     return np.zeros(S), np.zeros((1, S, S)), -np.ones((T, S))
 
 
+def _signed_zero_hmm(seed, T=40, S=5):
+    """Start -0.0, transitions +-0.0 at random, emissions -0.0 with a few
+    +0.0: every candidate ties, and a best score's sign is that of a
+    maximum that orders -0.0 below +0.0 (the JAX package's jnp.max).  At
+    seed 3 the first maximum's sum is -0.0 where that maximum is +0.0."""
+    rng = np.random.default_rng(seed)
+    start = np.full(S, -0.0)
+    trans = np.where(rng.random((1, S, S)) < 0.5, -0.0, 0.0)
+    emit = np.where(rng.random((T, S)) < 0.03, 0.0, -0.0)
+    return start, trans, emit
+
+
+def _bits(x):
+    return np.float64(float(x)).view(np.int64)
+
+
 CASES = {
     "shared_S5": dict(seed=1, T=257, S=5),
     "per_step_S5": dict(seed=2, T=64, S=5, per_step=True),
@@ -52,10 +70,19 @@ CASES = {
 
 
 def _case(name):
-    return _tie_hmm() if name == "tie" else _hmm(**CASES[name])
+    if name == "tie":
+        return _tie_hmm()
+    if name == "signed_zero":
+        return _signed_zero_hmm(3)
+    if name == "signed_zero_then_random":
+        # zeros tie through the first staged chunks, random sums after
+        start, trans, emit = _signed_zero_hmm(3, T=600)
+        emit[300:] = np.log10(np.random.default_rng(3).random((300, emit.shape[1])))
+        return start, trans, emit
+    return _hmm(**CASES[name])
 
 
-ALL = sorted(CASES) + ["tie"]
+ALL = sorted(CASES) + ["tie", "signed_zero", "signed_zero_then_random"]
 
 
 @pytest.mark.parametrize("name", ALL)
@@ -65,39 +92,78 @@ def test_viterbi_equals_jax(name):
     path, best = thmm.viterbi_log(T_(start), T_(trans), T_(emit))
     assert path.dtype == torch.int32 and path.shape == (emit.shape[0],)
     np.testing.assert_array_equal(path.numpy(), np.asarray(want_path))
-    assert float(best) == float(want_best)
+    assert _bits(best) == _bits(want_best)
     if name == "tie":
         assert not path.any()
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_signed_zero_best_equals_jax(seed):
+    """Where every candidate is a zero (or a small integer, so that sums
+    are exact and zeros of either sign arise), path and best score equal
+    the JAX package's by bit pattern, for plain loop and kernel model."""
+    rng = np.random.default_rng(seed)
+    S, T = int(rng.integers(2, 9)), int(rng.integers(2, 60))
+    if seed % 2:
+        start, trans, emit = _signed_zero_hmm(seed, T, S)
+    else:
+        vals = np.array([-2.0, -1.0, -0.0, 0.0, 1.0])
+        start, trans, emit = (rng.choice(vals, shape) for shape in ((S,), (1, S, S), (T, S)))
+    want_path, want_best = jhmm.viterbi_log(start, trans, emit)
+    for path, best in (thmm.viterbi_log(T_(start), T_(trans), T_(emit)),
+                       _kernel_model(T_(start), T_(trans), T_(emit))):
+        np.testing.assert_array_equal(path.numpy(), np.asarray(want_path))
+        assert _bits(best) == _bits(want_best)
+
+
+def _ring_steps(cap, per_step):
+    """Ring<kCap, kPerStep>::kSteps of csrc/viterbi.cu."""
+    return (32 if cap <= 8 else 8) if per_step else (256 if cap <= 8 else 64)
+
+
 def _kernel_model(start, trans, emit):
     """viterbi_kernel of csrc/viterbi.cu, statement by statement with the
-    lanes as a tensor axis: lane j takes the first maximum of delta[i] +
-    trans[i][j] over kCap >= S candidates (those from S up are the last
-    state's delta, which the idle lanes mirror, plus -inf) by the tree of
-    pairwise strict '>' selects, packs the back pointers of a block of 8
-    steps into the bytes of one 64-bit word, folds the last deltas with a
-    strict '>', and walks the bytes back."""
+    lanes as a tensor axis.  kCap is S exactly for shared transitions and
+    S <= 8, else a padded 8 or 32 (candidates from S up are the last
+    state's delta, which the idle lanes mirror, plus -inf).  Steps are
+    taken a staged chunk of _ring_steps at a time; lane j exchanges every
+    delta, adds its transition column, takes the value and index of the
+    first maximum by a tree of compare-selects in which the left range
+    keeps a tie (first_max, the index carried beside the value), and adds
+    z + the emission, z the zero whose sign bit is the AND of the
+    candidates' (jnp.max's sign).  A block of 8 back pointers is packed
+    into the bytes of one 64-bit word.  The last deltas are folded with a strict '>' and the bytes
+    walked back."""
     T, S = emit.shape
-    cap = 8 if S <= 8 else 32
     per_step = trans.shape[0] != 1
+    cap = S if not per_step and S <= 8 else (8 if S <= 8 else 32)
+    steps = _ring_steps(cap, per_step)
     pad = torch.full((cap - S, S), -torch.inf, dtype=torch.float64)
+    trc = torch.cat([trans[0], pad])
     delta = start + emit[0]
     words = np.zeros(((T + 6) // 8, S), dtype=np.uint64)
-    for t in range(1, T):
-        tr = torch.cat([trans[t - 1 if per_step else 0], pad])
-        lanes = torch.cat([delta, delta[-1:].expand(cap - S)])
-        c = list(lanes[:, None] + tr)
-        arg = [torch.full((S,), i, dtype=torch.int64) for i in range(cap)]
-        w = 1
-        while w < cap:
-            for i in range(0, cap, 2 * w):
-                upd = c[i + w] > c[i]
-                c[i] = torch.where(upd, c[i + w], c[i])
-                arg[i] = torch.where(upd, arg[i + w], arg[i])
-            w *= 2
-        delta = c[0] + emit[t]
-        words[(t - 1) // 8] |= arg[0].numpy().astype(np.uint64) << np.uint64(8 * ((t - 1) % 8))
+    for t_lo in range(1, T, steps):
+        ring_emit = emit[t_lo : t_lo + steps]
+        ring_trans = trans[t_lo - 1 : t_lo - 1 + steps] if per_step else None
+        for u in range(len(ring_emit)):
+            t = t_lo + u
+            if per_step:
+                trc = torch.cat([ring_trans[u], pad])
+            lanes = torch.cat([delta, delta[-1:].expand(cap - S)])
+            cand = list(lanes[:, None] + trc)
+            z = torch.where(torch.stack([torch.signbit(c) for c in cand]).all(0), -0.0, 0.0)
+            m = list(cand)
+            a = [torch.full((S,), i) for i in range(cap)]
+            w = 1
+            while w < cap:
+                for i in range(0, cap - w, 2 * w):
+                    up = m[i + w] > m[i]
+                    m[i] = torch.where(up, m[i + w], m[i])
+                    a[i] = torch.where(up, a[i + w], a[i])
+                w *= 2
+            top, arg = m[0], a[0]
+            delta = top + (z.double() + ring_emit[u])
+            words[(t - 1) // 8] |= arg.numpy().astype(np.uint64) << np.uint64(8 * ((t - 1) % 8))
     top, state = delta[0], 0
     for i in range(1, S):
         if delta[i] > top:
@@ -116,7 +182,70 @@ def test_kernel_lane_model_equals_plain_loop(name):
     want_path, want_best = thmm.viterbi_log_ref(start, trans, emit)
     path, best = _kernel_model(start, trans, emit)
     assert torch.equal(path, want_path)
-    assert float(best) == float(want_best)
+    assert _bits(best) == _bits(want_best)
+
+
+def _ragged_batch(S, lengths=(1, 2, 33, 257), seed=20):
+    """Shared-transition HMMs of S states, one per length: the per-sequence
+    arrays, and the batch as viterbi_log_batch takes it."""
+    hmms = [_hmm(seed + k, T, S) for k, T in enumerate(lengths)]
+    batch = (np.stack([h[0] for h in hmms]), np.concatenate([h[1] for h in hmms]),
+             np.concatenate([h[2] for h in hmms]))
+    return hmms, batch
+
+
+@pytest.mark.parametrize("S", [1, 5, 32])
+def test_viterbi_log_batch_ragged_equals_loop_and_jax(S):
+    lengths = (1, 2, 33, 257)
+    hmms, batch = _ragged_batch(S, lengths)
+    paths, best = thmm.viterbi_log_batch(*map(T_, batch), lengths)
+    assert paths.dtype == torch.int32 and paths.shape == (sum(lengths),)
+    assert best.dtype == torch.float64 and best.shape == (len(lengths),)
+    r0 = 0
+    for k, (T, h) in enumerate(zip(lengths, hmms)):
+        want_path, want_best = thmm.viterbi_log_ref(*map(T_, h))
+        assert torch.equal(paths[r0 : r0 + T], want_path)
+        assert _bits(best[k]) == _bits(want_best)
+        jax_path, jax_best = jhmm.viterbi_log(*h)
+        np.testing.assert_array_equal(paths[r0 : r0 + T].numpy(), np.asarray(jax_path))
+        assert _bits(best[k]) == _bits(jax_best)
+        r0 += T
+
+
+def test_viterbi_log_batch_per_step_batch_of_one():
+    start, trans, emit = _hmm(2, 64, 5, per_step=True)
+    paths, best = thmm.viterbi_log_batch(T_(start[None]), T_(trans), T_(emit), [64])
+    want_path, want_best = thmm.viterbi_log_ref(T_(start), T_(trans), T_(emit))
+    assert torch.equal(paths, want_path) and _bits(best[0]) == _bits(want_best)
+
+
+def test_ragged_layout_offsets():
+    """Row offsets of the concatenated emissions and paths, and back-pointer
+    word offsets: ceil((T-1)/8) x S 64-bit words a sequence (a word a state
+    per 8 steps); a sequence of T = 1 has none."""
+    layout = thmm.ragged_layout([1, 2, 9, 17, 8], 5)
+    assert layout.dtype == torch.int64
+    assert layout.tolist() == [[0, 1, 3, 12, 29, 37], [0, 0, 5, 10, 20, 25]]
+    assert thmm.ragged_layout([], 3).tolist() == [[0], [0]]
+    with pytest.raises(ValueError):
+        thmm.ragged_layout([3, 0], 2)
+
+
+@pytest.mark.parametrize("case", ["lengths_sum", "start_shape", "per_step_batch", "device"])
+def test_viterbi_log_batch_rejects_bad_arguments(case):
+    hmms, (start, trans, emit) = _ragged_batch(3, (4, 6))
+    start, trans, emit = T_(start), T_(trans), T_(emit)
+    lengths, exc = [4, 6], ValueError
+    if case == "lengths_sum":
+        lengths = [4, 5]
+    elif case == "start_shape":
+        start = start[:1]
+    elif case == "per_step_batch":
+        trans = T_(np.zeros((9, 3, 3)))
+    elif case == "device":
+        start, trans, emit = (x.to("meta") for x in (start, trans, emit))
+    with pytest.raises(exc):
+        thmm.viterbi_log_batch(start, trans, emit, lengths)
 
 
 @pytest.mark.parametrize("name", [n for n in ALL if n != "T1"])

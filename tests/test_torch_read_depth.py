@@ -74,6 +74,31 @@ def _synthetic_genome():
     return JGenome(seqs)
 
 
+def _multi_sequence_genome():
+    """Four sequences: 100,000 and 40,000 bp, each with one planted event in
+    _multi_sequence_dist; 100 bp (one bin: skipped); 20,000 bp at zero depth
+    (skipped)."""
+    rng = np.random.default_rng(13)
+    seqs = JQSL()
+    for name, L in (("chrA", 100_000), ("chrB", 40_000), ("chrC", 100), ("chrD", 20_000)):
+        seqs.add(JQS(name=name, codes=rng.integers(0, 4, size=L).astype(np.int8)))
+    return JGenome(seqs)
+
+
+def _multi_sequence_dist(module, genome):
+    """Depth 30 with a duplication on chrA (bins 300-380) and a deletion on
+    chrB (bins 100-160); chrC's one bin at 31, chrD at zero."""
+    rng = np.random.default_rng(17)
+    dist = module.ReadDepthDistribution(genome)
+    a = rng.poisson(30.0, size=1000).astype(float)
+    a[300:380] = rng.poisson(60.0, size=80)
+    b = rng.poisson(30.0, size=400).astype(float)
+    b[100:160] = rng.poisson(15.0, size=60)
+    dist.bins_per_seq[:] = [a, b, np.array([31.0]), np.zeros(200)]
+    dist.fit()
+    return dist
+
+
 def _fields(calls):
     return [dataclasses.asdict(c) for c in calls]
 
@@ -126,6 +151,31 @@ def test_calls_equal_jax_on_synthetic_depth(name):
     dups = [c for c in got if c.copy_number > 2]
     assert any(abs(c.first - 20001) <= 500 for c in dels)
     assert any(abs(c.first - 50001) <= 500 for c in dups)
+
+
+@pytest.mark.parametrize("name", ["PoissonHMM", "MAXIMUMLIKELIHOOD"])
+def test_multi_sequence_calls_equal_jax_in_one_decode(name, monkeypatch):
+    """Every sequence of a call is decoded in one viterbi_log_batch call
+    (the skipped ones left out) and its path sliced back: calls equal the
+    JAX package's, which decodes one sequence at a time."""
+    genome = _multi_sequence_genome()
+    want = _make(jrd, name).call_cnvs(_multi_sequence_dist(jrd, genome))
+    batches = []
+    real = trd.viterbi_log_batch
+
+    def counting(start, trans, emits, lengths):
+        batches.append(list(lengths))
+        return real(start, trans, emits, lengths)
+
+    monkeypatch.setattr(trd, "viterbi_log_batch", counting)
+    got = _make(trd, name).call_cnvs(_multi_sequence_dist(trd, port_genome(genome)))
+    assert _fields(got) == _fields(want)
+    assert batches == [[1000, 400]]
+    assert any(c.sequence_name == "chrA" and c.copy_number > 2
+               and abs(c.first - 30001) <= 500 for c in got)
+    assert any(c.sequence_name == "chrB" and c.copy_number < 2
+               and abs(c.first - 10001) <= 500 for c in got)
+    assert all(c.sequence_name in ("chrA", "chrB") for c in got)
 
 
 def test_algorithm_registry_equals_jax():
