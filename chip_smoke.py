@@ -1,6 +1,6 @@
 """Smoke run of ngsepcore_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 2c,14] [--asm-row A]
+    python3 chip_smoke.py [--phases 2d,18,19] [--asm-row A]
 
 Builds the CUDA kernels from ngsepcore_tpu_torch/csrc (first use), holds
 each against its plain PyTorch version on the card, full plane and edge
@@ -63,17 +63,31 @@ AssemblyGraphStatistics and SIH through the CLI; phase 17 assembles
 bench_configs.py's 100 kb linearity row (30x of 10 kb reads) on the card
 with an identity gate, its stage times and launches (`--asm-row A`: scale
 row A, 60x of 15 kb reads over 300 kb, instead).
+The imputer follows.  Phase 2d holds the forward-backward kernel
+(csrc/forward_backward.cu, the imputer's E-step) against its batched plain
+loop (S 1 to 1,024, shared and per-step transitions, a dead state, 1 to 32
+samples a block) and times it at the imputer's window (300 samples x 5,000
+sites, S 64) beside its bound (the f64 instructions of its cells, exp10's
+counted in its SASS) and the plain loop, with the samples a block swept at
+other batch sizes; phase 18 runs tests/test_imputation.py's two workloads
+on CUDA against the CPU, in process and through VCFImpute, and the VCF
+downstream commands on the imputed VCF (VCFFilter, VCFSummaryStats,
+VCFDistanceMatrixCalculator -> NeighborJoining, VCFConverter,
+VCFComparator); phase 19 imputes 300 samples x 20,000 SNVs at NGSEP's
+defaults (5 windows, 55 launches) with the JAX test's accuracy gate.
 With --phases only the listed phases run (and the ones whose data they
 use; 0 and 1 always run).
 Prints one line per phase and exits nonzero at the first failure.  The
 last lines are a JSON object of the kernels (launch counts from the timed
-runs of phases 5, 6, 9, 10, 13, 15 and 17, errors and times measured here; the
+runs of phases 5, 6, 9, 10, 13, 15, 17 and 19, errors and times measured here; the
 tier-2 and long-read entries at the launched shape that takes most of
 their time), the card's name and power limit, and the result line.  A kernel's bound is the least time the card could take: the
 larger of its bytes (inputs read once, outputs written once) over the
 memory rate and its integer operations over the INT32 issue rate (for the
 Viterbi kernel: its serial chain of dependent instructions over the clock;
-for the walk: its longest chain of dependent loads at one L2 hit each).
+for the walk: its longest chain of dependent loads at one L2 hit each; for
+the forward-backward kernel: the largest of its bytes, its f64
+instructions over the FP64 rate and its chain of a step).
 
 Imports torch, numpy and the port only (bench.py's gates are numpy).
 """
@@ -3279,8 +3293,516 @@ def phase_assembly_real_size(counters, row="lin100", device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-PHASES = ("2", "2b", "2c", "3", "4", "5", "6", "7", "9", "10", "12", "13", "8", "11",
-          "14", "15", "16", "17")
+# The imputer's forward-backward kernel (csrc/forward_backward.cu), phase 2d.
+# The f64 units its work is made of, at full load: kind 1 runs
+# x = exp10(x - 1.0) (10^(v - m); x stays in [0.1, 1]), kind 2
+# x = log10(x) + 10.0 (m + log10(s); x stays near 11.04), eight independent
+# chains a thread and four blocks of 256 threads an SM; each block stores its
+# SM and that SM's clock at its start and end.
+FB_RATE_CU = r"""
+#include <cuda_runtime.h>
+
+namespace {
+constexpr int kChains = 8;
+
+__device__ __forceinline__ long long stamp() {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+
+template <int kKind>
+__global__ void __launch_bounds__(256) fb_rate_kernel(const double* __restrict__ in, int reps,
+                                                      long long* span, double* sink) {
+  double x[kChains];
+#pragma unroll
+  for (int k = 0; k < kChains; ++k) x[k] = in[(threadIdx.x + k) & 31];
+  __syncthreads();
+  const long long t0 = stamp();
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int k = 0; k < kChains; ++k) {
+      if (kKind == 1) x[k] = exp10(x[k] - 1.0);
+      else x[k] = log10(x[k]) + 10.0;
+    }
+  }
+  double s = 0.0;
+#pragma unroll
+  for (int k = 0; k < kChains; ++k) s += x[k];
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  __syncthreads();
+  const long long t1 = stamp();
+  if (threadIdx.x == 0) {
+    unsigned sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    span[3 * blockIdx.x] = sm;
+    span[3 * blockIdx.x + 1] = t0;
+    span[3 * blockIdx.x + 2] = t1;
+  }
+}
+}  // namespace
+
+extern "C" int fb_rate(int kind, const void* in, int blocks, int reps, void* span, void* sink) {
+  const double* i = (const double*)in;
+  long long* sp = (long long*)span;
+  double* s = (double*)sink;
+  if (kind == 1) fb_rate_kernel<1><<<blocks, 256>>>(i, reps, sp, s);
+  else fb_rate_kernel<2><<<blocks, 256>>>(i, reps, sp, s);
+  return (int)cudaGetLastError();
+}
+"""
+FB_RATE_CHAINS = 8
+FP64_OPS_PER_S = 132 * 64 * 1.98e9  # 16.7 T f64 lane instructions/s (H100 SXM)
+# the FP64 tensor cores' dense peak (NVIDIA H100 SXM data sheet: 67 TFLOP/s)
+FP64_TENSOR_FLOPS = 67e12
+
+
+def fb_rates(reps: int = 1024) -> dict:
+    """FP64 lane cycles (an SM's cycles x its 64 FP64 lanes) of one exp10(x
+    - c) and of one log10(x) + c at full load on this card (FB_RATE_CU,
+    built into the package's build directory): what each costs where
+    nothing waits, whatever ptxas made of it and whichever way its range
+    checks branch.  Per SM: its clock between its first block's start and
+    its last block's end, over the units its blocks ran; the median of the
+    SMs, the least of three launches."""
+    import ctypes
+
+    import torch
+
+    from ngsepcore_tpu_torch.kernels import cuda_build
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda_build.BUILD_DIR / "fb_rate.cu"
+    src.write_text(FB_RATE_CU)
+    lib, _ = cuda_build.build([src], stem="libfb_rate")
+    fn = lib.fb_rate
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    inp = torch.from_numpy(np.random.default_rng(1).random(32) * 0.9 + 0.1).cuda()
+    span = torch.zeros((blocks, 3), dtype=torch.int64, device="cuda")
+    sink = torch.empty(blocks * 256, dtype=torch.float64, device="cuda")
+    out = {}
+    for kind, name in ((1, "exp10"), (2, "log10")):
+        best = float("inf")
+        for _ in range(3):
+            cuda_build.check("fb_rate", fn(kind, inp.data_ptr(), blocks, reps, span.data_ptr(),
+                                           sink.data_ptr()))
+            torch.cuda.synchronize()
+            by_sm = {}
+            for sm, t0, t1 in span.cpu().numpy().tolist():
+                by_sm.setdefault(sm, []).append((t0, t1))
+            lanes = [64 * (max(t for _, t in ts) - min(t for t, _ in ts))
+                     / (len(ts) * 256 * FB_RATE_CHAINS * reps) for ts in by_sm.values()]
+            best = min(best, float(np.median(lanes)))
+        out[name] = best
+    if not bool(torch.isfinite(sink).all()):
+        fail("the exp10 / log10 rate kernel left a non-finite value")
+    return out
+
+
+def fb_bound(n: int, T: int, S: int, per_step: bool, lat: dict, rate: dict):
+    """(bound_ms, bound_by, terms in ms) of one posterior_log_batch launch:
+    the least time the card could take for the function, in any design.
+    The transitions are shared by every sample of a step and the imputer's
+    are finite (log10 above about -14), so each step of each pass can be an
+    (n x S) x (S x S) product of probabilities scaled by a maximum, with
+    10^ and log10 only where values enter and leave log10.  Terms:
+    - bytes: emissions read and posteriors written once (16 n T S), the
+      transitions, start and ll, over HBM's rate;
+    - products: 2 (T-1) n S^2 f64 multiply-adds on the FP64 tensor cores;
+    - fp64, beside them on the FP64 lanes: 10^(e - m) of every emission and
+      10^M of every transition entry, log10(p) + c of every posterior, at
+      fb_rates' lane cycles (the smaller elementwise work is left out: it
+      only lowers the floor);
+    - chain: each pass's T-1 dependent steps, each a shared-memory exchange
+      of the previous step's S values and a tree of 1 + ceil(log2 S)
+      dependent f64 adds (viterbi_latencies' links), at 1.98 GHz.
+    Also `per_cell_form`, not part of the bound: the f64 lane time of the
+    log-space form the kernel runs, 2 (T-1) n S^2 cells of an add, a
+    compare, an exp10(x - m) and an add into the sum."""
+    import math
+
+    n_trans = (T - 1) if per_step else 1
+    cells = 2 * (T - 1) * n * S * S
+    lanes = (n * T * S + n_trans * S * S) * rate["exp10"] + n * T * S * rate["log10"]
+    link = lat["smem"] + (1 + math.ceil(math.log2(S))) * lat["dadd"]
+    terms = {
+        "bytes": (16 * n * T * S + 8 * n_trans * S * S + 8 * S + 8 * n) / HBM_BYTES_PER_S * 1e3,
+        "products": 2 * cells / FP64_TENSOR_FLOPS * 1e3,
+        "fp64": lanes / FP64_OPS_PER_S * 1e3,
+        "chain": 2 * (T - 1) * link / SM_CLOCK_HZ * 1e3,
+        "per_cell_form": cells * (3 + rate["exp10"]) / FP64_OPS_PER_S * 1e3,
+    }
+    # the tensor cores and the FP64 lanes issue side by side
+    ms, by = max((terms["bytes"], "bytes"),
+                 (max(terms["products"], terms["fp64"]), "operations"),
+                 (terms["chain"], "operations"))
+    return ms, by, terms
+
+
+def _fb_batch(rng, n, T, S, per_step=False, neg_inf=False, dead_state=False):
+    """n sequences of T steps sharing a random log10 HMM of S states
+    (tests/test_torch_hmm.py's _fb_batch)."""
+    start, trans, _ = _random_hmm(rng, T, S, per_step, neg_inf)
+    emit = np.log10(rng.random((n, T, S)))
+    if dead_state:  # no start and no transition reaches state S-1
+        start[-1] = -np.inf
+        trans[:, :, -1] = -np.inf
+    return start, trans, emit
+
+
+def _imputer_window(rng, n, T, K, missing=0.2):
+    """The imputer's E-step input at n samples x T sites, K clusters: log
+    start, per-step transitions of random SNV spacing and emissions of
+    random theta and dosages (GenotypeImputer._impute_window's)."""
+    import torch
+
+    from ngsepcore_tpu_torch.imputation.genotype_imputer import (
+        _diploid_emissions, _transition_matrix)
+
+    positions = np.sort(rng.choice(10_000_000, size=T, replace=False))
+    d_morgans = 0.001 * np.maximum(np.diff(positions), 1) / 1000.0 / 100.0
+    recomb_p = np.clip(1.0 - np.exp(-d_morgans), 1e-6, 0.49)
+    trans = torch.from_numpy(_transition_matrix(recomb_p, K)).cuda()
+    start = torch.full((K * K,), -np.log10(K * K), dtype=torch.float64, device="cuda")
+    theta = torch.from_numpy(np.clip(rng.random((T, K)), 1e-3, 1 - 1e-3)).cuda()
+    dos = rng.integers(0, 3, size=(n, T)).astype(np.int8)
+    dos[rng.random((n, T)) < missing] = -1
+    emit = _diploid_emissions(theta, torch.from_numpy(dos).cuda())
+    return start, trans, emit
+
+
+FB_POST_TOL = 1e-9  # log10 posteriors, absolute: exp10 against torch.pow, sums in another order
+FB_LL_RTOL = 1e-12  # log-likelihoods, relative: they grow with T
+
+
+def _fb_disagreement(got, want):
+    """(max abs error of the posteriors, max relative error of ll, -inf
+    patterns equal) of (post, ll) pairs."""
+    import torch
+
+    post, ll = got
+    wpost, wll = want
+    same_inf = bool(torch.equal(torch.isneginf(post), torch.isneginf(wpost)))
+    fin = torch.isfinite(wpost)
+    err = float((post[fin] - wpost[fin]).abs().max()) if bool(fin.any()) else 0.0
+    rel = float(((ll - wll).abs() / wll.abs().clamp(min=1.0)).max())
+    return err, rel, same_inf
+
+
+def _fb_at(args, samples: int):
+    """posterior_log_batch with `samples` sequences a block: FB_BLOCK_THREADS
+    set for the call to the threads they take (layouts the default block
+    does not give; the layout changes no arithmetic)."""
+    from ngsepcore_tpu_torch.kernels import hmm
+
+    keep = hmm.FB_BLOCK_THREADS
+    hmm.FB_BLOCK_THREADS = samples * ((args[2].shape[-1] + 31) // 32 * 32)
+    try:
+        return hmm.posterior_log_batch(*args)
+    finally:
+        hmm.FB_BLOCK_THREADS = keep
+
+
+def phase_forward_backward():
+    """The forward-backward kernel against the batched plain loop on the
+    card (S 1 to 1,024, shared and per-step transitions, a dead state, -inf
+    transitions, T 1, n 1 to 64, 1 to 32 samples a block), then its time at
+    the imputer's shape (n 300, T 5,000, S 64) beside its floor (fb_bound)
+    and the plain loop's time.  fb_bench.py sweeps the samples a block."""
+    import torch
+
+    from ngsepcore_tpu_torch.kernels.hmm import (
+        posterior_log_batch, posterior_log_batch_ref)
+
+    lat = viterbi_latencies()
+    rate = fb_rates()
+    log(f"phase 2d forward-backward units at full load, f64 lane cycles: exp10(x - c) "
+        f"{rate['exp10']:.3f}, log10(x) + c {rate['log10']:.3f}; links, cycles: DADD "
+        f"{lat['dadd']:.2f}, shared memory {lat['smem']:.2f}")
+    rng = np.random.default_rng(12)
+    cases = [
+        ("S1 n1", 1, _fb_batch(rng, 1, 50, 1)),
+        ("S4 shared n8", 1, _fb_batch(rng, 8, 500, 4)),
+        ("S4 per-step n5, 32 a block", 32, _fb_batch(rng, 5, 300, 4, per_step=True)),
+        ("S16 per-step -inf, dead state n16", 1,
+         _fb_batch(rng, 16, 200, 16, per_step=True, neg_inf=True, dead_state=True)),
+        ("S16 shared n9, 8 a block", 8, _fb_batch(rng, 9, 150, 16)),
+        ("S64 shared n3", 1, _fb_batch(rng, 3, 100, 64)),
+        ("S64 T1 n4", 1, _fb_batch(rng, 4, 1, 64, per_step=True)),
+        ("S64 per-step dead state n7, 4 a block", 4,
+         _fb_batch(rng, 7, 60, 64, per_step=True, dead_state=True)),
+        ("S128 per-step n2 (tile in chunks)", 1, _fb_batch(rng, 2, 30, 128, per_step=True)),
+        ("S1024 shared n2", 1, _fb_batch(rng, 2, 8, 1024)),
+        ("S1024 per-step n1", 1, _fb_batch(rng, 1, 5, 1024, per_step=True)),
+    ]
+    cases = [(name, g, tuple(torch.from_numpy(a).cuda() for a in arrays))
+             for name, g, arrays in cases]
+    cases.append(("imputer S64 n64 T400", 1, _imputer_window(rng, 64, 400, 8)))
+    start, trans, emit = cases[1][2]  # S4 shared n8, its emissions as a strided view
+    cases.append(("S4 shared n8, strided emissions", 1,
+                  (start, trans, emit.transpose(0, 1).contiguous().transpose(0, 1))))
+    worst = [0.0, 0.0]
+    for name, g, args in cases:
+        got = _fb_at(args, g)
+        torch.cuda.synchronize()
+        err, rel, same_inf = _fb_disagreement(got, posterior_log_batch_ref(*args))
+        log(f"phase 2d forward-backward {name}: max |post error| {err:.3e}, ll relative "
+            f"{rel:.3e}, -inf entries equal {same_inf}")
+        if err > FB_POST_TOL or rel > FB_LL_RTOL or not same_inf:
+            fail(f"the forward-backward kernel disagrees with its plain version on {name}")
+        worst = [max(worst[0], err), max(worst[1], rel)]
+
+    # the imputer's shape: one window of NGSEP's defaults
+    n, T, K = 300, 5000, 8
+    args = _imputer_window(rng, n, T, K)
+    S = K * K
+    got = posterior_log_batch(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = posterior_log_batch_ref(*args)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    err, rel, same_inf = _fb_disagreement(got, want)
+    del got, want
+    if err > FB_POST_TOL or rel > FB_LL_RTOL or not same_inf:
+        fail("the forward-backward kernel disagrees with its plain version at the imputer's shape")
+    worst = [max(worst[0], err), max(worst[1], rel)]
+    ms = cuda_ms(lambda: posterior_log_batch(*args), reps=3, calls=3)
+    gms = graph_ms(lambda: posterior_log_batch(*args), calls=3, reps=3)
+    least = float(args[1][torch.isfinite(args[1])].min())
+    b_ms, b_by, terms = fb_bound(n, T, S, True, lat, rate)
+    log(f"  time n={n} T={T} S={S} (per-step transitions, least log10 entry {least:.3f}): "
+        f"kernel {ms:.3f} ms (median of 3 x 3 calls), graph {gms:.3f} ms; plain loop "
+        f"{plain:.1f} ms (one call); floor {b_ms:.4f} ms by {b_by} (terms, ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in terms.items() if k != "per_cell_form")
+        + f"); kernel at {100 * b_ms / gms:.2f}% of it; its per-cell log-space form alone "
+        f"{terms['per_cell_form']:.3f} ms of f64 lanes; errors against the plain loop: post "
+        f"{err:.3e}, ll relative {rel:.3e}")
+    return dict(ms=ms, graph_ms=gms, plain_ms=plain, max_abs_err=worst[0], bound_ms=b_ms,
+                bound_by=b_by, shape=f"n={n} T={T} S={S}", bound_terms_ms=terms,
+                fp64_lane_cycles=rate)
+
+
+# ---------------------------------------------------------------------------
+# The imputer (phases 18, 19)
+
+def _simulate_population(n_samples=40, n_sites=300, k_haps=4, seed=3):
+    """tests/test_imputation.py's population (a copy: the tests import jax),
+    drawn in its order."""
+    rng = np.random.default_rng(seed)
+    founders = rng.integers(0, 2, size=(k_haps, n_sites)).astype(np.int8)
+    positions = np.sort(rng.choice(10_000_000, size=n_sites, replace=False))
+
+    def sample_haplotype():
+        hap = np.empty(n_sites, np.int8)
+        cur = rng.integers(0, k_haps)
+        for t in range(n_sites):
+            if rng.random() < 0.01:
+                cur = rng.integers(0, k_haps)
+            hap[t] = founders[cur, t]
+        return hap
+
+    genotypes = np.stack(
+        [sample_haplotype() + sample_haplotype() for _ in range(n_samples)]
+    ).astype(np.int8)
+    return genotypes, positions
+
+
+def _simulate_mosaics(n_samples, n_sites, k_haps=8, switch=0.01, span=10_000_000, seed=19):
+    """_simulate_population vectorised: every haplotype a mosaic of k_haps
+    founders, switching to a random founder with probability `switch` a
+    site; SNVs at distinct random positions of a `span` bp chromosome."""
+    rng = np.random.default_rng(seed)
+    founders = rng.integers(0, 2, size=(k_haps, n_sites)).astype(np.int8)
+    positions = np.sort(rng.choice(span, size=n_sites, replace=False)) + 1
+    H = 2 * n_samples
+    draws = rng.integers(0, k_haps, size=(H, n_sites))
+    switches = rng.random((H, n_sites)) < switch
+    switches[:, 0] = True
+    last = np.maximum.accumulate(np.where(switches, np.arange(n_sites), 0), axis=1)
+    haps = founders[np.take_along_axis(draws, last, axis=1), np.arange(n_sites)[None, :]]
+    return (haps[0::2] + haps[1::2]).astype(np.int8), positions, rng
+
+
+def _write_population_vcf(path, genotypes, positions, mask):
+    """tests/test_imputation.py::test_imputation_vcf_roundtrip's VCF."""
+    from ngsepcore_tpu_torch.variants.model import CalledGenomicVariant
+    from ngsepcore_tpu_torch.vcf.io import VCFFileWriter, VCFRecord
+
+    samples = [f"s{i}" for i in range(genotypes.shape[0])]
+    with VCFFileWriter(path, samples) as w:
+        for t in range(genotypes.shape[1]):
+            calls = []
+            for s in range(genotypes.shape[0]):
+                g = int(genotypes[s, t])
+                idxs = [] if mask[s, t] else ([0, 0] if g == 0 else [0, 1] if g == 1 else [1, 1])
+                calls.append(CalledGenomicVariant(
+                    sequence_name="chr1", first=int(positions[t]), alleles=["A", "C"],
+                    sample_id=samples[s], indexes_called_alleles=idxs, genotype_quality=60))
+            w.write(VCFRecord(variant=calls[0], calls=calls))
+
+
+def _vcf_file_body(path):
+    with open(path) as fh:
+        return [line for line in fh if not line.startswith("#")]
+
+
+def phase_imputer_small(device="cuda"):
+    """Phase 18: tests/test_imputation.py's two workloads on `device`
+    against the CPU, in process and through the CLI (VCFImpute), then the
+    VCF downstream commands on the imputed VCF: outputs identical."""
+    import contextlib
+    import io as _io
+
+    import torch
+
+    from ngsepcore_tpu_torch.__main__ import main as port_main
+    from ngsepcore_tpu_torch.imputation.genotype_imputer import GenotypeImputer
+    from ngsepcore_tpu_torch.kernels.hmm import posterior_log_batch
+
+    genotypes, positions = _simulate_population()
+    mask = np.random.default_rng(7).random(genotypes.shape) < 0.15
+    observed = genotypes.copy()
+    observed[mask] = -1
+    runs = {}
+    for dev in (device, "cpu"):
+        before = posterior_log_batch.launches
+        runs[dev] = GenotypeImputer(k=4, window_size=400, n_iterations=15, seed=2,
+                                    device=dev).impute_matrix(observed, positions)
+        if dev == "cuda" and posterior_log_batch.launches - before != 16:
+            fail("the 40 x 300 imputation did not make one kernel launch an E-step (16)")
+    (imp, conf), (imp_c, conf_c) = runs[device], runs["cpu"]
+    acc = float(np.mean(imp[mask] == genotypes[mask]))
+    conf_err = float(np.abs(conf - conf_c).max())
+    log(f"phase 18 imputer 40 x 300 (k 4, 15 iterations): dosages equal "
+        f"{np.array_equal(imp, imp_c)}, max |conf error| {conf_err:.3e}, masked accuracy "
+        f"{acc:.4f}")
+    if not np.array_equal(imp, imp_c) or conf_err > 1e-9 or acc <= 0.9:
+        fail("the 40 x 300 imputation differs between CUDA and the CPU (or misses 0.9)")
+
+    d = tempfile.mkdtemp(prefix="impute_")
+    try:
+        genotypes, positions = _simulate_population(n_samples=10, n_sites=60)
+        mask = np.random.default_rng(1).random(genotypes.shape) < 0.2
+        vcf = os.path.join(d, "pop.vcf")
+        _write_population_vcf(vcf, genotypes, positions, mask)
+        for dev, tag in ((device, "dev"), ("cpu", "ref")):
+            GenotypeImputer(k=4, window_size=100, n_iterations=8, seed=5, device=dev).run(
+                vcf, os.path.join(d, f"run_{tag}"))
+        body = _vcf_file_body(os.path.join(d, "run_dev_imputed.vcf"))
+        if body != _vcf_file_body(os.path.join(d, "run_ref_imputed.vcf")) or len(body) != 60:
+            fail("GenotypeImputer.run's VCF differs between CUDA and the CPU")
+        j = lambda *a: os.path.join(d, *a)
+        sizes = _cli_pairs({"VCFImpute": (
+            ["VCFImpute", "-i", vcf, "-o", j("cli_{dev}"), "-k", "4", "-w", "100", "-t", "8",
+             "-seed", "5"], [j("cli_{dev}_imputed.vcf")])}, device)
+        if _vcf_file_body(j("cli_dev_imputed.vcf")) != body:
+            fail("VCFImpute through the CLI differs from GenotypeImputer.run")
+        imputed = j("cli_dev_imputed.vcf")
+        with open(j("regions.txt"), "w") as fh:
+            fh.write("chr1\t1\t2000000\n")
+        formats = ("Matrix,Fasta,Plink,Structure,Hapmap,rrBLUP,Emma,Eigensoft,Darwin,Flapjack,"
+                   "Phase,GWASPoly,Spagedi,PowerMarker,Haploview")
+        jobs = {
+            "VCFFilter": (["VCFFilter", "-i", imputed, "-o", j("filter_{dev}.vcf"), "-q", "10",
+                           "-minMAF", "0.05", "-frs", j("regions.txt")], [j("filter_{dev}.vcf")]),
+            "VCFSummaryStats": (["VCFSummaryStats", "-i", imputed, "-o", j("summary_{dev}.txt")],
+                                [j("summary_{dev}.txt")]),
+            "VCFDistanceMatrixCalculator": (
+                ["VCFDistanceMatrixCalculator", "-i", imputed, "-o", j("dist_{dev}.txt")],
+                [j("dist_{dev}.txt")]),
+            "VCFConverter": (["VCFConverter", "-i", imputed, "-o", j("conv_{dev}"), "-f",
+                              formats], [j("conv_{dev}_genotypes.txt"), j("conv_{dev}.ped"),
+                                         j("conv_{dev}_aln.fa"), j("conv_{dev}_GWASPoly.csv")]),
+        }
+        sizes.update(_cli_pairs(jobs, device))
+        sizes.update(_cli_pairs({"NeighborJoining": (
+            ["NeighborJoining", "-i", j("dist_{dev}.txt"), "-o", j("nj_{dev}.nwk")],
+            [j("nj_{dev}.nwk")])}, device))
+        outs = []
+        for dev in (device, "cpu"):
+            buf = _io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                port_main(["--device", dev, "VCFComparator", imputed, vcf])
+            outs.append(buf.getvalue())
+        if outs[0] != outs[1] or "Concordance" not in outs[0]:
+            fail("VCFComparator differs between CUDA and the CPU")
+        log(f"  10 x 60 VCF: GenotypeImputer.run and VCFImpute equal on CUDA and the CPU; "
+            f"VCFFilter, VCFSummaryStats, VCFDistanceMatrixCalculator -> NeighborJoining, "
+            f"VCFConverter ({formats.count(',') + 1} formats), VCFComparator equal (bytes: "
+            f"{sizes}); comparator: {' '.join(outs[0].split())}")
+    finally:
+        import shutil
+
+        shutil.rmtree(d, ignore_errors=True)
+
+
+IMPUTE_SAMPLES, IMPUTE_SITES = 300, 20_000  # phase 19
+
+
+def phase_imputer_real_size(device="cuda"):
+    """Phase 19: 300 samples x 20,000 biallelic SNVs (mosaics of 8 founder
+    haplotypes, 20% of the genotypes masked) imputed at NGSEP's defaults
+    (k 8, window 5,000, overlap 50, 10 iterations: 5 windows, 55 kernel
+    launches), with the JAX test's gate: masked accuracy >= 0.9."""
+    import torch
+
+    from ngsepcore_tpu_torch.imputation.genotype_imputer import GenotypeImputer
+    from ngsepcore_tpu_torch.kernels.hmm import posterior_log_batch
+
+    genotypes, positions, rng = _simulate_mosaics(IMPUTE_SAMPLES, IMPUTE_SITES)
+    mask = rng.random(genotypes.shape) < 0.2
+    observed = genotypes.copy()
+    observed[mask] = -1
+    imp = GenotypeImputer(k=8, window_size=5000, overlap=50, n_iterations=10, seed=1,
+                          device=device)
+    spent = Counter()
+
+    def timed(name, fn):
+        def run(*a):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sync(device)
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    imp.e_step = timed("e_step", imp.e_step)
+    imp.m_step = timed("m_step", imp.m_step)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    posterior_log_batch.launches = 0
+    t0 = time.perf_counter()
+    imputed, conf = imp.impute_matrix(observed, positions)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = posterior_log_batch.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+    acc = float(np.mean(imputed[mask] == genotypes[mask]))
+    log(f"phase 19 imputer {IMPUTE_SAMPLES} x {IMPUTE_SITES} (k 8, window 5000, overlap 50, "
+        f"10 iterations): wall {wall:.3f} s, E-step {spent['e_step']:.3f} s, M-step "
+        f"{spent['m_step']:.3f} s, host and the rest {wall - sum(spent.values()):.3f} s; "
+        f"kernel launches {launches}; peak device memory {peak:.3f} GiB; masked accuracy "
+        f"{acc:.4f} over {int(mask.sum())} genotypes; undecided left "
+        f"{int((imputed < 0).sum())}")
+    windows = -(-(IMPUTE_SITES - 50) // 4950)
+    if on_card and launches != 11 * windows:
+        fail(f"phase 19 made {launches} forward-backward launches, not {11 * windows} "
+             f"({windows} windows x 11)")
+    if (imputed < 0).any() or acc < 0.9:
+        fail(f"phase 19 masked accuracy {acc:.4f} misses the gate of 0.9")
+    return dict(launches=launches, wall_s=wall, e_step_s=spent["e_step"],
+                m_step_s=spent["m_step"], peak_gib=peak, accuracy=acc)
+
+
+# ---------------------------------------------------------------------------
+PHASES = ("2", "2b", "2c", "2d", "3", "4", "5", "6", "7", "9", "10", "12", "13", "8", "11",
+          "14", "15", "16", "17", "18", "19")
 NEEDS = {"6": "4", "8": "5", "10": "5", "11": "5", "13": "5"}  # uses that phase's data
 
 
@@ -3328,6 +3850,8 @@ def main(argv=None) -> None:
             t[p] = phase_viterbi()
         elif p == "2c":
             t[p] = phase_walk()
+        elif p == "2d":
+            t[p] = phase_forward_backward()
         elif p == "3":
             t[p] = phase_shear()
         elif p == "4":
@@ -3373,6 +3897,12 @@ def main(argv=None) -> None:
             torch.cuda.empty_cache()
             t[p] = (phase_assembly_small(lr_counters) if p == "16"
                     else phase_assembly_real_size(lr_counters, asm_row))
+        elif p == "18":
+            torch.cuda.empty_cache()
+            phase_imputer_small()
+        elif p == "19":
+            torch.cuda.empty_cache()
+            t[p] = phase_imputer_real_size()
     if "d" in t:
         t.pop("d").cleanup()
     print(json.dumps({"kernels": kernel_entries(t)}), flush=True)
@@ -3410,10 +3940,12 @@ def kernel_entries(t: dict) -> list:
         # launch cost from Python that ms (20 back-to-back calls) includes;
         # the walk's mode, and for the tier3 and hamming modes what they
         # replace: the runs mode alone in a graph, then with the plain
-        # post-pass from Python and in a graph
+        # post-pass from Python and in a graph; the forward-backward
+        # floor's terms and the lane cycles of its exp10 and log10 units
         out.update({k: timing[k] for k in (
             "shape", "kernel", "graph_ms", "mode", "walk_graph_ms", "replaced_ms",
-            "replaced_graph_ms", "chain_cycles", "human") if k in timing})
+            "replaced_graph_ms", "chain_cycles", "human", "bound_terms_ms",
+            "fp64_lane_cycles") if k in timing})
         return out
 
     gotoh = ("ngsepcore_tpu_torch/csrc/gotoh_forward.cu",
@@ -3488,6 +4020,14 @@ def kernel_entries(t: dict) -> list:
         out.append(entry("viterbi_log", "ngsepcore_tpu_torch/csrc/viterbi.cu",
                          "ngsepcore_tpu/kernels/hmm.py:85",
                          t["13"]["viterbi_log"], t["2b"]))
+    if "19" in t and "2d" in t:
+        # lax.scans in the JAX package (forward_log :33, backward_log :57,
+        # posterior_log :75), vmapped by the imputer; launches of the
+        # imputer at its users' size (phase 19), timed at one of its windows
+        # beside the floor of the function in any design (fb_bound)
+        out.append(entry("forward_backward", "ngsepcore_tpu_torch/csrc/forward_backward.cu",
+                         "ngsepcore_tpu/kernels/hmm.py:33,57,75",
+                         t["19"]["launches"], t["2d"]))
     return out
 
 

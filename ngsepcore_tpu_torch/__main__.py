@@ -119,7 +119,7 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         if profile:
             profiling.report()
-            from .kernels.hmm import viterbi_log
+            from .kernels.hmm import posterior_log_batch, viterbi_log
             from .kernels.pairwise import _runs_from_plane
             from .kernels.pairwise_cuda import gotoh_forward_plane
             from .kernels.shear_pileup import shear_hist
@@ -127,7 +127,8 @@ def main(argv: list[str] | None = None) -> int:
             print(
                 f"kernel launches: gotoh_forward_plane={gotoh_forward_plane.launches} "
                 f"run_walk={_runs_from_plane.launches} "
-                f"shear_hist={shear_hist.launches} viterbi_log={viterbi_log.launches}",
+                f"shear_hist={shear_hist.launches} viterbi_log={viterbi_log.launches} "
+                f"forward_backward={posterior_log_batch.launches}",
                 file=sys.stderr, flush=True,
             )
     return 0

@@ -57,6 +57,12 @@ _SIGNATURES = {
         _P, _P, _P,  # back, path, best
         _P,  # stream
     ],
+    "forward_backward_launch": [
+        _P, _P, _P,  # log_start, log_trans, log_emit
+        _I, _I, _I, _I, _I,  # n, T, S, per_step, samples a block
+        _P, _P,  # post, ll
+        _P,  # stream
+    ],
     "run_walk_launch": [
         _P, _P, _P, _P,  # plane, end_i, end_j, start_k
         _P, _P, _P,  # score, query, subject

@@ -12,13 +12,18 @@ per-model emission logic (Poisson read depth, imputation haplotype
 clusters) builds that matrix and reuses these functions.  Transitions are
 (1, S, S), shared by every step, or (T-1, S, S).
 
-`viterbi_log` is the one recursion on a ported main path (the read-depth
-HMM callers, ~46,000 steps a sequence): on a CUDA tensor it launches the
-hand-written kernel csrc/viterbi.cu, on a CPU tensor it runs the plain step
-loop `viterbi_log_ref`.  `viterbi_log_batch` decodes every sequence of a
-call (concatenated, ragged) in one launch, which is how the callers use
-it.  forward_log, backward_log, posterior_log and
-baum_welch_expected_counts are plain step loops on either device.
+Two recursions carry ported main paths, each a hand-written kernel on a
+CUDA tensor and a plain step loop on a CPU tensor:
+- `viterbi_log` (the read-depth HMM callers, ~46,000 steps a sequence):
+  csrc/viterbi.cu, or `viterbi_log_ref`.  `viterbi_log_batch` decodes every
+  sequence of a call (concatenated, ragged) in one launch, which is how the
+  callers use it.
+- `posterior_log_batch` (the imputer's E-step: n samples of one window,
+  S = k^2 product states, per-step transitions): csrc/forward_backward.cu,
+  one launch for forward, backward, posteriors and log-likelihoods of every
+  sample, or `posterior_log_batch_ref`.
+forward_log, backward_log, posterior_log and baum_welch_expected_counts
+(one sequence) are plain step loops on either device.
 """
 from __future__ import annotations
 
@@ -28,6 +33,13 @@ from .cuda_build import check, library
 
 NEG_INF = -1e30
 MAX_STATES = 32  # one warp lane a state (csrc/viterbi.cu)
+# one thread a state, a block at most 1,024 threads (csrc/forward_backward.cu):
+# k <= 32 haplotype clusters in the imputer
+MAX_FB_STATES = 1024
+# a block's threads, as many samples as fill them (one at S > 256): 4 at S 64,
+# the fastest of 1-8 at the imputer's n 300 x T 5,000 and within 8% of the
+# fastest at n 32-1,200 (fb_bench.py, PERF.md)
+FB_BLOCK_THREADS = 256
 
 
 def _log10sumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -96,6 +108,94 @@ def posterior_log(log_start, log_trans, log_emit):
     log_alpha, ll = forward_log(log_start, log_trans, log_emit)
     un = log_alpha + backward_log(log_trans, log_emit)
     return un - _log10sumexp(un, 1)[:, None], ll
+
+
+def _check_fb_args(log_start, log_trans, log_emit):
+    """Shapes, dtype and device of a batch of equal-length sequences
+    (start (S,), trans (1|T-1, S, S), emit (n, T, S)); True when the
+    transitions differ per step."""
+    for name, t in (("log_start", log_start), ("log_trans", log_trans),
+                    ("log_emit", log_emit)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float64:
+            raise TypeError(f"{name} must be a float64 tensor")
+        if t.device != log_emit.device:
+            raise ValueError("log_start, log_trans and log_emit must share a device")
+    if log_emit.dim() != 3 or log_emit.shape[1] < 1 or log_emit.shape[2] < 1:
+        raise ValueError("log_emit must be (n, T, S) with T >= 1 and S >= 1")
+    _, T, S = log_emit.shape
+    if log_start.shape != (S,):
+        raise ValueError(f"log_start must be ({S},)")
+    if log_trans.dim() != 3 or log_trans.shape[1:] != (S, S) or (
+        log_trans.shape[0] not in (1, T - 1)
+    ):
+        raise ValueError(f"log_trans must be (1, {S}, {S}) or ({T - 1}, {S}, {S})")
+    return log_trans.shape[0] != 1
+
+
+def posterior_log_batch_ref(log_start, log_trans, log_emit):
+    """Plain batched step loop of posterior_log_batch on the tensors'
+    device: every step updates the (n, S) values of all sequences at once."""
+    per_step = _check_fb_args(log_start, log_trans, log_emit)
+    T = log_emit.shape[1]
+    log_alpha = torch.empty_like(log_emit)
+    alpha = log_start + log_emit[:, 0]
+    log_alpha[:, 0] = alpha
+    for t in range(1, T):
+        trans_t = log_trans[t - 1 if per_step else 0]
+        alpha = _log10sumexp(alpha[:, :, None] + trans_t, 1) + log_emit[:, t]
+        log_alpha[:, t] = alpha
+    ll = _log10sumexp(log_alpha[:, -1], 1)
+    log_beta = torch.empty_like(log_emit)
+    beta = torch.zeros_like(log_emit[:, 0])
+    log_beta[:, T - 1] = beta
+    for t in range(T - 2, -1, -1):
+        trans_t = log_trans[t if per_step else 0]
+        beta = _log10sumexp(trans_t + (log_emit[:, t + 1] + beta)[:, None, :], 2)
+        log_beta[:, t] = beta
+    un = log_alpha + log_beta
+    return un - _log10sumexp(un, 2)[..., None], ll
+
+
+def posterior_log_batch(log_start, log_trans, log_emit):
+    """State posteriors of n sequences of T steps that share the model:
+    log_start (S,), log_trans (1, S, S) shared by every step or (T-1, S, S),
+    log_emit (n, T, S).  Returns (posteriors (n, T, S) in log10, the
+    log-likelihoods (n,)), what jax.vmap(posterior_log, (None, None, 0))
+    returns.  S <= MAX_FB_STATES.  CPU tensors run posterior_log_batch_ref;
+    CUDA tensors launch csrc/forward_backward.cu once for every sequence,
+    as many sequences a block as fill FB_BLOCK_THREADS threads."""
+    per_step = _check_fb_args(log_start, log_trans, log_emit)
+    n, T, S = log_emit.shape
+    if S > MAX_FB_STATES:  # on either device, so that CPU and CUDA runs agree
+        raise ValueError(
+            f"{S} states: the forward-backward kernel takes at most {MAX_FB_STATES} "
+            "(k <= 32 haplotype clusters)")
+    dev = log_emit.device
+    if dev.type == "cpu":
+        return posterior_log_batch_ref(log_start, log_trans, log_emit)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    samples_per_block = max(1, FB_BLOCK_THREADS // ((S + 31) // 32 * 32))
+    log_start = log_start.contiguous()
+    log_trans = log_trans.contiguous()
+    log_emit = log_emit.contiguous()
+    post = torch.empty_like(log_emit)  # contiguous, as the kernel writes it
+    ll = torch.empty(n, dtype=torch.float64, device=dev)
+    if n == 0:
+        return post, ll
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.forward_backward_launch(
+            log_start.data_ptr(), log_trans.data_ptr(), log_emit.data_ptr(), n, T, S,
+            int(per_step), samples_per_block, post.data_ptr(), ll.data_ptr(), stream,
+        )
+    check("posterior_log_batch", rc)
+    posterior_log_batch.launches += 1
+    return post, ll
+
+
+posterior_log_batch.launches = 0
 
 
 def viterbi_log_ref(log_start, log_trans, log_emit):

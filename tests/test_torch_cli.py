@@ -128,8 +128,8 @@ def test_device_cuda_without_card_exits_nonzero(files):
     "argv,item",
     [
         (["Demultiplex", "x.fastq"], "Queue 1 item 17"),
-        (["VCFFilter", "-i", "x.vcf"], "Queue 1 item 17"),
-        (["VCFImpute", "-i", "x.vcf"], "Queue 1 item 14"),
+        (["VCFAnnotate", "-i", "x.vcf"], "Queue 1 item 17"),
+        (["GenomesAligner", "g1.fa", "g1.gff3"], "Queue 1 item 17"),
     ],
 )
 def test_unported_commands_name_their_roadmap_item(argv, item):

@@ -2,7 +2,9 @@
 CPU, on seeded numpy inputs: Viterbi path and best score equal (ties and
 -inf transitions included), forward/backward/posterior within 1e-10
 absolute in log10, Baum-Welch expected counts within 1e-10 relative in
-linear space.  A torch model of csrc/viterbi.cu's lane decomposition is
+linear space, posterior_log_batch within 1e-10 of jax.vmap(posterior_log)
+and a torch model of csrc/forward_backward.cu's summation order within
+1e-12 of its plain loop.  A torch model of csrc/viterbi.cu's lane decomposition is
 held against the plain step loop bit for bit, and viterbi_log_batch's CPU
 path (ragged batches) against the loop and the JAX package; best scores
 are compared by bit pattern, the sign of a zero included."""
@@ -312,3 +314,145 @@ def test_viterbi_rejects_bad_arguments(case, exc):
         emit = emit[:0]
     with pytest.raises(exc):
         thmm.viterbi_log(start, trans, emit)
+
+
+# ---- posterior_log_batch: the imputer's E-step (csrc/forward_backward.cu) ----
+
+def _fb_batch(seed, n, T, S, per_step=False, neg_inf=False, dead_state=False):
+    """n sequences of T steps sharing a random log10 HMM of S states; with
+    dead_state, no start and no transition reaches state S-1 (its alpha
+    and posterior are -inf at every step)."""
+    start, trans, _ = _hmm(seed, T, S, per_step, neg_inf)
+    emit = np.log10(np.random.default_rng(seed + 100).random((n, T, S)))
+    if dead_state:
+        start[-1] = -np.inf
+        trans[:, :, -1] = -np.inf
+    return start, trans, emit
+
+
+FB_CASES = {
+    "S4_shared": dict(seed=31, n=3, T=50, S=4),
+    "S4_per_step": dict(seed=32, n=2, T=40, S=4, per_step=True),
+    "S16_shared_neg_inf": dict(seed=33, n=3, T=60, S=16, neg_inf=True),
+    "S16_per_step": dict(seed=34, n=2, T=30, S=16, per_step=True),
+    "S64_shared": dict(seed=35, n=2, T=40, S=64),
+    "S64_per_step": dict(seed=36, n=3, T=25, S=64, per_step=True),
+    "S64_per_step_dead_state": dict(seed=37, n=2, T=25, S=64, per_step=True,
+                                    dead_state=True),
+    "S5_T1": dict(seed=38, n=3, T=1, S=5, per_step=True),
+    "S1_n1": dict(seed=39, n=1, T=12, S=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FB_CASES))
+def test_posterior_log_batch_equals_jax_vmap(name):
+    """posterior_log_batch on the CPU against jax.vmap(posterior_log) over
+    the samples: posteriors and log-likelihoods within 1e-10 absolute in
+    log10 (a dead state's -inf exactly)."""
+    import jax
+
+    start, trans, emit = _fb_batch(**FB_CASES[name])
+    want_post, want_ll = jax.vmap(jhmm.posterior_log, in_axes=(None, None, 0))(
+        start, trans, emit)
+    post, ll = thmm.posterior_log_batch(T_(start), T_(trans), T_(emit))
+    assert post.shape == emit.shape and ll.shape == (emit.shape[0],)
+    want_post, want_ll = np.asarray(want_post), np.asarray(want_ll)
+    np.testing.assert_array_equal(np.isneginf(post.numpy()), np.isneginf(want_post))
+    np.testing.assert_allclose(post.numpy(), want_post, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(ll.numpy(), want_ll, rtol=0, atol=1e-10)
+    if FB_CASES[name].get("dead_state"):
+        assert np.isneginf(post.numpy()[:, :, -1]).all()
+    # every sequence's posteriors sum to one at every step
+    np.testing.assert_allclose((10.0 ** post.numpy()).sum(axis=2), 1.0, atol=1e-10)
+
+
+def _fb_kernel_model(start, trans, emit):
+    """forward_backward_kernel of csrc/forward_backward.cu, its arithmetic
+    statement by statement with samples and states as tensor axes: a row
+    lse takes four partial maxima and sums (row r into sum r mod 4, in
+    ascending r, then (s0 + s1) + (s2 + s3)); an lse over a sample's states
+    sums each warp's 32 lanes (zero past S) by a shfl_down tree of offsets
+    16, 8, 4, 2, 1 and then the warps in order.  Chunking and samples per
+    block change no arithmetic.  torch.pow stands for exp10."""
+    n, T, S = emit.shape
+    per_step = trans.shape[0] != 1
+
+    def finish(mx, total):
+        finite = torch.isfinite(mx)
+        ms = torch.where(finite, mx, 0.0)
+        return torch.where(finite, ms + torch.log10(total), mx)
+
+    def row_lse(v, M):  # lse_r(v[:, r] + M[r, c]) -> (n, C)
+        x = v[:, :, None] + M[None]
+        mx = x.amax(1)
+        ms = torch.where(torch.isfinite(mx), mx, 0.0)
+        s = [torch.zeros_like(mx) for _ in range(4)]
+        for r in range(x.shape[1]):
+            s[r % 4] = s[r % 4] + torch.pow(10.0, x[:, r] - ms)
+        return finish(mx, (s[0] + s[1]) + (s[2] + s[3]))
+
+    def group_lse(u):  # lse over the states of each sample -> (n,)
+        mx = u.amax(1)
+        ms = torch.where(torch.isfinite(mx), mx, 0.0)
+        lanes = -(-S // 32) * 32
+        x = torch.zeros((n, lanes), dtype=u.dtype)
+        x[:, :S] = torch.pow(10.0, u - ms[:, None])
+        x = x.view(n, lanes // 32, 32).clone()
+        for o in (16, 8, 4, 2, 1):
+            x[..., :o] = x[..., :o] + x[..., o : 2 * o]
+        total = x[:, 0, 0]
+        for w in range(1, lanes // 32):
+            total = total + x[:, w, 0]
+        return finish(mx, total)
+
+    alpha = torch.empty_like(emit)
+    alpha[:, 0] = start + emit[:, 0]
+    for t in range(1, T):
+        alpha[:, t] = row_lse(alpha[:, t - 1], trans[t - 1 if per_step else 0]) + emit[:, t]
+    ll = group_lse(alpha[:, T - 1])
+    post = torch.empty_like(emit)
+    beta = torch.zeros_like(emit[:, 0])
+    for t in range(T - 1, -1, -1):
+        if t < T - 1:
+            M = trans[t if per_step else 0].T  # the tile of the backward pass
+            beta = row_lse(emit[:, t + 1] + beta, M)
+        un = alpha[:, t] + beta
+        post[:, t] = un - group_lse(un)[:, None]
+    return post, ll
+
+
+@pytest.mark.parametrize("name", sorted(FB_CASES))
+def test_fb_kernel_model_equals_plain_loop(name):
+    """The kernel's summation order against the plain batched loop: within
+    1e-12 absolute in log10 (the two differ only in the order of sums)."""
+    args = tuple(map(T_, _fb_batch(**FB_CASES[name])))
+    want_post, want_ll = thmm.posterior_log_batch_ref(*args)
+    post, ll = _fb_kernel_model(*args)
+    assert torch.equal(torch.isneginf(post), torch.isneginf(want_post))
+    np.testing.assert_allclose(post.numpy(), want_post.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(ll.numpy(), want_ll.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize(
+    "case,exc",
+    [("dtype", TypeError), ("emit_dims", ValueError), ("start_shape", ValueError),
+     ("trans_steps", ValueError), ("device", ValueError), ("too_many_states", ValueError)],
+)
+def test_posterior_log_batch_rejects_bad_arguments(case, exc):
+    start, trans, emit = map(T_, _fb_batch(40, 2, 6, 3))
+    if case == "dtype":
+        emit = emit.float()
+    elif case == "emit_dims":
+        emit = emit[0]
+    elif case == "start_shape":
+        start = start[:2]
+    elif case == "trans_steps":
+        trans = trans.expand(3, 3, 3)
+    elif case == "device":
+        start, trans, emit = (x.to("meta") for x in (start, trans, emit))
+    elif case == "too_many_states":
+        S = thmm.MAX_FB_STATES + 1
+        start, trans, emit = torch.zeros(S, dtype=torch.float64), torch.zeros(
+            (1, S, S), dtype=torch.float64), torch.zeros((1, 2, S), dtype=torch.float64)
+    with pytest.raises(exc, match="1024" if case == "too_many_states" else None):
+        thmm.posterior_log_batch(start, trans, emit)

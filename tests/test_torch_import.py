@@ -69,6 +69,13 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "ngsepcore_tpu_torch.assembly.read_correction",
         "ngsepcore_tpu_torch.assembly.phasing",
         "ngsepcore_tpu_torch.haplotyping.sih",
+        "ngsepcore_tpu_torch.imputation.genotype_imputer",
+        "ngsepcore_tpu_torch.core.regions",
+        "ngsepcore_tpu_torch.genome.builders",
+        "ngsepcore_tpu_torch.vcf.analytics",
+        "ngsepcore_tpu_torch.vcf.popgen",
+        "ngsepcore_tpu_torch.vcf.converter",
+        "ngsepcore_tpu_torch.clustering.trees",
     ):
         assert mod in got["modules"]
     assert got["jax"] == []
