@@ -65,16 +65,20 @@ with an identity gate, its stage times and launches (`--asm-row A`: scale
 row A, 60x of 15 kb reads over 300 kb, instead).
 The imputer follows.  Phase 2d holds the forward-backward kernel
 (csrc/forward_backward.cu, the imputer's E-step) against its batched plain
-loop (S 1 to 1,024, shared and per-step transitions, a dead state, 1 to 32
-samples a block) and times it at the imputer's window (300 samples x 5,000
-sites, S 64) beside its bound (the f64 instructions of its cells, exp10's
-counted in its SASS) and the plain loop, with the samples a block swept at
-other batch sizes; phase 18 runs tests/test_imputation.py's two workloads
+loop (S 1 to 1,024, shared and per-step transitions, a dead state, -inf
+transitions, emissions past the product form's range): every case must
+take the form its precondition names and agree in it (the product form at
+8 and 16 samples a block, the log form at 1 to 32 on every case); both
+forms are then timed at the imputer's window (300 samples x 5,000 sites,
+S 64) beside the floor of the function and the plain loop (fb_bench.py
+has the same-card A/B at other batch sizes and the ablations); phase 18
+runs tests/test_imputation.py's two workloads
 on CUDA against the CPU, in process and through VCFImpute, and the VCF
 downstream commands on the imputed VCF (VCFFilter, VCFSummaryStats,
 VCFDistanceMatrixCalculator -> NeighborJoining, VCFConverter,
 VCFComparator); phase 19 imputes 300 samples x 20,000 SNVs at NGSEP's
-defaults (5 windows, 55 launches) with the JAX test's accuracy gate.
+defaults (5 windows, 55 launches, all of the product form) with the JAX
+test's accuracy gate and its host stages timed.
 With --phases only the listed phases run (and the ones whose data they
 use; 0 and 1 always run).
 Prints one line per phase and exits nonzero at the first failure.  The
@@ -86,8 +90,9 @@ larger of its bytes (inputs read once, outputs written once) over the
 memory rate and its integer operations over the INT32 issue rate (for the
 Viterbi kernel: its serial chain of dependent instructions over the clock;
 for the walk: its longest chain of dependent loads at one L2 hit each; for
-the forward-backward kernel: the largest of its bytes, its f64
-instructions over the FP64 rate and its chain of a step).
+the forward-backward kernel: the floor of the function in any design, the
+largest of its bytes, its products on the FP64 tensor cores, its exp10 and
+log10 on the FP64 lanes and its chain of a step).
 
 Imports torch, numpy and the port only (bench.py's gates are numpy).
 """
@@ -3493,25 +3498,46 @@ def _fb_disagreement(got, want):
 
 
 def _fb_at(args, samples: int):
-    """posterior_log_batch with `samples` sequences a block: FB_BLOCK_THREADS
-    set for the call to the threads they take (layouts the default block
-    does not give; the layout changes no arithmetic)."""
+    """The log form with `samples` sequences a block: FB_BLOCK_THREADS set
+    for the call to the threads they take (layouts the default block does
+    not give; the layout changes no arithmetic)."""
     from ngsepcore_tpu_torch.kernels import hmm
 
     keep = hmm.FB_BLOCK_THREADS
     hmm.FB_BLOCK_THREADS = samples * ((args[2].shape[-1] + 31) // 32 * 32)
     try:
-        return hmm.posterior_log_batch(*args)
+        return hmm.posterior_log_batch(*args, form="log")
     finally:
         hmm.FB_BLOCK_THREADS = keep
+
+
+def _fb_routed(args, rows=None):
+    """posterior_log_batch as a caller makes it (the form by its
+    precondition), the product form at `rows` samples a block where it
+    takes it: (post, ll, the form the call took)."""
+    from ngsepcore_tpu_torch.kernels import hmm
+
+    before = dict(hmm.posterior_log_batch.launches_by_form)
+    keep = hmm.FB_PRODUCT_ROWS
+    hmm.FB_PRODUCT_ROWS = rows
+    try:
+        post, ll = hmm.posterior_log_batch(*args)
+    finally:
+        hmm.FB_PRODUCT_ROWS = keep
+    took = [f for f, k in hmm.posterior_log_batch.launches_by_form.items() if k != before[f]]
+    return post, ll, took[0] if len(took) == 1 else took
 
 
 def phase_forward_backward():
     """The forward-backward kernel against the batched plain loop on the
     card (S 1 to 1,024, shared and per-step transitions, a dead state, -inf
-    transitions, T 1, n 1 to 64, 1 to 32 samples a block), then its time at
-    the imputer's shape (n 300, T 5,000, S 64) beside its floor (fb_bound)
-    and the plain loop's time.  fb_bench.py sweeps the samples a block."""
+    transitions, emissions past the product form's range, T 1, n 1 to 64):
+    each case must take the form its precondition names (fb_form) and agree
+    in it, the product form at 8 and 16 samples a block, and the log form
+    at 1 to 32 samples a block on every case.  Then both forms' times at
+    the imputer's shape (n 300, T 5,000, S 64) beside the floor of the
+    function (fb_bound) and the plain loop's time.  fb_bench.py has the
+    same-card A/B at other batch sizes and the ablations."""
     import torch
 
     from ngsepcore_tpu_torch.kernels.hmm import (
@@ -3523,67 +3549,90 @@ def phase_forward_backward():
         f"{rate['exp10']:.3f}, log10(x) + c {rate['log10']:.3f}; links, cycles: DADD "
         f"{lat['dadd']:.2f}, shared memory {lat['smem']:.2f}")
     rng = np.random.default_rng(12)
+    P, Lg = "product", "log"
     cases = [
-        ("S1 n1", 1, _fb_batch(rng, 1, 50, 1)),
-        ("S4 shared n8", 1, _fb_batch(rng, 8, 500, 4)),
-        ("S4 per-step n5, 32 a block", 32, _fb_batch(rng, 5, 300, 4, per_step=True)),
-        ("S16 per-step -inf, dead state n16", 1,
+        ("S1 n1", 1, P, _fb_batch(rng, 1, 50, 1)),
+        ("S4 shared n8", 1, P, _fb_batch(rng, 8, 500, 4)),
+        ("S4 per-step n5, 32 a block", 32, P, _fb_batch(rng, 5, 300, 4, per_step=True)),
+        ("S16 per-step -inf, dead state n16", 1, Lg,
          _fb_batch(rng, 16, 200, 16, per_step=True, neg_inf=True, dead_state=True)),
-        ("S16 shared n9, 8 a block", 8, _fb_batch(rng, 9, 150, 16)),
-        ("S64 shared n3", 1, _fb_batch(rng, 3, 100, 64)),
-        ("S64 T1 n4", 1, _fb_batch(rng, 4, 1, 64, per_step=True)),
-        ("S64 per-step dead state n7, 4 a block", 4,
+        ("S16 shared n9, 8 a block", 8, P, _fb_batch(rng, 9, 150, 16)),
+        ("S64 shared n3", 1, P, _fb_batch(rng, 3, 100, 64)),
+        ("S64 T1 n4", 1, P, _fb_batch(rng, 4, 1, 64, per_step=True)),
+        ("S64 per-step dead state n7, 4 a block", 4, Lg,
          _fb_batch(rng, 7, 60, 64, per_step=True, dead_state=True)),
-        ("S128 per-step n2 (tile in chunks)", 1, _fb_batch(rng, 2, 30, 128, per_step=True)),
-        ("S1024 shared n2", 1, _fb_batch(rng, 2, 8, 1024)),
-        ("S1024 per-step n1", 1, _fb_batch(rng, 1, 5, 1024, per_step=True)),
+        ("S128 per-step n2 (tile in chunks)", 1, Lg, _fb_batch(rng, 2, 30, 128, per_step=True)),
+        ("S1024 shared n2", 1, Lg, _fb_batch(rng, 2, 8, 1024)),
+        ("S1024 per-step n1", 1, Lg, _fb_batch(rng, 1, 5, 1024, per_step=True)),
+        ("S12 per-step n21", 2, P, _fb_batch(rng, 21, 70, 12, per_step=True)),
     ]
-    cases = [(name, g, tuple(torch.from_numpy(a).cuda() for a in arrays))
-             for name, g, arrays in cases]
-    cases.append(("imputer S64 n64 T400", 1, _imputer_window(rng, 64, 400, 8)))
-    start, trans, emit = cases[1][2]  # S4 shared n8, its emissions as a strided view
-    cases.append(("S4 shared n8, strided emissions", 1,
+    start, trans, emit = _fb_batch(rng, 4, 40, 16)
+    emit[:, :, 1::2] = -300.0  # R_E = 300: 3 R_E is past the product form's 250 decades
+    cases.append(("S16 past the range n4", 1, Lg, (start, trans, emit)))
+    cases = [(name, g, form, tuple(torch.from_numpy(a).cuda() for a in arrays))
+             for name, g, form, arrays in cases]
+    cases.append(("imputer S64 n64 T400", 1, P, _imputer_window(rng, 64, 400, 8)))
+    start, trans, emit = cases[1][3]  # S4 shared n8, its emissions as a strided view
+    cases.append(("S4 shared n8, strided emissions", 1, P,
                   (start, trans, emit.transpose(0, 1).contiguous().transpose(0, 1))))
     worst = [0.0, 0.0]
-    for name, g, args in cases:
-        got = _fb_at(args, g)
-        torch.cuda.synchronize()
-        err, rel, same_inf = _fb_disagreement(got, posterior_log_batch_ref(*args))
-        log(f"phase 2d forward-backward {name}: max |post error| {err:.3e}, ll relative "
-            f"{rel:.3e}, -inf entries equal {same_inf}")
-        if err > FB_POST_TOL or rel > FB_LL_RTOL or not same_inf:
-            fail(f"the forward-backward kernel disagrees with its plain version on {name}")
-        worst = [max(worst[0], err), max(worst[1], rel)]
+    for name, g, form, args in cases:
+        want = posterior_log_batch_ref(*args)
+        runs = [(f"{form} form" + (f", {rows} a block" if form == P else ""),
+                 _fb_routed(args, rows)) for rows in ((8, 16) if form == P else (None,))]
+        if form == P:  # the log form answers every input
+            runs.append((f"log form, {g} a block", _fb_at(args, g) + ("log",)))
+        for label, (post, ll, took) in runs:
+            torch.cuda.synchronize()
+            err, rel, same_inf = _fb_disagreement((post, ll), want)
+            log(f"phase 2d forward-backward {name}, {label}: took the {took} form; max |post "
+                f"error| {err:.3e}, ll relative {rel:.3e}, -inf entries equal {same_inf}")
+            if took != label.split()[0]:
+                fail(f"the forward-backward call took the {took} form on {name}, not {form}")
+            if err > FB_POST_TOL or rel > FB_LL_RTOL or not same_inf:
+                fail(f"the forward-backward kernel disagrees with its plain version on {name} "
+                     f"({label})")
+            worst = [max(worst[0], err), max(worst[1], rel)]
 
     # the imputer's shape: one window of NGSEP's defaults
     n, T, K = 300, 5000, 8
     args = _imputer_window(rng, n, T, K)
     S = K * K
-    got = posterior_log_batch(*args)
+    post, ll, took = _fb_routed(args)
     torch.cuda.synchronize()
+    if took != P:
+        fail(f"the imputer's window took the {took} form, not the product form")
     t0 = time.perf_counter()
     want = posterior_log_batch_ref(*args)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
-    err, rel, same_inf = _fb_disagreement(got, want)
-    del got, want
-    if err > FB_POST_TOL or rel > FB_LL_RTOL or not same_inf:
-        fail("the forward-backward kernel disagrees with its plain version at the imputer's shape")
-    worst = [max(worst[0], err), max(worst[1], rel)]
-    ms = cuda_ms(lambda: posterior_log_batch(*args), reps=3, calls=3)
-    gms = graph_ms(lambda: posterior_log_batch(*args), calls=3, reps=3)
+    err, rel, same_inf = _fb_disagreement((post, ll), want)
+    log_err = _fb_disagreement(posterior_log_batch(*args, form="log"), want)
+    del post, ll, want
+    for label, (e, r, same) in (("product", (err, rel, same_inf)), ("log", log_err)):
+        if e > FB_POST_TOL or r > FB_LL_RTOL or not same:
+            fail(f"the {label} form disagrees with its plain version at the imputer's shape")
+    worst = [max(worst[0], err, log_err[0]), max(worst[1], rel, log_err[1])]
+    times = {}
+    for form in (P, Lg):
+        fn = lambda form=form: posterior_log_batch(*args, form=form)
+        times[form] = (cuda_ms(fn, reps=3, calls=3), graph_ms(fn, calls=3, reps=3))
     least = float(args[1][torch.isfinite(args[1])].min())
     b_ms, b_by, terms = fb_bound(n, T, S, True, lat, rate)
+    (ms, gms), (log_ms, log_gms) = times[P], times[Lg]
     log(f"  time n={n} T={T} S={S} (per-step transitions, least log10 entry {least:.3f}): "
-        f"kernel {ms:.3f} ms (median of 3 x 3 calls), graph {gms:.3f} ms; plain loop "
-        f"{plain:.1f} ms (one call); floor {b_ms:.4f} ms by {b_by} (terms, ms: "
+        f"product form {ms:.4f} ms (median of 3 x 3 calls), graph {gms:.4f} ms; log form "
+        f"{log_ms:.4f} ms, graph {log_gms:.4f} ms; plain loop {plain:.1f} ms (one call); floor "
+        f"{b_ms:.4f} ms by {b_by} (terms, ms: "
         + ", ".join(f"{k} {v:.4f}" for k, v in terms.items() if k != "per_cell_form")
-        + f"); kernel at {100 * b_ms / gms:.2f}% of it; its per-cell log-space form alone "
-        f"{terms['per_cell_form']:.3f} ms of f64 lanes; errors against the plain loop: post "
-        f"{err:.3e}, ll relative {rel:.3e}")
-    return dict(ms=ms, graph_ms=gms, plain_ms=plain, max_abs_err=worst[0], bound_ms=b_ms,
-                bound_by=b_by, shape=f"n={n} T={T} S={S}", bound_terms_ms=terms,
-                fp64_lane_cycles=rate)
+        + f"); product form at {100 * b_ms / gms:.2f}% of it, log form at "
+        f"{100 * b_ms / log_gms:.2f}%; the log form's per-cell form alone "
+        f"{terms['per_cell_form']:.3f} ms of f64 lanes; errors against the plain loop: product "
+        f"post {err:.3e}, ll relative {rel:.3e}; log post {log_err[0]:.3e}, ll relative "
+        f"{log_err[1]:.3e}")
+    return dict(ms=ms, graph_ms=gms, log_form_ms=log_ms, log_form_graph_ms=log_gms,
+                plain_ms=plain, max_abs_err=worst[0], bound_ms=b_ms, bound_by=b_by,
+                shape=f"n={n} T={T} S={S}", bound_terms_ms=terms, fp64_lane_cycles=rate)
 
 
 # ---------------------------------------------------------------------------
@@ -3771,33 +3820,39 @@ def phase_imputer_real_size(device="cuda"):
             return out
         return run
 
-    imp.e_step = timed("e_step", imp.e_step)
-    imp.m_step = timed("m_step", imp.m_step)
+    # the E-step and M-step on the device; each window's transitions built
+    # on the host and uploaded, the posteriors' copy to the host and the
+    # genotype posterior's einsum there
+    stages = ("e_step", "m_step", "window_model", "posteriors_to_host", "genotype_posteriors")
+    for name in stages:
+        setattr(imp, name, timed(name, getattr(imp, name)))
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     posterior_log_batch.launches = 0
+    for form in posterior_log_batch.launches_by_form:
+        posterior_log_batch.launches_by_form[form] = 0
     t0 = time.perf_counter()
     imputed, conf = imp.impute_matrix(observed, positions)
     sync(device)
     wall = time.perf_counter() - t0
     launches = posterior_log_batch.launches
+    by_form = dict(posterior_log_batch.launches_by_form)
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
     acc = float(np.mean(imputed[mask] == genotypes[mask]))
     log(f"phase 19 imputer {IMPUTE_SAMPLES} x {IMPUTE_SITES} (k 8, window 5000, overlap 50, "
-        f"10 iterations): wall {wall:.3f} s, E-step {spent['e_step']:.3f} s, M-step "
-        f"{spent['m_step']:.3f} s, host and the rest {wall - sum(spent.values()):.3f} s; "
-        f"kernel launches {launches}; peak device memory {peak:.3f} GiB; masked accuracy "
-        f"{acc:.4f} over {int(mask.sum())} genotypes; undecided left "
-        f"{int((imputed < 0).sum())}")
+        f"10 iterations): wall {wall:.3f} s: " + ", ".join(f"{k} {spent[k]:.3f} s" for k in stages)
+        + f", the rest {wall - sum(spent.values()):.3f} s; kernel launches {launches} {by_form}; "
+        f"peak device memory {peak:.3f} GiB; masked accuracy {acc:.4f} over "
+        f"{int(mask.sum())} genotypes; undecided left {int((imputed < 0).sum())}")
     windows = -(-(IMPUTE_SITES - 50) // 4950)
-    if on_card and launches != 11 * windows:
-        fail(f"phase 19 made {launches} forward-backward launches, not {11 * windows} "
-             f"({windows} windows x 11)")
+    if on_card and (launches != 11 * windows or by_form["product"] != launches):
+        fail(f"phase 19 made {launches} forward-backward launches {by_form}, not "
+             f"{11 * windows} ({windows} windows x 11) all of the product form")
     if (imputed < 0).any() or acc < 0.9:
         fail(f"phase 19 masked accuracy {acc:.4f} misses the gate of 0.9")
-    return dict(launches=launches, wall_s=wall, e_step_s=spent["e_step"],
-                m_step_s=spent["m_step"], peak_gib=peak, accuracy=acc)
+    return dict(launches=launches, launches_by_form=by_form, wall_s=wall,
+                stage_s={k: spent[k] for k in stages}, peak_gib=peak, accuracy=acc)
 
 
 # ---------------------------------------------------------------------------
@@ -3945,7 +4000,7 @@ def kernel_entries(t: dict) -> list:
         out.update({k: timing[k] for k in (
             "shape", "kernel", "graph_ms", "mode", "walk_graph_ms", "replaced_ms",
             "replaced_graph_ms", "chain_cycles", "human", "bound_terms_ms",
-            "fp64_lane_cycles") if k in timing})
+            "fp64_lane_cycles", "log_form_ms", "log_form_graph_ms") if k in timing})
         return out
 
     gotoh = ("ngsepcore_tpu_torch/csrc/gotoh_forward.cu",
@@ -4025,9 +4080,12 @@ def kernel_entries(t: dict) -> list:
         # posterior_log :75), vmapped by the imputer; launches of the
         # imputer at its users' size (phase 19), timed at one of its windows
         # beside the floor of the function in any design (fb_bound)
+        # ms is the product form's (the imputer's launches), log_form_ms the
+        # log form's, which answers inputs outside the product form's range
         out.append(entry("forward_backward", "ngsepcore_tpu_torch/csrc/forward_backward.cu",
                          "ngsepcore_tpu/kernels/hmm.py:33,57,75",
                          t["19"]["launches"], t["2d"]))
+        out[-1]["launches_by_form"] = t["19"]["launches_by_form"]
     return out
 
 

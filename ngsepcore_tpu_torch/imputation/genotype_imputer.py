@@ -153,6 +153,30 @@ class GenotypeImputer:
         den = torch.sum(w, dim=(0, 3)) + torch.sum(w, dim=(0, 2))
         return torch.clamp(num / torch.clamp(den, min=1e-9), 1e-3, 1 - 1e-3)
 
+    def window_model(self, positions: np.ndarray):
+        """(log_start (K*K,), log_trans (T-1, K*K, K*K)) of a window on the
+        device: transitions from the physical distances (ref :51-67), built
+        on the host and uploaded."""
+        K = self.k
+        d_kbp = np.maximum(np.diff(positions), 1) / 1000.0
+        d_morgans = self.avg_cm_per_kbp * d_kbp / 100.0
+        recomb_p = np.clip(1.0 - np.exp(-d_morgans), 1e-6, 0.49)
+        log_trans = torch.from_numpy(_transition_matrix(recomb_p, K)).to(self.device)
+        log_start = torch.full((K * K,), -np.log10(K * K), dtype=torch.float64,
+                               device=self.device)
+        return log_start, log_trans
+
+    def posteriors_to_host(self, post: torch.Tensor) -> np.ndarray:
+        """The last E-step's posteriors (n, T, K*K) as a host array."""
+        return post.cpu().numpy()
+
+    def genotype_posteriors(self, post: np.ndarray, theta: np.ndarray) -> np.ndarray:
+        """P(g) = sum over states of post * P(g | state): (n, T, 3) on the
+        host."""
+        T, K = theta.shape
+        pg = np.stack(_genotype_probs(theta), axis=-1).reshape(T, K * K, 3)
+        return np.einsum("nts,tsg->ntg", post, pg)
+
     def _impute_window(self, dosages: np.ndarray, positions: np.ndarray):
         n, T = dosages.shape
         K = self.k
@@ -163,12 +187,7 @@ class GenotypeImputer:
             af = np.nanmean(np.where(dosages < 0, np.nan, dosages), axis=0) / 2.0
         af = np.nan_to_num(af, nan=0.5)
         theta = 0.5 * theta + 0.5 * af[:, None]
-        # recombination probabilities from physical distance (ref :51-67)
-        d_kbp = np.maximum(np.diff(positions), 1) / 1000.0
-        d_morgans = self.avg_cm_per_kbp * d_kbp / 100.0
-        recomb_p = np.clip(1.0 - np.exp(-d_morgans), 1e-6, 0.49)
-        log_trans = torch.from_numpy(_transition_matrix(recomb_p, K)).to(dev)
-        log_start = torch.full((K * K,), -np.log10(K * K), dtype=torch.float64, device=dev)
+        log_start, log_trans = self.window_model(positions)
 
         dos = torch.from_numpy(np.ascontiguousarray(dosages, dtype=np.int8)).to(dev)
         theta_d = torch.from_numpy(theta).to(dev)
@@ -178,11 +197,8 @@ class GenotypeImputer:
             del post
 
         post, _ = self.e_step(theta_d, dos, log_start, log_trans)
-        post = post.cpu().numpy()  # (n, T, K*K)
-        theta = theta_d.cpu().numpy()
-        # genotype posterior: P(g) = sum_states post * P(g|state)
-        pg = np.stack(_genotype_probs(theta), axis=-1).reshape(T, K * K, 3)
-        geno_post = np.einsum("nts,tsg->ntg", post, pg)
+        post = self.posteriors_to_host(post)  # (n, T, K*K)
+        geno_post = self.genotype_posteriors(post, theta_d.cpu().numpy())
         best = np.argmax(geno_post, axis=2).astype(np.int8)
         best_p = np.take_along_axis(geno_post, best[:, :, None].astype(int), axis=2)[
             :, :, 0

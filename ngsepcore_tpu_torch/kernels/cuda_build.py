@@ -63,6 +63,18 @@ _SIGNATURES = {
         _P, _P,  # post, ll
         _P,  # stream
     ],
+    "fb_prepare_launch": [
+        _P, _P, _P,  # log_start, log_trans, log_emit
+        _I, _I, _I, _I,  # n, T, S, matrices
+        _P, _P, _P, _P,  # P, gmax, scaled emissions, stats
+        _P,  # stream
+    ],
+    "fb_product_launch": [
+        _P, _P, _P, _P, _P,  # log_start, P, gmax, scaled emissions, log_emit
+        _I, _I, _I, _I, _I,  # n, T, S, per_step, m8 tiles a block
+        _P, _P,  # post, ll
+        _P,  # stream
+    ],
     "run_walk_launch": [
         _P, _P, _P, _P,  # plane, end_i, end_j, start_k
         _P, _P, _P,  # score, query, subject

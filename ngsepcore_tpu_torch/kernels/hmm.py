@@ -21,7 +21,10 @@ CUDA tensor and a plain step loop on a CPU tensor:
 - `posterior_log_batch` (the imputer's E-step: n samples of one window,
   S = k^2 product states, per-step transitions): csrc/forward_backward.cu,
   one launch for forward, backward, posteriors and log-likelihoods of every
-  sample, or `posterior_log_batch_ref`.
+  sample, or `posterior_log_batch_ref`.  The kernel has two forms: the
+  product form (scaled linear probabilities, a step one f64 product on the
+  tensor cores) for inputs whose values stay in range (`fb_form`), the log
+  form for any other.
 forward_log, backward_log, posterior_log and baum_welch_expected_counts
 (one sequence) are plain step loops on either device.
 """
@@ -36,10 +39,21 @@ MAX_STATES = 32  # one warp lane a state (csrc/viterbi.cu)
 # one thread a state, a block at most 1,024 threads (csrc/forward_backward.cu):
 # k <= 32 haplotype clusters in the imputer
 MAX_FB_STATES = 1024
-# a block's threads, as many samples as fill them (one at S > 256): 4 at S 64,
-# the fastest of 1-8 at the imputer's n 300 x T 5,000 and within 8% of the
-# fastest at n 32-1,200 (fb_bench.py, PERF.md)
+# the log form: a block's threads, as many samples as fill them (one at S >
+# 256): 4 at S 64, the fastest of 1-8 at the imputer's n 300 x T 5,000 and
+# within 8% of the fastest at n 32-1,200 (fb_bench.py, PERF.md)
 FB_BLOCK_THREADS = 256
+# the product form: S <= 64 (a step's matrix in each stage of a shared-memory
+# ring) and 2 max(R_M, R_S) + 3 R_E <= PRODUCT_RANGE decades (R_M: the largest
+# spread of one step's transitions, R_S: the start's, R_E: the largest of one
+# sample-step's emissions), which keeps every scaled value a normal f64: the
+# derivation is in csrc/forward_backward.cu
+PRODUCT_MAX_STATES = 64
+PRODUCT_RANGE = 250.0
+# the product form's samples a block (8 or 16); None: 8 where the blocks fit
+# the SMs, else 16
+FB_PRODUCT_ROWS = None
+FB_FORMS = ("product", "log")
 
 
 def _log10sumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -156,46 +170,181 @@ def posterior_log_batch_ref(log_start, log_trans, log_emit):
     return un - _log10sumexp(un, 2)[..., None], ll
 
 
-def posterior_log_batch(log_start, log_trans, log_emit):
+def _spread(x: torch.Tensor, lead: int) -> torch.Tensor:
+    """max - min over all but the first `lead` dims, +inf where an entry
+    is not finite."""
+    x = x.flatten(lead)
+    bad = (~torch.isfinite(x)).any(dim=-1)
+    return torch.where(bad, torch.inf, x.amax(dim=-1) - x.amin(dim=-1))
+
+
+def range_stats_ref(log_start, log_trans, log_emit) -> tuple:
+    """(R_M, R_E, R_S) of the product form's route on the tensors' device:
+    the largest spread (max - min) of one step's transitions, of one
+    sample-step's emissions, and the start's; +inf where an entry is not
+    finite.  csrc/forward_backward.cu's fb_prepare_kernel computes the
+    same numbers (maxima, minima and one subtraction are exact in any
+    order)."""
+    def most(x):
+        return float(x.max()) if x.numel() else 0.0
+
+    return (most(_spread(log_trans, 1)), most(_spread(log_emit, 2)),
+            most(_spread(log_start, 0)))
+
+
+def product_form_ok(S: int, stats) -> bool:
+    """The product form's precondition from range_stats_ref's numbers."""
+    rm, re, rs = stats
+    return S <= PRODUCT_MAX_STATES and 2 * max(rm, rs) + 3 * re <= PRODUCT_RANGE
+
+
+def fb_form(log_start, log_trans, log_emit) -> str:
+    """The form posterior_log_batch takes for these inputs, on either
+    device: "product" where product_form_ok holds, else "log".  On a CUDA
+    tensor this runs the product form's prologue kernel and reads its three
+    numbers."""
+    _check_fb_args(log_start, log_trans, log_emit)
+    S = log_emit.shape[2]
+    if S > PRODUCT_MAX_STATES or log_emit.shape[0] == 0:
+        return "log"
+    if log_emit.device.type == "cuda":
+        stats = _read_stats(_fb_prepare(library(), log_start, log_trans, log_emit))
+    else:
+        stats = range_stats_ref(log_start, log_trans, log_emit)
+    return "product" if product_form_ok(S, stats) else "log"
+
+
+def _read_stats(prepared) -> list:
+    """(R_M, R_E, R_S) of _fb_prepare's result, read from the card."""
+    return prepared[3].cpu().view(torch.float64).tolist()
+
+
+def _fb_prepare(lib, log_start, log_trans, log_emit):
+    """The product form's prologue (fb_prepare_launch) on the inputs'
+    device, contiguous inputs: (P in the kernel's fragment order (steps, 2,
+    Sp, Sp), gmax (steps,), the scaled emissions E^ (n, T, S), the three
+    spreads as a (3,) int64 tensor of f64 bits)."""
+    n, T, S = log_emit.shape
+    dev = log_emit.device
+    Sp = (S + 7) // 8 * 8
+    nM = log_trans.shape[0]
+    P = torch.empty((nM, 2, Sp, Sp), dtype=torch.float64, device=dev)
+    gmax = torch.empty(nM, dtype=torch.float64, device=dev)
+    Eh = torch.empty_like(log_emit)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fb_prepare_launch(
+            log_start.data_ptr(), log_trans.data_ptr(), log_emit.data_ptr(), n, T, S, nM,
+            P.data_ptr(), gmax.data_ptr(), Eh.data_ptr(), stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check("fb_prepare", rc)
+    return P, gmax, Eh, stats
+
+
+def product_tiles(n: int, dev) -> int:
+    """m8 tiles a block of the product form: FB_PRODUCT_ROWS / 8, else one
+    where its blocks fit the SMs, two beyond."""
+    if FB_PRODUCT_ROWS is not None:
+        return FB_PRODUCT_ROWS // 8
+    return 1 if -(-n // 8) <= torch.cuda.get_device_properties(dev).multi_processor_count else 2
+
+
+def _fb_product(lib, log_start, prepared, log_emit, per_step: bool, mt: int):
+    """One launch of the product form (fb_product_launch: the recursions,
+    then the posterior pass) on _fb_prepare's `prepared`: (post, ll)."""
+    P, gmax, Eh = prepared[:3]
+    n, T, S = log_emit.shape
+    dev = log_emit.device
+    post = torch.empty_like(log_emit)
+    ll = torch.empty(n, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.fb_product_launch(
+            log_start.data_ptr(), P.data_ptr(), gmax.data_ptr(), Eh.data_ptr(),
+            log_emit.data_ptr(), n, T, S, int(per_step), mt, post.data_ptr(), ll.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check("posterior_log_batch", rc)
+    return post, ll
+
+
+def _fb_log(lib, log_start, log_trans, log_emit, per_step: bool, samples_per_block: int):
+    """One launch of the log form (forward_backward_launch): (post, ll)."""
+    n, T, S = log_emit.shape
+    dev = log_emit.device
+    post = torch.empty_like(log_emit)
+    ll = torch.empty(n, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.forward_backward_launch(
+            log_start.data_ptr(), log_trans.data_ptr(), log_emit.data_ptr(), n, T, S,
+            int(per_step), samples_per_block, post.data_ptr(), ll.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check("posterior_log_batch", rc)
+    return post, ll
+
+
+def posterior_log_batch(log_start, log_trans, log_emit, form=None):
     """State posteriors of n sequences of T steps that share the model:
     log_start (S,), log_trans (1, S, S) shared by every step or (T-1, S, S),
     log_emit (n, T, S).  Returns (posteriors (n, T, S) in log10, the
     log-likelihoods (n,)), what jax.vmap(posterior_log, (None, None, 0))
     returns.  S <= MAX_FB_STATES.  CPU tensors run posterior_log_batch_ref;
-    CUDA tensors launch csrc/forward_backward.cu once for every sequence,
-    as many sequences a block as fill FB_BLOCK_THREADS threads."""
+    CUDA tensors launch csrc/forward_backward.cu once for every sequence, in
+    the form `form` names: "product" (S <= PRODUCT_MAX_STATES and the range
+    of product_form_ok: a ValueError on either device where the input does
+    not meet it), "log" (any input), or None: the product form where the
+    input meets its precondition (fb_form), else the log form.  Checking
+    the precondition reads three numbers from the card; under CUDA graph
+    capture no read can run, so a capture names the form, and "product" is
+    then taken on the caller's word.  `launches` counts the launches,
+    `launches_by_form` them by form."""
     per_step = _check_fb_args(log_start, log_trans, log_emit)
     n, T, S = log_emit.shape
     if S > MAX_FB_STATES:  # on either device, so that CPU and CUDA runs agree
         raise ValueError(
             f"{S} states: the forward-backward kernel takes at most {MAX_FB_STATES} "
             "(k <= 32 haplotype clusters)")
+    if form not in (None, *FB_FORMS):
+        raise ValueError(f"form must be one of {FB_FORMS} or None, not {form!r}")
+    if form == "product" and S > PRODUCT_MAX_STATES:
+        raise ValueError(f"{S} states: the product form takes at most {PRODUCT_MAX_STATES}")
     dev = log_emit.device
     if dev.type == "cpu":
+        if form == "product" and n and not product_form_ok(
+                S, range_stats_ref(log_start, log_trans, log_emit)):
+            raise ValueError("the input is out of the product form's range (product_form_ok)")
         return posterior_log_batch_ref(log_start, log_trans, log_emit)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    samples_per_block = max(1, FB_BLOCK_THREADS // ((S + 31) // 32 * 32))
     log_start = log_start.contiguous()
     log_trans = log_trans.contiguous()
     log_emit = log_emit.contiguous()
-    post = torch.empty_like(log_emit)  # contiguous, as the kernel writes it
-    ll = torch.empty(n, dtype=torch.float64, device=dev)
     if n == 0:
-        return post, ll
+        return torch.empty_like(log_emit), torch.empty(0, dtype=torch.float64, device=dev)
     lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.forward_backward_launch(
-            log_start.data_ptr(), log_trans.data_ptr(), log_emit.data_ptr(), n, T, S,
-            int(per_step), samples_per_block, post.data_ptr(), ll.data_ptr(), stream,
-        )
-    check("posterior_log_batch", rc)
+    chosen = "log" if form == "log" or S > PRODUCT_MAX_STATES else "product"
+    if chosen == "product":
+        prepared = _fb_prepare(lib, log_start, log_trans, log_emit)
+        if torch.cuda.is_current_stream_capturing():
+            if form is None:
+                raise ValueError("name the form under CUDA graph capture: the route reads "
+                                 "the card")
+        elif not product_form_ok(S, _read_stats(prepared)):
+            if form == "product":
+                raise ValueError("the input is out of the product form's range "
+                                 "(product_form_ok)")
+            chosen = "log"
+    if chosen == "product":
+        post, ll = _fb_product(lib, log_start, prepared, log_emit, per_step,
+                               product_tiles(n, dev))
+    else:
+        samples_per_block = max(1, FB_BLOCK_THREADS // ((S + 31) // 32 * 32))
+        post, ll = _fb_log(lib, log_start, log_trans, log_emit, per_step, samples_per_block)
     posterior_log_batch.launches += 1
+    posterior_log_batch.launches_by_form[chosen] += 1
     return post, ll
 
 
 posterior_log_batch.launches = 0
+posterior_log_batch.launches_by_form = dict.fromkeys(FB_FORMS, 0)
 
 
 def viterbi_log_ref(log_start, log_trans, log_emit):

@@ -3,11 +3,14 @@ CPU, on seeded numpy inputs: Viterbi path and best score equal (ties and
 -inf transitions included), forward/backward/posterior within 1e-10
 absolute in log10, Baum-Welch expected counts within 1e-10 relative in
 linear space, posterior_log_batch within 1e-10 of jax.vmap(posterior_log)
-and a torch model of csrc/forward_backward.cu's summation order within
-1e-12 of its plain loop.  A torch model of csrc/viterbi.cu's lane decomposition is
+and torch models of csrc/forward_backward.cu's two forms (the log form's
+summation order; the product form's scaling, products and assembly) within
+1e-12 of its plain loop, with the product form's route by its precondition.  A torch model of csrc/viterbi.cu's lane decomposition is
 held against the plain step loop bit for bit, and viterbi_log_batch's CPU
 path (ragged batches) against the loop and the JAX package; best scores
 are compared by bit pattern, the sign of a zero included."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -433,10 +436,162 @@ def test_fb_kernel_model_equals_plain_loop(name):
     np.testing.assert_allclose(ll.numpy(), want_ll.numpy(), rtol=0, atol=1e-12)
 
 
+# the product form: the route by its precondition, and a model of its kernel
+
+def _imputer_window(seed, n, T, K, missing=0.2):
+    """The imputer's E-step input through the port's own builders: log start,
+    per-step transitions of random SNV spacing (_transition_matrix) and the
+    emissions of random theta and dosages (_diploid_emissions)."""
+    from ngsepcore_tpu_torch.imputation.genotype_imputer import (
+        _diploid_emissions, _transition_matrix)
+
+    rng = np.random.default_rng(seed)
+    positions = np.sort(rng.choice(10_000_000, size=T, replace=False))
+    recomb_p = np.clip(1.0 - np.exp(-0.001 * np.maximum(np.diff(positions), 1) / 1e5),
+                       1e-6, 0.49)
+    trans = _transition_matrix(recomb_p, K)
+    start = np.full(K * K, -np.log10(K * K))
+    theta = np.clip(rng.random((T, K)), 1e-3, 1 - 1e-3)
+    dos = rng.integers(0, 3, size=(n, T)).astype(np.int8)
+    dos[rng.random((n, T)) < missing] = -1
+    emit = _diploid_emissions(T_(theta), T_(dos)).numpy()
+    return start, trans, emit
+
+
+def _fb_input(name):
+    if name == "imputer_window":
+        return _imputer_window(41, 6, 60, 4)
+    if name == "past_the_range":
+        # emissions of -300 on alternate states: R_E = 300, 3 R_E > 250
+        start, trans, emit = _fb_batch(42, 2, 20, 8)
+        emit[:, :, 1::2] = -300.0
+        return start, trans, emit
+    return _fb_batch(**FB_CASES[name])
+
+
+FB_FORM = {"S4_shared": "product", "S4_per_step": "product", "S16_shared_neg_inf": "log",
+           "S16_per_step": "product", "S64_shared": "product", "S64_per_step": "product",
+           "S64_per_step_dead_state": "log", "S5_T1": "product", "S1_n1": "product",
+           "imputer_window": "product", "past_the_range": "log"}
+
+
+@pytest.mark.parametrize("name", sorted(FB_FORM))
+def test_fb_form_routes_by_the_precondition(name):
+    """Finite inputs within the range take the product form; -inf
+    transitions, a dead state and emissions 300 decades apart the log form,
+    and naming the product form for them raises.  Either form gives the
+    plain loop's answer on the CPU."""
+    start, trans, emit = map(T_, _fb_input(name))
+    assert thmm.fb_form(start, trans, emit) == FB_FORM[name]
+    want = thmm.posterior_log_batch_ref(start, trans, emit)
+    got = thmm.posterior_log_batch(start, trans, emit, form="log")
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    if FB_FORM[name] == "log":
+        with pytest.raises(ValueError, match="range"):
+            thmm.posterior_log_batch(start, trans, emit, form="product")
+    else:
+        got = thmm.posterior_log_batch(start, trans, emit, form="product")
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def _fb_product_model(start, trans, emit):
+    """The product form of csrc/forward_backward.cu (fb_prepare_kernel,
+    fb_product_kernel, fb_posterior_kernel), its arithmetic statement by
+    statement with samples and (padded) states as tensor axes: P = 10^(M -
+    gmax) in an Sp x Sp tile (Sp: S rounded up to 8, zeros past S), E^ =
+    10^(e - e[0]); a step's product in k-steps of four, k-step kk into
+    accumulator kk mod 4 (each k added in ascending order: the DMMA's own
+    order within a k-step is the hardware's), summed (acc0 + acc1) + (acc2 +
+    acc3); the scale 2^-k of column 0's power of two; ll's row sum of lane
+    pairs (columns 8w + 2q, + 1), the four lanes of a group as (l0 + l1) +
+    (l2 + l3) and the warps' sums in ascending order; the posterior pass's
+    row sum of states l and l + 32, then a shfl_down tree into lane 0."""
+    n, T, S = emit.shape
+    per_step = trans.shape[0] != 1
+    Sp = -(-S // 8) * 8
+    W = Sp // 8
+    gmax = trans.amax(dim=(1, 2)) if trans.shape[0] else trans.new_zeros(0)
+    P = torch.zeros((trans.shape[0], Sp, Sp), dtype=torch.float64)
+    P[:, :S, :S] = torch.pow(10.0, trans - gmax[:, None, None])
+    E = torch.zeros((n, T, Sp), dtype=torch.float64)
+    E[:, :, :S] = torch.pow(10.0, emit - emit[:, :, :1])
+
+    def inverse_power_of_two(x):  # 2^-k, k for the power of two 2^k of x
+        k = torch.frexp(x).exponent.long() - 1
+        return torch.ldexp(torch.ones_like(x), -k), k
+
+    def products(X, M):  # X (n, Sp) @ M (Sp, Sp)
+        acc = [torch.zeros((n, Sp), dtype=torch.float64) for _ in range(4)]
+        for kk in range(Sp // 4):
+            for k in range(4 * kk, 4 * kk + 4):
+                acc[kk % 4] = acc[kk % 4] + X[:, k : k + 1] * M[k]
+        return (acc[0] + acc[1]) + (acc[2] + acc[3])
+
+    def ll_row_sum(x):
+        lanes = x.view(n, W, 4, 2)
+        lanes = lanes[..., 0] + lanes[..., 1]
+        warps = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2] + lanes[..., 3])
+        total = warps[:, 0]
+        for w in range(1, W):
+            total = total + warps[:, w]
+        return total
+
+    def posterior(u):  # u (n, Sp) -> log10 posteriors (n, S)
+        x = torch.zeros((n, 64), dtype=torch.float64)
+        x[:, :S] = u[:, :S]
+        x = x[:, :32] + x[:, 32:]
+        for o in (16, 8, 4, 2, 1):
+            x[:, :o] = x[:, :o] + x[:, o : 2 * o]
+        return torch.log10(u[:, :S]) - torch.log10(x[:, 0])[:, None]
+
+    ref = start[0] + emit[:, 0, 0]
+    a = torch.zeros((n, Sp), dtype=torch.float64)
+    a[:, :S] = torch.pow(10.0, (start + emit[:, 0]) - ref[:, None])
+    L, K = ref.clone(), torch.zeros(n, dtype=torch.int64)
+    alphas = [a]
+    for t in range(1, T):
+        s, k = inverse_power_of_two(a[:, 0])
+        y = products(a, P[t - 1 if per_step else 0])
+        a = (y * s[:, None]) * E[:, t]
+        alphas.append(a)
+        L = L + (gmax[t - 1 if per_step else 0] + emit[:, t, 0])
+        K = K + k
+    ll = (L + K.double() * math.log10(2.0)) + torch.log10(ll_row_sum(a))
+    post = torch.empty_like(emit)
+    post[:, T - 1] = posterior(a)
+    z = E[:, T - 1]
+    for t in range(T - 2, -1, -1):
+        s, _ = inverse_power_of_two(z[:, 0])
+        bb = products(z, P[t if per_step else 0].T) * s[:, None]
+        z = bb * E[:, t]
+        post[:, t] = posterior(alphas[t] * bb)
+    return post, ll
+
+
+@pytest.mark.parametrize("name", sorted(n for n, f in FB_FORM.items() if f == "product"))
+def test_fb_product_model_equals_plain_loop_and_jax(name):
+    """The product form's arithmetic against the plain batched loop within
+    1e-12 absolute in log10 (posteriors and ll), and against
+    jax.vmap(posterior_log) within 1e-10."""
+    import jax
+
+    start, trans, emit = _fb_input(name)
+    args = tuple(map(T_, (start, trans, emit)))
+    post, ll = _fb_product_model(*args)
+    want_post, want_ll = thmm.posterior_log_batch_ref(*args)
+    assert not torch.isneginf(want_post).any()
+    np.testing.assert_allclose(post.numpy(), want_post.numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(ll.numpy(), want_ll.numpy(), rtol=0, atol=1e-12)
+    jax_post, jax_ll = jax.vmap(jhmm.posterior_log, in_axes=(None, None, 0))(start, trans, emit)
+    np.testing.assert_allclose(post.numpy(), np.asarray(jax_post), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(jax_ll), rtol=0, atol=1e-10)
+
+
 @pytest.mark.parametrize(
     "case,exc",
     [("dtype", TypeError), ("emit_dims", ValueError), ("start_shape", ValueError),
-     ("trans_steps", ValueError), ("device", ValueError), ("too_many_states", ValueError)],
+     ("trans_steps", ValueError), ("device", ValueError), ("too_many_states", ValueError),
+     ("unknown_form", ValueError), ("product_too_many_states", ValueError)],
 )
 def test_posterior_log_batch_rejects_bad_arguments(case, exc):
     start, trans, emit = map(T_, _fb_batch(40, 2, 6, 3))
@@ -454,5 +609,10 @@ def test_posterior_log_batch_rejects_bad_arguments(case, exc):
         S = thmm.MAX_FB_STATES + 1
         start, trans, emit = torch.zeros(S, dtype=torch.float64), torch.zeros(
             (1, S, S), dtype=torch.float64), torch.zeros((1, 2, S), dtype=torch.float64)
+    form = {"unknown_form": "fast", "product_too_many_states": "product"}.get(case)
+    if case == "product_too_many_states":
+        S = thmm.PRODUCT_MAX_STATES + 1
+        start, trans, emit = torch.zeros(S, dtype=torch.float64), torch.zeros(
+            (1, S, S), dtype=torch.float64), torch.zeros((1, 2, S), dtype=torch.float64)
     with pytest.raises(exc, match="1024" if case == "too_many_states" else None):
-        thmm.posterior_log_batch(start, trans, emit)
+        thmm.posterior_log_batch(start, trans, emit, form=form)
