@@ -1,6 +1,6 @@
 """Smoke run of ngsepcore_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 2d,18,19] [--asm-row A]
+    python3 chip_smoke.py [--phases 20,21] [--asm-row A]
 
 Builds the CUDA kernels from ngsepcore_tpu_torch/csrc (first use), holds
 each against its plain PyTorch version on the card, full plane and edge
@@ -79,6 +79,21 @@ VCFDistanceMatrixCalculator -> NeighborJoining, VCFConverter,
 VCFComparator); phase 19 imputes 300 samples x 20,000 SNVs at NGSEP's
 defaults (5 windows, 55 launches, all of the product form) with the JAX
 test's accuracy gate and its host stages timed.
+The benchmark tools, reads processing and genome comparison follow (no
+kernel of their own: MCL's steps and the repeat finder's minimizers run as
+torch on the card).  Phase 20 runs their eight commands through the CLI on
+CUDA and on the CPU side by side (VCFGoldStandardComparator, the three
+TILLING commands, Demultiplex, GenomesAligner, CDNACatalogAligner on
+protein and cDNA catalogs, TransposonsFinder in both modes), every output
+file byte-equal, then mcl_cluster on a 2,000-node block matrix, clusters
+equal; phase 21 runs TransposonsFinder's two modes on
+bench.build_repeat_genome(rng 2024, 12 Mbp) with the 30 family source
+segments as the library (GFF equal to the CPU's; library covered share >=
+0.98 and precision >= 0.99, de-novo precision >= 0.95, over the families'
+source and copy intervals) and CDNACatalogAligner on three catalogs of
+2,000 proteins (orthogroups equal to the CPU's, >= 1,400 of 1,600
+orthologs as exact triples), with stage seconds, call counts and peak
+device memory.
 With --phases only the listed phases run (and the ones whose data they
 use; 0 and 1 always run).
 Prints one line per phase and exits nonzero at the first failure.  The
@@ -1643,17 +1658,22 @@ def build_repeat_genome(rng, L: int, n_families: int, n_tandem: int):
     """bench.build_repeat_genome with its family and tandem-array counts as
     parameters: dispersed families at 92-99% identity plus short tandem
     arrays.  Returns (codes, merged repeat intervals, the tandem arrays as
-    0-based half-open (start, end) in planting order)."""
+    0-based half-open (start, end) in planting order, the families as
+    (source start, length, source segment, copy starts) in planting
+    order)."""
     codes = rng.integers(0, 4, size=L).astype(np.int8)
     intervals = []
     tandem = []
+    families = []
     for _fam in range(n_families):
         slen = int(rng.integers(500, 4000))
         src = int(rng.integers(0, L - slen))
         seg = codes[src : src + slen].copy()
         intervals.append((src, src + slen))
+        families.append((src, slen, seg, []))
         for _copy in range(int(rng.integers(4, 16))):
             dst = int(rng.integers(0, L - slen))
+            families[-1][3].append(dst)
             cp = seg.copy()
             div = float(rng.uniform(0.01, 0.08))
             nmut = int(rng.binomial(slen, div))
@@ -1679,7 +1699,7 @@ def build_repeat_genome(rng, L: int, n_families: int, n_tandem: int):
             merged[-1][1] = max(merged[-1][1], hi)
         else:
             merged.append([lo, hi])
-    return codes, np.asarray(merged, dtype=np.int64), tandem
+    return codes, np.asarray(merged, dtype=np.int64), tandem, families
 
 
 def str_catalogue(name: str, arrays):
@@ -1714,7 +1734,7 @@ def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS):
     rng = np.random.default_rng(2024)
     L = int(mbp * 1e6)
     scale = mbp / 12.0  # bench.py's 12 Mbp genome: 30 families, 400 arrays
-    codes, repeat_iv, tandem = build_repeat_genome(
+    codes, repeat_iv, tandem, _ = build_repeat_genome(
         rng, L, round(30 * scale), round(400 * scale)
     )
     seqs = QualifiedSequenceList()
@@ -3856,8 +3876,465 @@ def phase_imputer_real_size(device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# Phases 20 and 21: benchmark tools, reads processing, genome comparison
+
+AMINO = "ARNDCQEGHILKMFPSTWYV"
+
+
+def protein_catalogs(rng, n_orth, n_fam, n_par=4, n_cat=3, lengths=(300, 501)):
+    """n_cat catalogs, each of n_orth single-copy orthologs (5% substitutions
+    from one ancestor a ortholog) and n_fam families of n_par paralogs (15%
+    from one ancestor a family), each catalog in its own random order:
+    [(name, protein)] a catalog.  Ortholog i is named o<i> in every catalog,
+    paralog j of family f f<f>p<j>."""
+    aa = np.array(list(AMINO))
+
+    def mutate(seq, rate):
+        m = rng.random(len(seq)) < rate
+        out = seq.copy()
+        out[m] = rng.integers(0, 20, size=int(m.sum()))
+        return out
+
+    orth = [rng.integers(0, 20, size=int(rng.integers(*lengths))) for _ in range(n_orth)]
+    fams = [rng.integers(0, 20, size=int(rng.integers(*lengths))) for _ in range(n_fam)]
+    cats = []
+    for _ in range(n_cat):
+        entries = [(f"o{i}", mutate(s, 0.05)) for i, s in enumerate(orth)]
+        entries += [(f"f{f}p{j}", mutate(s, 0.15)) for f, s in enumerate(fams)
+                    for j in range(n_par)]
+        order = rng.permutation(len(entries))
+        cats.append([(entries[i][0], "".join(aa[entries[i][1]])) for i in order])
+    return cats
+
+
+def write_catalogs(d, cats):
+    """One FASTA a catalog, cat<c>.fa in `d`; returns the paths."""
+    paths = []
+    for c, entries in enumerate(cats):
+        paths.append(os.path.join(d, f"cat{c}.fa"))
+        with open(paths[-1], "w") as fh:
+            fh.writelines(f">{name}\n{seq}\n" for name, seq in entries)
+    return paths
+
+
+def exact_triples(orthogroups_path) -> int:
+    """Orthogroups of a CDNACatalogAligner file that hold exactly one
+    ortholog o<i> from each of three catalogs, the same i."""
+    n = 0
+    with open(orthogroups_path) as fh:
+        for line in fh:
+            members = line.rstrip("\n").split("\t")[1:]
+            cats = {m.split(":", 1)[0] for m in members}
+            names = {m.split(":", 1)[1] for m in members}
+            if len(members) == 3 and len(cats) == 3 and len(names) == 1 \
+                    and next(iter(names)).startswith("o"):
+                n += 1
+    return n
+
+
+def _random_dna(rng, n):
+    return "".join(rng.choice(list("ACGT"), size=n))
+
+
+def _coding(rng, codons):
+    """ATG, `codons` random sense codons, a stop codon."""
+    sense = [a + b + c for a in "ACGT" for b in "ACGT" for c in "ACGT"
+             if a + b + c not in ("TAA", "TAG", "TGA")]
+    return "ATG" + "".join(rng.choice(sense, size=codons)) + "TAA"
+
+
+def _point_mutations(rng, seq, rate):
+    s = np.frombuffer(seq.encode(), np.uint8).copy()
+    m = rng.random(len(s)) < rate
+    s[m] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=int(m.sum()))]
+    return s.tobytes().decode()
+
+
+def _gene_genomes(d, rng, n_genomes=3, n_genes=10):
+    """n_genomes genomes of 30 kb with the same n_genes genes at the same
+    places (the later ones 2% point mutations from the first): gene 3 on
+    the minus strand, gene 5 in two exons.  ga<g>.fa and ga<g>.gff3."""
+    seq = list(_random_dna(rng, 30_000))
+    genes = []  # (first, last, strand, [(cds first, cds last)])
+    for i in range(n_genes):
+        first = 1001 + 2800 * i
+        cds = _coding(rng, 150)
+        if i == 3:
+            rc = {"A": "T", "C": "G", "G": "C", "T": "A"}
+            cds = "".join(rc[b] for b in reversed(cds))
+        if i == 5:
+            exons = [(first, first + 239), (first + 340, first + 339 + len(cds) - 240)]
+            seq[first - 1 : first + 239] = cds[:240]
+            seq[first + 339 : first + 339 + len(cds) - 240] = cds[240:]
+        else:
+            exons = [(first, first + len(cds) - 1)]
+            seq[first - 1 : first - 1 + len(cds)] = cds
+        genes.append((first, exons[-1][1], "-" if i == 3 else "+", exons))
+    base = "".join(seq)
+    for g in range(n_genomes):
+        chrom = f"chr{'ABC'[g]}1"
+        text = base if g == 0 else _point_mutations(rng, base, 0.02)
+        with open(os.path.join(d, f"ga{g}.fa"), "w") as fh:
+            fh.write(f">{chrom}\n{text}\n")
+        lines = ["##gff-version 3"]
+        for i, (first, last, strand, exons) in enumerate(genes):
+            gid = f"{'ABC'[g]}g{i}"
+            lines.append(f"{chrom}\tsim\tgene\t{first}\t{last}\t.\t{strand}\t.\tID={gid}")
+            lines.append(f"{chrom}\tsim\tmRNA\t{first}\t{last}\t.\t{strand}\t.\t"
+                         f"ID={gid}.t1;Parent={gid}")
+            for a, b in exons:
+                lines.append(f"{chrom}\tsim\tCDS\t{a}\t{b}\t.\t{strand}\t0\tParent={gid}.t1")
+        with open(os.path.join(d, f"ga{g}.gff3"), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+
+
+def _write_vcf(path, samples, sites, rng, gq=(5, 99)):
+    """A VCF of biallelic SNVs at `sites` [(chrom, pos, ref, alt)] with one
+    random genotype (0, 1 or 2 alternative copies; -1 missing) a sample."""
+    from ngsepcore_tpu_torch.variants.model import TYPE_BIALLELIC_SNV, CalledGenomicVariant
+    from ngsepcore_tpu_torch.vcf.io import VCFFileWriter, VCFRecord
+
+    with VCFFileWriter(path, samples) as w:
+        for chrom, pos, ref, alt, genos in sites:
+            calls = [CalledGenomicVariant(
+                sequence_name=chrom, first=pos, alleles=[ref, alt],
+                variant_type=TYPE_BIALLELIC_SNV, quality=60, sample_id=s,
+                indexes_called_alleles=[[], [0, 0], [0, 1], [1, 1]][g + 1],
+                genotype_quality=int(rng.integers(*gq))) for s, g in zip(samples, genos)]
+            w.write(VCFRecord(variant=calls[0], calls=calls))
+
+
+def write_long_tail_inputs(d):
+    """Phase 20's inputs (also tests/test_torch_cli.py's): a 43 kb genome
+    with two transposon families (20 exact copies of 500 bp, 4 copies of
+    800 bp at 3%) and their library; three 30 kb genomes with ten gene
+    models each; three protein catalogs of 64 and two cDNA catalogs of 30;
+    an individuals VCF and its
+    TILLING pools; a TILLING population simulated on the genome (the
+    genotyper's input); a gold-standard and a test VCF; a lane FASTQ of
+    barcoded reads with adapters and its barcodes."""
+    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
+    from ngsepcore_tpu_torch.simulation.tilling import TillingPopulationSimulator
+    from ngsepcore_tpu_torch.vcf.io import VCFFileWriter
+
+    rng = np.random.default_rng(20)
+    te1, te2 = _random_dna(rng, 500), _random_dna(rng, 800)
+    genome = _random_dna(rng, 3000)
+    for i in range(20):
+        genome += te1 + _random_dna(rng, 1500)
+        if i % 5 == 0:
+            genome += _point_mutations(rng, te2, 0.03) + _random_dna(rng, 1000)
+    with open(os.path.join(d, "g.fa"), "w") as fh:
+        fh.write(f">chr1\n{genome}\n")
+    with open(os.path.join(d, "lib.fa"), "w") as fh:
+        fh.write(f">TE1\n{te1}\n>TE2\n{te2}\n")
+    _gene_genomes(d, rng)
+    write_catalogs(d, protein_catalogs(rng, 40, 6, lengths=(120, 200)))
+    # TILLING: 6 individuals in 2 x 3 pools, 20 SNVs
+    inds = [f"ind{i}" for i in range(6)]
+    with open(os.path.join(d, "pools.txt"), "w") as fh:
+        fh.write("Individual;Pool1;Pool2\n")
+        fh.writelines(f"{s};R{i // 3};C{i % 3}\n" for i, s in enumerate(inds))
+    sites = []
+    for pos in sorted(rng.choice(np.arange(100, 40_000), size=20, replace=False)):
+        ref = genome[pos - 1]
+        sites.append(("chr1", int(pos), ref, "ACGT"[("ACGT".index(ref) + 1) % 4],
+                      [int(g) for g in rng.choice([0, 0, 0, 1, 2, -1], size=6)]))
+    _write_vcf(os.path.join(d, "individuals.vcf"), inds, sites, rng)
+    sim = TillingPopulationSimulator(ReferenceGenome.load(os.path.join(d, "g.fa")),
+                                     n_individuals=24, seed=3)
+    sim.build_design(n_cols=6)
+    sim.simulate_mutations()
+    with open(os.path.join(d, "sim_design.txt"), "w") as fh:
+        for ind, pools in sim.design.pools_per_individual.items():
+            fh.write(f"{ind}\t{','.join(sorted(pools))}\n")
+    for pool, recs in sorted(sim.pool_variant_records().items()):
+        with VCFFileWriter(os.path.join(d, f"sim_{pool}.vcf"), [pool]) as w:
+            for r in recs:
+                w.write(r)
+    # gold standard against a test call set: changed genotypes, missed
+    # and extra sites, positions off by one
+    gold, test = [], []
+    for pos in sorted(rng.choice(np.arange(100, 40_000), size=60, replace=False)):
+        ref = genome[pos - 1]
+        alt = "ACGT"[("ACGT".index(ref) + 2) % 4]
+        g = int(rng.integers(1, 3))
+        gold.append(("chr1", int(pos), ref, alt, [g]))
+        r = rng.random()
+        if r < 0.7:
+            test.append(("chr1", int(pos), ref, alt, [g]))
+        elif r < 0.8:
+            test.append(("chr1", int(pos), ref, alt, [3 - g]))
+        elif r < 0.9:
+            test.append(("chr1", int(pos) + 1, ref, alt, [g]))
+    test += [("chr1", int(p), "A", "C", [1]) for p in rng.choice(np.arange(40_001, 43_000), 8)]
+    test.sort(key=lambda t: t[1])
+    _write_vcf(os.path.join(d, "gold.vcf"), ["s"], gold, rng)
+    _write_vcf(os.path.join(d, "test.vcf"), ["s"], test, rng)
+    # demultiplexing: four barcodes (one a prefix of another), reads with
+    # an adapter after their payload, some unbarcoded, some too short
+    barcodes = {"ACGT": "s1", "ACGTTT": "s2", "GGGA": "3x", "TTAC": "s4"}
+    with open(os.path.join(d, "barcodes.txt"), "w") as fh:
+        fh.writelines(f"{b}\t{s}\n" for b, s in barcodes.items())
+    with open(os.path.join(d, "lane.fastq"), "w") as fh:
+        for i in range(400):
+            bc = ["ACGT", "ACGTTT", "GGGA", "TTAC", "CCCC"][i % 5]
+            payload = _random_dna(rng, int(rng.integers(10, 90)))
+            seq = bc + payload + ("AGATCGGAAG" + _random_dna(rng, 12) if i % 3 == 0 else "")
+            qual = "".join(chr(33 + int(q)) for q in rng.integers(2, 41, size=len(seq)))
+            fh.write(f"@r{i}\n{seq}\n+\n{qual}\n")
+    # two cDNA catalogs of 30 transcripts (200-300 bp, 3% substitutions)
+    cdna = [_random_dna(rng, int(rng.integers(200, 301))) for _ in range(30)]
+    for c in range(2):
+        with open(os.path.join(d, f"cdna{c}.fa"), "w") as fh:
+            fh.writelines(f">t{i}\n{_point_mutations(rng, s, 0.03)}\n"
+                          for i, s in enumerate(cdna))
+
+
+def long_tail_jobs(d):
+    """{label: CLI arguments} of the eight commands on write_long_tail_inputs'
+    files, `{o}` the output prefix; TransposonsFinder runs in both modes,
+    CDNACatalogAligner on protein and on cDNA catalogs."""
+    import glob
+
+    pools = sorted(glob.glob(os.path.join(d, "sim_*.vcf")))
+    jobs = {
+        "TillingIndividualVCF2PoolVCF": ["{d}/individuals.vcf", "{d}/pools.txt", "{o}.vcf"],
+        "TillingPopulationSimulator": ["{d}/g.fa", "{o}", "-n", "24", "-s", "3"],
+        "TillingPoolsIndividualGenotyper": ["-d", "{d}/sim_design.txt", "-o", "{o}.txt"] + pools,
+        "VCFGoldStandardComparator": ["{d}/gold.vcf", "{d}/test.vcf", "-t", "1", "-o", "{o}.txt"],
+        "Demultiplex": ["-b", "{d}/barcodes.txt", "-o", "{o}", "-u", "-a", "AGATCGGAAG",
+                        "-m", "20", "{d}/lane.fastq"],
+        "GenomesAligner": ["-o", "{o}"] + [f"{{d}}/ga{g}.{e}" for g in range(3)
+                                           for e in ("fa", "gff3")],
+        "CDNACatalogAligner": ["-o", "{o}", "{d}/cat0.fa", "{d}/cat1.fa", "{d}/cat2.fa"],
+        "CDNACatalogAligner cdna": ["-o", "{o}", "{d}/cdna0.fa", "{d}/cdna1.fa"],
+        "TransposonsFinder": ["{d}/g.fa", "-o", "{o}.gff"],
+        "TransposonsFinder -d": ["{d}/g.fa", "-d", "{d}/lib.fa", "-o", "{o}.gff"],
+    }
+    return {label: [a.replace("{d}", d) for a in args] for label, args in jobs.items()}
+
+
+def _dir_bytes(path):
+    return {name: open(os.path.join(path, name), "rb").read() for name in sorted(os.listdir(path))}
+
+
+def block_matrix(n, n_blocks, seed):
+    """A random block similarity matrix (float32, symmetric, zero diagonal):
+    weights 5-50 inside blocks, 1% of the pairs between blocks at 0-5."""
+    rng = np.random.default_rng(seed)
+    block = rng.integers(0, n_blocks, size=n)
+    inside = block[:, None] == block[None, :]
+    sim = np.where(inside, rng.uniform(5, 50, (n, n)),
+                   np.where(rng.random((n, n)) < 0.01, rng.uniform(0, 5, (n, n)), 0))
+    sim = np.triu(sim, 1).astype(np.float32)
+    return sim + sim.T
+
+
+def phase_long_tail_small(device="cuda"):
+    """Phase 20, CUDA against the CPU: the eight commands of ROADMAP items
+    17c-17e through the CLI on write_long_tail_inputs' files (all side by
+    side, --profile on the card), every output file byte-equal; then
+    mcl_cluster on a 2,000-node block matrix, clusters identical."""
+    import torch
+
+    from ngsepcore_tpu_torch.graphs.mcl import mcl_cluster, mcl_matrix
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        write_long_tail_inputs(d)
+        procs = {}
+        try:
+            for label, args in long_tail_jobs(d).items():
+                cid = label.split()[0]
+                for dev, tag in ((device, "dev"), ("cpu", "ref")):
+                    out = os.path.join(d, label.replace(" ", "_"), tag)
+                    os.makedirs(out)
+                    cmd = [sys.executable, "-m", "ngsepcore_tpu_torch", "--device", dev,
+                           "--profile", cid] + [a.replace("{o}", out + "/out") for a in args]
+                    procs[label, tag] = (out, subprocess.Popen(
+                        cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+            errs = {}
+            for key, (_, proc) in procs.items():
+                _, errs[key] = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    print(errs[key][-4000:], flush=True)
+                    fail(f"phase 20: {key[0]} on {key[1]} exited {proc.returncode}")
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        calls = {}
+        for label in long_tail_jobs(d):
+            dev_files = _dir_bytes(procs[label, "dev"][0])
+            ref_files = _dir_bytes(procs[label, "ref"][0])
+            if dev_files != ref_files or not dev_files or not all(dev_files.values()):
+                import difflib
+
+                for name in sorted(set(dev_files) & set(ref_files)):
+                    if dev_files[name] != ref_files[name]:
+                        print("".join(list(difflib.unified_diff(
+                            ref_files[name].decode(errors="replace").splitlines(True),
+                            dev_files[name].decode(errors="replace").splitlines(True),
+                            f"cpu/{name}", f"{device}/{name}", n=0))[:40]), flush=True)
+                fail(f"phase 20: {label} output differs between {device} and cpu "
+                     f"({sorted(dev_files)} / {sorted(ref_files)})")
+            m = re.search(r"device calls: mcl_cluster=(\d+) \(iterations (\d+)\) "
+                          r"te_extractions=(\d+)", errs[label, "dev"])
+            calls[label] = (tuple(int(x) for x in m.groups()), len(dev_files))
+        if calls["CDNACatalogAligner"][0][0] == 0 or calls["GenomesAligner"][0][0] == 0:
+            fail(f"phase 20: no mcl_cluster call on the card: {calls}")
+        if calls["TransposonsFinder -d"][0][2] != 2:
+            fail(f"phase 20: the library search made {calls['TransposonsFinder -d'][0][2]} "
+                 "extractions for 2 library sequences")
+    cli_s = time.perf_counter() - t0
+    sim = block_matrix(2000, 100, seed=20)
+    got = {}
+    for dev in (device, "cpu"):
+        t1 = time.perf_counter()
+        M, iters = mcl_matrix(sim, device=dev)
+        clusters = mcl_cluster(sim, device=dev)
+        got[dev] = (M, iters, clusters, time.perf_counter() - t1)
+    if got[device][2] != got["cpu"][2]:
+        fail("phase 20: mcl_cluster's clusters differ between the card and the CPU")
+    err = float(np.abs(got[device][0] - got["cpu"][0]).max())
+    log(f"phase 20 long tail small: {len(calls)} CLI runs x 2 devices byte-equal in {cli_s:.1f}s; "
+        f"card mcl calls/iterations/te extractions, files: {calls}; "
+        f"mcl 2000 nodes: {len(got['cpu'][2])} clusters equal, iterations "
+        f"{device} {got[device][1]} cpu {got['cpu'][1]}, max |dM| {err:.3g}, "
+        f"{got[device][3]:.2f}s / {got['cpu'][3]:.2f}s")
+    torch.cuda.synchronize()
+
+
+def repeat_truth(L, families):
+    """Mask of the family source and copy intervals (0-based)."""
+    truth = np.zeros(L, bool)
+    for src, slen, _seg, copies in families:
+        truth[src : src + slen] = True
+        for dst in copies:
+            truth[dst : dst + slen] = True
+    return truth
+
+
+def repeat_scores(anns, truth):
+    """(covered share of the truth, precision) of annotations (1-based)."""
+    pred = np.zeros(len(truth), bool)
+    for a in anns:
+        pred[a.first - 1 : a.last] = True
+    both = int((pred & truth).sum())
+    return both / int(truth.sum()), both / max(1, int(pred.sum()))
+
+
+def _stage_split(profiling, prefix):
+    return {k: round(v[0], 3) for k, v in profiling._stages.items() if k.startswith(prefix)}
+
+
+def phase_long_tail_real_size(device="cuda"):
+    """Phase 21, on the card at user size: TransposonsFinder's two modes on
+    bench.build_repeat_genome(rng 2024, 12 Mbp) with the 30 family source
+    segments as the library (GFF equal to the CPU's, coverage and precision
+    gates over the families' source and copy intervals), then
+    CDNACatalogAligner on three catalogs of 2,000 proteins (orthogroups
+    equal to the CPU's, an exact-triple gate); stage seconds, call counts
+    and peak device memory."""
+    import torch
+
+    from ngsepcore_tpu_torch.__main__ import main as port_main
+    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
+    from ngsepcore_tpu_torch.core.sequences import QualifiedSequence, QualifiedSequenceList
+    from ngsepcore_tpu_torch.genome.transposons import (
+        find_repeats_by_library,
+        find_repeats_denovo,
+        write_transposons_gff,
+    )
+    from ngsepcore_tpu_torch.graphs.mcl import mcl_cluster
+    from ngsepcore_tpu_torch.utils import profiling
+
+    codes, _, _, families = build_repeat_genome(np.random.default_rng(2024), 12_000_000, 30, 400)
+    if not np.array_equal(codes, _bench_genome_codes()):
+        fail("phase 21: the repeat genome differs from bench.build_repeat_genome's")
+    seqs = QualifiedSequenceList()
+    seqs.add(QualifiedSequence(name="chr1", codes=codes))
+    genome = ReferenceGenome(seqs)
+    library = [QualifiedSequence(name=f"family{i}", codes=f[2]) for i, f in enumerate(families)]
+    truth = repeat_truth(len(codes), families)
+    gates = {"library": (0.98, 0.99), "denovo": (0.0, 0.95)}
+    report = {}
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        for mode in ("library", "denovo"):
+            gff = {}
+            for dev in (device, "cpu"):
+                profiling.enable()
+                profiling.reset()
+                torch.cuda.reset_peak_memory_stats()
+                n0 = find_repeats_by_library.extractions
+                t0 = time.perf_counter()
+                anns = (find_repeats_by_library(genome, library, device=dev) if mode == "library"
+                        else find_repeats_denovo(genome, device=dev))
+                if dev == device:
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                profiling.enable(False)
+                gff[dev] = os.path.join(d, f"{mode}_{dev}.gff")
+                write_transposons_gff(anns, gff[dev])
+                if dev == device:
+                    cov, prec = repeat_scores(anns, truth)
+                    report[mode] = dict(
+                        regions=len(anns), covered=round(cov, 4), precision=round(prec, 4),
+                        s=round(wall, 3), stages_s=_stage_split(profiling, "te."),
+                        extractions=find_repeats_by_library.extractions - n0,
+                        peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+                else:
+                    report[mode]["cpu_s"] = round(wall, 3)
+            if open(gff[device], "rb").read() != open(gff["cpu"], "rb").read():
+                fail(f"phase 21: TransposonsFinder {mode} GFF differs between {device} and cpu")
+            need_cov, need_prec = gates[mode]
+            if report[mode]["covered"] < need_cov or report[mode]["precision"] < need_prec:
+                fail(f"phase 21: TransposonsFinder {mode} {report[mode]} misses its gates "
+                     f"(covered >= {need_cov}, precision >= {need_prec})")
+        paths = write_catalogs(d, protein_catalogs(np.random.default_rng(5), 1600, 100))
+        og = {}
+        for dev in (device, "cpu"):
+            profiling.reset()
+            torch.cuda.reset_peak_memory_stats()
+            c0, i0 = mcl_cluster.calls, mcl_cluster.iterations
+            out = os.path.join(d, f"catalogs_{dev}")
+            t0 = time.perf_counter()
+            with open(os.devnull, "w") as null:
+                stderr, sys.stderr = sys.stderr, null
+                try:  # --profile enables the stages and prints them to stderr
+                    port_main(["--device", dev, "--profile", "CDNACatalogAligner", "-o", out]
+                              + paths)
+                finally:
+                    sys.stderr = stderr
+            wall = time.perf_counter() - t0
+            profiling.enable(False)
+            og[dev] = out + "_orthogroups.txt"
+            if dev == device:
+                with open(og[dev]) as fh:
+                    sizes = [len(line.split("\t")) - 1 for line in fh]
+                report["catalogs"] = dict(
+                    groups=len(sizes), largest=max(sizes), exact_triples=exact_triples(og[dev]),
+                    s=round(wall, 3), stages_s=_stage_split(profiling, "orthogroups."),
+                    mcl_calls=mcl_cluster.calls - c0, mcl_iterations=mcl_cluster.iterations - i0,
+                    peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+            else:
+                report["catalogs"]["cpu_s"] = round(wall, 3)
+                report["catalogs"]["cpu_stages_s"] = _stage_split(profiling, "orthogroups.")
+        if open(og[device], "rb").read() != open(og["cpu"], "rb").read():
+            fail("phase 21: CDNACatalogAligner orthogroups differ between the card and the CPU")
+        if report["catalogs"]["exact_triples"] < 1400:
+            fail(f"phase 21: {report['catalogs']['exact_triples']} of 1,600 orthologs as exact "
+                 "triples (gate 1,400)")
+    log(f"phase 21 long tail real size: {json.dumps(report)}")
+    return report
+
+
+# ---------------------------------------------------------------------------
 PHASES = ("2", "2b", "2c", "2d", "3", "4", "5", "6", "7", "9", "10", "12", "13", "8", "11",
-          "14", "15", "16", "17", "18", "19")
+          "14", "15", "16", "17", "18", "19", "20", "21")
 NEEDS = {"6": "4", "8": "5", "10": "5", "11": "5", "13": "5"}  # uses that phase's data
 
 
@@ -3958,6 +4435,12 @@ def main(argv=None) -> None:
         elif p == "19":
             torch.cuda.empty_cache()
             t[p] = phase_imputer_real_size()
+        elif p == "20":
+            torch.cuda.empty_cache()
+            phase_long_tail_small()
+        elif p == "21":
+            torch.cuda.empty_cache()
+            t[p] = phase_long_tail_real_size()
     if "d" in t:
         t.pop("d").cleanup()
     print(json.dumps({"kernels": kernel_entries(t)}), flush=True)

@@ -131,6 +131,15 @@ def main(argv: list[str] | None = None) -> int:
                 f"forward_backward={posterior_log_batch.launches}",
                 file=sys.stderr, flush=True,
             )
+            from .genome.transposons import find_repeats_by_library
+            from .graphs.mcl import mcl_cluster
+
+            print(
+                f"device calls: mcl_cluster={mcl_cluster.calls} "
+                f"(iterations {mcl_cluster.iterations}) "
+                f"te_extractions={find_repeats_by_library.extractions}",
+                file=sys.stderr, flush=True,
+            )
     return 0
 
 

@@ -2,7 +2,7 @@
 
 Command ids, groups, flags and former ids are those of
 ngsepcore_tpu/cli/commands.py (the reference's CommandsDescriptor.xml).
-31 commands are ported: KmersExtractor, GenomeIndexer, ReadsAligner
+39 commands are ported: KmersExtractor, GenomeIndexer, ReadsAligner
 (short and long reads), ReadsFileErrorsCorrector, Assembler,
 AssemblyGraphStatistics, SingleSampleVariantsDetector, SIH,
 MultisampleVariantsDetector, ReadDepthComparator, CoverageStats,
@@ -13,7 +13,11 @@ downstream commands (VCFFilter, VCFSummaryStats, VCFDiversityStats,
 VCFVariantDensityCalculator, VCFDistanceMatrixCalculator, NeighborJoining,
 DistanceClusteringService, VCFComparator, VCFConverter, VCFMerge,
 MergeVariants, RelativeAlleleCountsCalculator, VCFAlleleSharingStats,
-VCFIntrogressionAnalysis).  Every other id is registered as pending:
+VCFIntrogressionAnalysis); the benchmark tools (VCFGoldStandardComparator,
+TillingIndividualVCF2PoolVCF, TillingPopulationSimulator,
+TillingPoolsIndividualGenotyper), Demultiplex, and the genome comparison
+commands (GenomesAligner, CDNACatalogAligner, TransposonsFinder).  Every
+other id is registered as pending:
 running it exits with an error naming the ROADMAP.md item that ports it.
 Runners take the device the CLI's --device flag names.
 """
@@ -1245,27 +1249,373 @@ register(
 )
 
 
+# ---- benchmark tools, reads, genome comparison (ROADMAP.md Queue 1 items 17c-17e)
+
+def _run_tilling_vcf2pool(opts: dict, args: list[str], device) -> None:
+    from ..simulation.tilling import (
+        TillingIndividualVCF2PoolVCF,
+        load_pool_configuration,
+    )
+    from ..vcf.io import VCFFileReader, VCFFileWriter
+
+    if len(args) < 2:
+        raise SystemExit(
+            "Usage: TillingIndividualVCF2PoolVCF <individuals.vcf>"
+            " <pools_descriptor.txt> [out.vcf]"
+        )
+    pools = load_pool_configuration(args[1])
+    conv = TillingIndividualVCF2PoolVCF(pools)
+    records = conv.convert(VCFFileReader(args[0]).load_all())
+    out = args[2] if len(args) > 2 else "/dev/stdout"
+    with VCFFileWriter(out, conv.pool_ids) as w:
+        for r in records:
+            w.write(r)
+    print(f"Wrote {len(records)} pooled records", file=sys.stderr)
+
+
+register(
+    Command(
+        id="TillingIndividualVCF2PoolVCF",
+        group="Benchmark",
+        description="Convert an individuals VCF to the pooled-sample VCF a"
+        " TILLING run would produce",
+        runner=_run_tilling_vcf2pool,
+        options=[],
+    )
+)
+
+
+def _run_tilling_simulator(opts: dict, args: list[str], device) -> None:
+    from ..core.genome import ReferenceGenome
+    from ..simulation.tilling import TillingPopulationSimulator
+    from ..vcf.io import VCFFileWriter
+
+    if len(args) < 2:
+        raise SystemExit("Usage: TillingPopulationSimulator <genome.fa> <out_prefix>")
+    genome = ReferenceGenome.load(args[0])
+    sim = TillingPopulationSimulator(genome, **opts)
+    sim.build_design()
+    sim.simulate_mutations()
+    per_pool = sim.pool_variant_records()
+    with open(args[1] + "_design.txt", "w") as fh:
+        for ind, pools in sim.design.pools_per_individual.items():
+            fh.write(f"{ind}\t{','.join(sorted(pools))}\n")
+    for pool, recs in per_pool.items():
+        with VCFFileWriter(f"{args[1]}_{pool}.vcf", [pool]) as w:
+            for r in recs:
+                w.write(r)
+    print(
+        f"Simulated {len(sim.mutations)} mutations across {len(per_pool)} pools",
+        file=sys.stderr,
+    )
+
+
+register(
+    Command(
+        id="TillingPopulationSimulator",
+        group="Benchmark",
+        description="Simulates a TILLING population arranged in pools",
+        runner=_run_tilling_simulator,
+        options=[
+            Option("n", "n_individuals", "int", 96, "Number of individuals"),
+            Option("s", "seed", "int", 1, "Random seed"),
+        ],
+    )
+)
+
+
+def _run_tilling_genotyper(opts: dict, args: list[str], device) -> None:
+    from ..simulation.tilling import TillingDesign, TillingPoolsIndividualGenotyper
+    from ..vcf.io import VCFFileReader
+
+    design_file = opts.pop("design_file", None)
+    out = opts.pop("output_file", None)
+    if not design_file or not args:
+        raise SystemExit(
+            "Usage: TillingPoolsIndividualGenotyper -d <design.txt> <pool1.vcf> ..."
+        )
+    pools_per_ind = {}
+    with open(design_file) as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) >= 2:
+                pools_per_ind[parts[0]] = frozenset(parts[1].split(","))
+    design = TillingDesign(pools_per_ind)
+    pool_records = {}
+    for path in args:
+        reader = VCFFileReader(path)
+        recs = reader.load_all()
+        pool = reader.sample_ids[0] if reader.sample_ids else path
+        pool_records[pool] = recs
+    assigned = TillingPoolsIndividualGenotyper(design).genotype(pool_records)
+    with _output({"output_file": out}) as fh:
+        fh.write("INDIVIDUAL\tCHROM\tPOS\tREF\tALT\n")
+        for ind, r in assigned:
+            v = r.variant
+            fh.write(f"{ind}\t{v.sequence_name}\t{v.first}\t{v.alleles[0]}\t{v.alleles[1]}\n")
+    print(f"Assigned {len(assigned)} variants to individuals", file=sys.stderr)
+
+
+register(
+    Command(
+        id="TillingPoolsIndividualGenotyper",
+        group="Discovery",
+        description="Assigns pooled TILLING variants to individuals",
+        runner=_run_tilling_genotyper,
+        options=[
+            Option("d", "design_file", "str", None, "Individual->pools design file"),
+            Option("o", "output_file", "str", None, "Output file"),
+        ],
+    )
+)
+
+
+def _run_gold_standard_comparator(opts: dict, args: list[str], device) -> None:
+    from ..benchmark.gold_standard import VCFGoldStandardComparator
+    from ..vcf.io import VCFFileReader
+
+    if len(args) < 2:
+        raise SystemExit("Usage: VCFGoldStandardComparator <gold.vcf> <test.vcf>")
+    gold = VCFFileReader(args[0]).load_all()
+    test = VCFFileReader(args[1]).load_all()
+    out = opts.pop("output_file", None)
+    comp = VCFGoldStandardComparator(**opts)
+    comp.compare(gold, test)
+    with _output({"output_file": out}) as fh:
+        comp.print_report(fh)
+
+
+register(
+    Command(
+        id="VCFGoldStandardComparator",
+        group="Benchmark",
+        description="Genotype-aware TP/FP/FN vs a gold standard per quality bin",
+        runner=_run_gold_standard_comparator,
+        options=[
+            Option("t", "position_tolerance", "int", 0, "Position match tolerance"),
+            Option("o", "output_file", "str", None, "Output file"),
+        ],
+    )
+)
+
+
+def _run_demultiplex(opts: dict, args: list[str], device) -> None:
+    from ..sequencing.demultiplex import (
+        BarcodeMap,
+        ReadsDemultiplex,
+        load_barcode_file,
+        load_lane_files,
+        load_lanes_index,
+    )
+
+    barcodes_file = opts.pop("barcodes_file", None)
+    index_file = opts.pop("index_file", None)
+    descriptor = opts.pop("lane_files_descriptor", None)
+    flowcell = opts.pop("flowcell", None)
+    lane_no = opts.pop("lane", None)
+    out = opts.pop("output_prefix", None)
+    fastq2 = opts.pop("fastq2", None)
+    trim = opts.pop("trim_sequences", None)
+    if trim:
+        opts["trim_sequences"] = trim.split(",")
+    d = ReadsDemultiplex(None, **opts)
+    if index_file:
+        lanes = load_lanes_index(index_file, d.dual_barcode)
+        if descriptor:
+            load_lane_files(descriptor, lanes)
+            d.demultiplex_lanes(lanes)
+        else:
+            sel = [
+                l
+                for l in lanes
+                if flowcell is None
+                or (l.flowcell == flowcell and l.number == str(lane_no))
+            ]
+            if not sel or not args:
+                raise SystemExit(
+                    "Usage: Demultiplex -i <index.txt> [-d <lanes.txt> | "
+                    "-fc <flowcell> -l <lane> <r1.fastq> [-f2 <r2.fastq>]]"
+                )
+            d.barcode_map = sel[0].barcode_map
+            if fastq2:
+                d.demultiplex_paired(args[0], fastq2, out_prefix=out)
+            else:
+                d.demultiplex_file(args[0], out_prefix=out)
+    elif barcodes_file and args:
+        d.barcode_map = BarcodeMap(load_barcode_file(barcodes_file))
+        for path in args:
+            d.demultiplex_file(path, out or "demux")
+    else:
+        raise SystemExit(
+            "Usage: Demultiplex (-i <index.txt> | -b <barcodes.txt>) "
+            "[-d <lanes.txt>] [-fc <flowcell> -l <lane>] <lane.fastq>"
+        )
+    print(d.stats.report(), file=sys.stderr)
+
+
+register(
+    Command(
+        id="Demultiplex",
+        group="Reads",
+        description="Demultiplexes pooled reads by barcodes",
+        runner=_run_demultiplex,
+        options=[
+            Option("b", "barcodes_file", "str", None,
+                   "Simple barcode->sample file"),
+            Option("i", "index_file", "str", None,
+                   "Index: flowcell lane barcode [barcode2] sample"),
+            Option("d", "lane_files_descriptor", "str", None,
+                   "Lane files descriptor: flowcell lane file1 [file2]"),
+            Option("fc", "flowcell", "str", None, "Flowcell id"),
+            Option("l", "lane", "str", None, "Lane number"),
+            Option("f2", "fastq2", "str", None,
+                   "Second fastq for paired-end demultiplexing"),
+            Option("o", "output_prefix", "str", None, "Output prefix"),
+            Option("outDir", "out_directory", "str", None,
+                   "Output directory (per-sample file mode)"),
+            Option("p", "prefix", "str", None,
+                   "Prefix for sample files starting with a digit"),
+            Option("a", "adapter", "str", None, "Adapter to trim"),
+            Option("t", "trim_sequences", "str", None,
+                   "Comma-separated sequences to trim (IUPAC allowed)"),
+            Option("m", "min_read_length", "int", 40,
+                   "Min read length after trim"),
+            Option("dual", "dual_barcode", "bool", False,
+                   "Dual barcoding (read1+read2 barcode pairs)"),
+            Option("u", "uncompressed_output", "bool", False,
+                   "Write uncompressed fastq outputs"),
+        ],
+    )
+)
+
+
+def _run_genomes_aligner(opts: dict, args: list[str], device) -> None:
+    from ..core.genome import ReferenceGenome
+    from ..genome.genomes_aligner import GenomesAligner
+    from ..transcriptome.io_formats import load_transcriptome
+
+    out = opts.pop("output_prefix", None) or "genomes_aln"
+    if len(args) < 4 or len(args) % 2 != 0:
+        raise SystemExit(
+            "Usage: GenomesAligner -o <prefix> <g1.fa> <g1.gff3> <g2.fa> <g2.gff3> ..."
+        )
+    ga = GenomesAligner(**opts, device=device)
+    for i in range(0, len(args), 2):
+        genome = ReferenceGenome.load(args[i])
+        transcriptome = load_transcriptome(args[i + 1])
+        ga.add_genome(genome, transcriptome)
+    groups, blocks = ga.run()
+    ga.write_outputs(out, groups, blocks)
+    print(
+        f"{len(groups)} orthogroups, {len(blocks)} synteny blocks -> {out}_*",
+        file=sys.stderr,
+    )
+
+
+register(
+    Command(
+        id="GenomesAligner",
+        group="Genomes",
+        description="Whole-genome ortholog and synteny comparison",
+        runner=_run_genomes_aligner,
+        options=[
+            Option("o", "output_prefix", "str", None, "Output prefix"),
+            Option("k", "k", "int", 6, "Protein k-mer length"),
+            Option("p", "min_pct", "float", 11.0, "Min % shared k-mers"),
+            Option("m", "min_block_genes", "int", 3, "Min genes per synteny block"),
+        ],
+    )
+)
+
+
+def _run_cdna_catalog_aligner(opts: dict, args: list[str], device) -> None:
+    from ..genome.homologs import calculate_orthogroups
+    from ..io.fasta import read_fasta_text
+
+    out = opts.pop("output_prefix", None) or "catalogs"
+    if not args:
+        raise SystemExit("Usage: CDNACatalogAligner -o <prefix> <cat1.fa> [cat2.fa ...]")
+    names = []
+    seqs = []
+    # read as text: a protein catalog keeps its amino acids (the JAX
+    # package's runner reads catalogs as DNA, which turns them into N)
+    for ci, path in enumerate(args):
+        for name, seq in read_fasta_text(path):
+            names.append(f"c{ci}:{name}")
+            seqs.append(seq)
+    groups = calculate_orthogroups(seqs, **opts, device=device)
+    with open(out + "_orthogroups.txt", "w") as fh:
+        for i, g in enumerate(groups):
+            fh.write(f"OG{i + 1}\t" + "\t".join(names[x] for x in g) + "\n")
+    print(f"{len(groups)} orthogroups from {len(seqs)} sequences", file=sys.stderr)
+
+
+register(
+    Command(
+        id="CDNACatalogAligner",
+        group="Genomes",
+        description="Orthogroups from cDNA/protein catalogs",
+        runner=_run_cdna_catalog_aligner,
+        options=[
+            Option("o", "output_prefix", "str", None, "Output prefix"),
+            Option("k", "k", "int", 6, "K-mer length"),
+            Option("p", "min_pct", "float", 11.0, "Min % shared k-mers"),
+        ],
+    )
+)
+
+
+def _run_transposons_finder(opts: dict, args: list[str], device) -> None:
+    from ..core.genome import ReferenceGenome
+    from ..genome.transposons import (
+        find_repeats_by_library,
+        find_repeats_denovo,
+        write_transposons_gff,
+    )
+    from ..io.fasta import load_fasta
+
+    out = opts.pop("output_file", None) or "transposons.gff"
+    library = opts.pop("library", None)
+    if not args:
+        raise SystemExit("Usage: TransposonsFinder <genome.fa> [-d library.fa] [-o out.gff]")
+    genome = ReferenceGenome.load(args[0])
+    if library:
+        anns = find_repeats_by_library(
+            genome, list(load_fasta(library)), **opts, device=device)
+    else:
+        anns = find_repeats_denovo(genome, **opts, device=device)
+    write_transposons_gff(anns, out)
+    print(f"Annotated {len(anns)} repeat regions -> {out}", file=sys.stderr)
+
+
+register(
+    Command(
+        id="TransposonsFinder",
+        group="Genomes",
+        description="Transposable element / repeat annotation",
+        runner=_run_transposons_finder,
+        options=[
+            Option("o", "output_file", "str", None, "Output GFF"),
+            Option("d", "library", "str", None, "Known TE library FASTA"),
+            Option("k", "k", "int", 15, "K-mer length"),
+        ],
+    )
+)
+
+
 # ---- command ids not ported yet -----------------------------------------
 
 _TAIL = "ROADMAP.md Queue 1 item 17 (the long tail)"
 
 # id -> (group, description, former id, hidden, ROADMAP item)
 _PENDING: dict[str, tuple[str, str, str | None, bool, str]] = {
-    "TillingIndividualVCF2PoolVCF": ("Benchmark", "Convert an individuals VCF to the pooled-sample VCF a TILLING run would produce", None, False, _TAIL),
-    "Demultiplex": ("Reads", "Demultiplexes pooled reads by barcodes", None, False, _TAIL),
-    "VCFGoldStandardComparator": ("Benchmark", "Genotype-aware TP/FP/FN vs a gold standard per quality bin", None, False, _TAIL),
     "VCFAnnotate": ("VariantsDownstream", "Functional annotation of variants vs gene models (SO terms)", "Annotate", False, _TAIL),
-    "GenomesAligner": ("Genomes", "Whole-genome ortholog and synteny comparison", None, False, _TAIL),
-    "CDNACatalogAligner": ("Genomes", "Orthogroups from cDNA/protein catalogs", None, False, _TAIL),
     "TranscriptomeAnalyzer": ("Genomes", "Gene-model statistics from a GFF3", None, False, _TAIL),
     "DeNovoGBS": ("Reads", "De-novo GBS read clustering and variant calling", None, False, _TAIL),
-    "TransposonsFinder": ("Genomes", "Transposable element / repeat annotation", None, False, _TAIL),
     "TranscriptomeFilter": ("Genomes", "Filters gene annotations", None, False, _TAIL),
     "MutatedPeptidesExtractor": ("VariantsDownstream", "Mutated peptides from missense variants + gene models", None, True, _TAIL),
     "VCFRelativeCoordinatesTranslator": ("VariantsDownstream", "Maps de-novo GBS cluster variants to reference coordinates", None, False, _TAIL),
     "UneakToVCFConverter": ("VariantsDownstream", "Converts UNEAK HapMap+consensus output to VCF", None, True, _TAIL),
-    "TillingPopulationSimulator": ("Benchmark", "Simulates a TILLING population arranged in pools", None, False, _TAIL),
-    "TillingPoolsIndividualGenotyper": ("Discovery", "Assigns pooled TILLING variants to individuals", None, False, _TAIL),
 }
 
 

@@ -70,6 +70,23 @@ class FastaFileReader:
             )
 
 
+def read_fasta_text(path: str) -> Iterator[tuple[str, str]]:
+    """(name, sequence as written) of each record: letters outside ACGT
+    (amino acids, IUPAC codes) are kept, not encoded to N."""
+    name, chunks = None, []
+    with _open_text(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if line.startswith(">"):
+                if name is not None:
+                    yield name, "".join(chunks)
+                name, chunks = (line[1:].split(None, 1) or [""])[0], []
+            elif line:
+                chunks.append(line)
+    if name is not None:
+        yield name, "".join(chunks)
+
+
 def load_fasta(path: str) -> QualifiedSequenceList:
     return QualifiedSequenceList(FastaFileReader(path))
 

@@ -127,9 +127,9 @@ def test_device_cuda_without_card_exits_nonzero(files):
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["Demultiplex", "x.fastq"], "Queue 1 item 17"),
+        (["DeNovoGBS", "x.fastq"], "Queue 1 item 17"),
         (["VCFAnnotate", "-i", "x.vcf"], "Queue 1 item 17"),
-        (["GenomesAligner", "g1.fa", "g1.gff3"], "Queue 1 item 17"),
+        (["TranscriptomeAnalyzer", "g1.gff3"], "Queue 1 item 17"),
     ],
 )
 def test_unported_commands_name_their_roadmap_item(argv, item):
@@ -153,3 +153,125 @@ def test_unported_detector_options_name_their_roadmap_item(files):
     assert _body(files / "lr.vcf", "#") == _body(files / "t_sam.vcf", "#")
     with open(files / "lr_SVsLongReads.vcf") as fh:
         assert fh.readline().startswith("##fileformat=VCF")
+
+
+# ---- the CLI of items 17c-17e ----------------------------------------------
+
+def _gff_rows(path):
+    """GFF lines without the source column (each package names itself)."""
+    with open(path) as fh:
+        return [l.split("\t")[:1] + l.split("\t")[2:] for l in fh]
+
+
+@pytest.fixture(scope="module")
+def long_tail_dir(tmp_path_factory):
+    """chip_smoke.py phase 20's inputs (write_long_tail_inputs)."""
+    from chip_smoke import write_long_tail_inputs
+
+    d = tmp_path_factory.mktemp("long_tail")
+    write_long_tail_inputs(str(d))
+    return d
+
+
+LONG_TAIL_LABELS = [
+    "TillingIndividualVCF2PoolVCF", "TillingPopulationSimulator",
+    "TillingPoolsIndividualGenotyper", "VCFGoldStandardComparator", "Demultiplex",
+    "GenomesAligner", "CDNACatalogAligner", "CDNACatalogAligner cdna",
+    "TransposonsFinder", "TransposonsFinder -d",
+]
+
+
+def _jax_orthogroups_of_text(paths, out):
+    """The JAX package's calculate_orthogroups on catalogs read as text,
+    written as CDNACatalogAligner writes them (its runner reads a catalog
+    through the DNA encoder, which turns amino acids into N)."""
+    from ngsepcore_tpu.genome.homologs import calculate_orthogroups
+    from ngsepcore_tpu_torch.io.fasta import read_fasta_text
+
+    named = [(f"c{ci}:{n}", s) for ci, p in enumerate(paths) for n, s in read_fasta_text(p)]
+    groups = calculate_orthogroups([s for _, s in named])
+    with open(out + "_orthogroups.txt", "w") as fh:
+        for i, g in enumerate(groups):
+            fh.write(f"OG{i + 1}\t" + "\t".join(named[x][0] for x in g) + "\n")
+
+
+@pytest.mark.parametrize("label", LONG_TAIL_LABELS)
+def test_long_tail_cli_outputs_equal_jax(long_tail_dir, label, capsys):
+    """Each new id through both packages' main() on phase 20's inputs: the
+    same files with the same content (GFF but for its source column).  The
+    JAX package's VCFGoldStandardComparator passes -o on to the comparator,
+    which takes no such argument, so it runs without -o there and its
+    standard output is the port's -o file.  On protein catalogs the port's
+    CDNACatalogAligner is held against the JAX package's orthogroups of the
+    catalogs read as text (_jax_orthogroups_of_text); on cDNA catalogs
+    against the JAX CLI."""
+    from chip_smoke import long_tail_jobs
+
+    args = long_tail_jobs(str(long_tail_dir))[label]
+    cid = label.split()[0]
+    got = {}
+    for tag, main, pre in (("j", jmain, []), ("t", tmain, ["--device", "cpu"])):
+        out = long_tail_dir / f"{label.replace(' ', '_')}_{tag}"
+        out.mkdir()
+        argv = [a.replace("{o}", str(out / "out")) for a in args]
+        if tag == "j" and cid == "VCFGoldStandardComparator":
+            argv = argv[: argv.index("-o")]
+        capsys.readouterr()
+        if tag == "j" and label == "CDNACatalogAligner":
+            _jax_orthogroups_of_text(argv[2:], argv[1])
+        else:
+            assert main(pre + [cid] + argv) == 0
+        printed = capsys.readouterr().out
+        got[tag] = {p.name: (_gff_rows(p) if p.suffix == ".gff" else p.read_text())
+                    for p in sorted(out.iterdir())}
+        if tag == "j" and cid == "VCFGoldStandardComparator":
+            got[tag]["out.txt"] = printed
+    assert got["t"] == got["j"]
+    files = got["t"]
+    assert files and all(files.values())
+    if cid == "Demultiplex":
+        assert sorted(files) == ["out_3x.fastq", "out_s1.fastq", "out_s2.fastq", "out_s4.fastq"]
+    elif cid == "GenomesAligner":
+        assert sorted(files) == ["out_linearOrthologView.html", "out_orthogroups.txt",
+                                 "out_synteny.txt"]
+        groups = [l.split("\t")[1:] for l in files["out_orthogroups.txt"].splitlines()]
+        assert sum(len(g) == 3 for g in groups) >= 8 and "\t+\n" in files["out_synteny.txt"]
+    elif cid == "TillingPopulationSimulator":
+        assert len(files) > 5 and "out_design.txt" in files
+    elif cid == "TransposonsFinder":
+        assert len(files["out.gff"]) > 5
+    elif label == "CDNACatalogAligner":
+        groups = [l.split("\t")[1:] for l in files["out_orthogroups.txt"].splitlines()]
+        triples = sum(len(g) == 3 and len({m.split(":")[1] for m in g}) == 1 for g in groups)
+        assert triples >= 20 and max(map(len, groups)) <= 12
+
+
+def test_cdna_catalog_aligner_keeps_amino_acids(long_tail_dir):
+    """Known difference (ROADMAP.md Queue 3): the JAX package's
+    CDNACatalogAligner reads protein catalogs through the DNA encoder, so
+    every amino acid but A, C, G and T becomes N and unrelated proteins
+    merge; the port reads them as text."""
+    paths = [str(long_tail_dir / f"cat{c}.fa") for c in range(3)]
+    out = {}
+    for tag, main, pre in (("j", jmain, []), ("t", tmain, ["--device", "cpu"])):
+        prefix = str(long_tail_dir / f"amino_{tag}")
+        assert main(pre + ["CDNACatalogAligner", "-o", prefix] + paths) == 0
+        with open(prefix + "_orthogroups.txt") as fh:
+            out[tag] = [len(line.split("\t")) - 1 for line in fh]
+    assert max(out["j"]) > 100 and max(out["t"]) <= 12 and len(out["t"]) > len(out["j"])
+
+
+def test_gold_standard_comparator_output_file_equals_stdout(long_tail_dir, capsys):
+    """The port's VCFGoldStandardComparator writes -o's file (the JAX
+    package's runner raises a TypeError there) with what it prints
+    without -o."""
+    gold, test = str(long_tail_dir / "gold.vcf"), str(long_tail_dir / "test.vcf")
+    capsys.readouterr()
+    assert tmain(["--device", "cpu", "VCFGoldStandardComparator", gold, test]) == 0
+    printed = capsys.readouterr().out
+    out = long_tail_dir / "gold_report.txt"
+    assert tmain(["--device", "cpu", "VCFGoldStandardComparator", gold, test,
+                  "-o", str(out)]) == 0
+    assert out.read_text() == printed and printed.startswith("MinGQ")
+    with pytest.raises(TypeError):
+        jmain(["VCFGoldStandardComparator", gold, test, "-o", str(out)])

@@ -76,6 +76,22 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "ngsepcore_tpu_torch.vcf.popgen",
         "ngsepcore_tpu_torch.vcf.converter",
         "ngsepcore_tpu_torch.clustering.trees",
+        "ngsepcore_tpu_torch.graphs.mcl",
+        "ngsepcore_tpu_torch.genome.homologs",
+        "ngsepcore_tpu_torch.genome.synteny",
+        "ngsepcore_tpu_torch.genome.genomes_aligner",
+        "ngsepcore_tpu_torch.genome.transposons",
+        "ngsepcore_tpu_torch.transcriptome.model",
+        "ngsepcore_tpu_torch.transcriptome.protein",
+        "ngsepcore_tpu_torch.transcriptome.gff3",
+        "ngsepcore_tpu_torch.transcriptome.io_formats",
+        "ngsepcore_tpu_torch.benchmark.gold_standard",
+        "ngsepcore_tpu_torch.benchmark.quality_stats",
+        "ngsepcore_tpu_torch.benchmark.sv_comparison",
+        "ngsepcore_tpu_torch.simulation.tilling",
+        "ngsepcore_tpu_torch.core.degenerate",
+        "ngsepcore_tpu_torch.sequencing.trimmer",
+        "ngsepcore_tpu_torch.sequencing.demultiplex",
     ):
         assert mod in got["modules"]
     assert got["jax"] == []

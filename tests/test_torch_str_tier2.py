@@ -388,7 +388,7 @@ def test_full_width_false_snv_calls_equal_jax():
     )
     from test_torch_fused_pipeline import _port_reads
 
-    codes, _, tandem = build_repeat_genome(
+    codes, _, tandem, _ = build_repeat_genome(
         np.random.default_rng(2024), 4_600_000, 12, 153)
     seqs = QualifiedSequenceList()
     seqs.add(QualifiedSequence(name="chr1", codes=codes))
