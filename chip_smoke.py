@@ -94,11 +94,28 @@ source and copy intervals) and CDNACatalogAligner on three catalogs of
 2,000 proteins (orthogroups equal to the CPU's, >= 1,400 of 1,600
 orthologs as exact triples), with stage seconds, call counts and peak
 device memory.
+The transcriptome, GBS and pairwise-aligner long tail follows (no kernel of
+its own: de-novo GBS runs as torch on the card, the MSA on the Gotoh
+kernel and the walk).  Phase 22 runs the seven commands of items 17f and
+17g through the CLI on CUDA and on the CPU side by side (VCFAnnotate,
+TranscriptomeAnalyzer, TranscriptomeFilter, MutatedPeptidesExtractor,
+DeNovoGBS, VCFRelativeCoordinatesTranslator, UneakToVCFConverter), every
+output file and standard output byte-equal, then in process the MSA of 40
+sequences, the simple-gap and banded DPs on 1,024 pairs, dp_stats_pack on
+a tier-3 chunk, the GLM on 300 samples x 5,000 SNVs and DBSCAN, CUDA
+against the CPU; phase 23 runs DeNovoGBS on a 24-sample ApeKI lane of
+10,000 loci of the 12 Mbp bench genome (1.9 M reads; SNV precision >=
+0.90 and recall >= 0.80 over the planted SNVs, the first 1,000 clusters'
+records equal to the CPU's, stage seconds, peak device memory), then the
+best-star MSA of each of the genome's 30 repeat families (rows of one
+width that are their inputs with gaps, the 5 smallest CUDA = CPU, Gotoh
+launches by kernel and shape, the batch with the most cells timed
+beside its plain version and bound).
 With --phases only the listed phases run (and the ones whose data they
 use; 0 and 1 always run).
 Prints one line per phase and exits nonzero at the first failure.  The
 last lines are a JSON object of the kernels (launch counts from the timed
-runs of phases 5, 6, 9, 10, 13, 15, 17 and 19, errors and times measured here; the
+runs of phases 5, 6, 9, 10, 13, 15, 17, 19 and 23, errors and times measured here; the
 tier-2 and long-read entries at the launched shape that takes most of
 their time), the card's name and power limit, and the result line.  A kernel's bound is the least time the card could take: the
 larger of its bytes (inputs read once, outputs written once) over the
@@ -2095,13 +2112,52 @@ def _known_str_cli(pool, d, genome, sam, strs):
     return runs, {dev: p + ".vcf" for dev, p in out.items()}
 
 
+def _str_50kb_cpu():
+    """Phase 9's CPU side, in a process of its own: both known-STR flows on
+    the CPU with two torch threads; (SAM lines, classic record keys, fused
+    record keys, seconds)."""
+    import torch
+
+    torch.set_num_threads(2)
+    genome, reads, strs = _simulate_str_50kb()
+    t0 = time.perf_counter()
+    sam, classic, fused, _, _, _ = _run_str(genome, reads, strs, "cpu")
+    return sam, classic, fused, time.perf_counter() - t0
+
+
+class _InBackground:
+    """fn() in a spawned process of its own, started at once; result()
+    waits for it, failing the run on an error or after `timeout` seconds.
+    The process ends with result() or at exit."""
+
+    def __init__(self, fn, timeout=1200):
+        import atexit
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        atexit.register(self.pool.terminate)
+        self.job = self.pool.apply_async(fn)
+        self.timeout = timeout
+
+    def result(self, where):
+        try:
+            return self.job.get(self.timeout)
+        except Exception as e:
+            fail(f"{where}: its background job failed: {e!r}")
+        finally:
+            self.pool.terminate()
+
+
 def phase_str_50kb(counters):
     """Known STRs at 50 kb, CUDA against CPU: the classic and fused flows
     in process, then SingleSampleVariantsDetector -knownSTRs through the
     CLI on the CUDA run's alignments (the CPU side in the background).
-    Returns the seg-kernel launches over the long array."""
+    The in-process CPU flows run in a background process while later
+    phases run: returns (the seg-kernel launches over the long array, a
+    function that waits for the CPU flows and holds them against CUDA's)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    cpu = _InBackground(_str_50kb_cpu)
     genome, reads, strs = _simulate_str_50kb()
     gotoh = counters[0]
     reset_counts(counters)
@@ -2115,29 +2171,20 @@ def phase_str_50kb(counters):
     t2 = tier2_launches(shapes)
     with tempfile.TemporaryDirectory() as d, ThreadPoolExecutor(2) as pool:
         cli, vcf = _known_str_cli(pool, d, genome, sam_c, strs)
-        t0 = time.perf_counter()
-        sam_p, cl_p, fu_p, _, _, _ = _run_str(genome, reads, strs, "cpu")
-        t_cpu = time.perf_counter() - t0
         t_cli = {dev: run.result()[0] for dev, run in cli.items()}
         body = {dev: [l for l in open(p) if not l.startswith("#")] for dev, p in vcf.items()}
-    n_sam_diff = sum(a != b for a, b in zip(sam_c, sam_p))
     n_indel = sum(len(k[2][0]) != len(k[2][1]) for k in fu_c)
     log(f"phase 9 known STRs 50 kb, {len(strs['chrS'])} arrays: {len(sam_c)} SAM "
-        f"lines (differing {n_sam_diff}), {len(cl_c)} classic and {len(fu_c)} fused "
-        f"records ({n_indel} indels) on CUDA ({t_cuda:.2f}s) and CPU ({t_cpu:.2f}s); "
-        f"tier-2 cells classic {t2_classic}, fused {t2_fused}; launches {launches}, "
-        f"of them tier-2 flanks {t2}")
+        f"lines, {len(cl_c)} classic and {len(fu_c)} fused records ({n_indel} indels) "
+        f"on CUDA ({t_cuda:.2f}s); tier-2 cells classic {t2_classic}, fused {t2_fused}; "
+        f"launches {launches}, of them tier-2 flanks {t2}")
     for side, by in shapes.items():
         log(f"  tier-2 {side} flank launches: {shapes_text(by)}")
     n_cli_diff = len(set(body["cuda"]) ^ set(body["cpu"]))
     log(f"  CLI SingleSampleVariantsDetector -knownSTRs: {len(body['cuda'])} records on "
         f"CUDA ({t_cli['cuda']:.2f}s), {len(body['cpu'])} on the CPU ({t_cli['cpu']:.2f}s, "
         f"in the background), differing {n_cli_diff}; in process {len(cl_c)}")
-    if len(sam_c) != len(sam_p) or n_sam_diff:
-        fail("known-STR classic CUDA and CPU SAM lines differ")
-    if len(fu_c) <= 10 or fu_c != fu_p or cl_c != cl_p:
-        fail("known-STR CUDA and CPU records differ")
-    if cl_c != fu_c:
+    if len(fu_c) <= 10 or cl_c != fu_c:
         fail("known-STR classic and fused records differ")
     if len(body["cuda"]) <= 10 or body["cuda"] != body["cpu"]:
         fail("the known-STR CLI detector's CUDA and CPU VCF records differ")
@@ -2157,7 +2204,19 @@ def phase_str_50kb(counters):
              f"long array: {seg_flows}")
     if split < len(long_reads) // 2:
         fail("fewer than half of the reads over the long array were split around it")
-    return sum(seg_flows)
+
+    def finish():
+        sam_p, cl_p, fu_p, t_cpu = cpu.result("phase 9")
+        n_sam_diff = sum(a != b for a, b in zip(sam_c, sam_p))
+        log(f"phase 9 known STRs 50 kb on the CPU (in the background, {t_cpu:.2f}s): "
+            f"{len(sam_p)} SAM lines (differing from CUDA's {n_sam_diff}), "
+            f"{len(cl_p)} classic and {len(fu_p)} fused records")
+        if len(sam_c) != len(sam_p) or n_sam_diff:
+            fail("known-STR classic CUDA and CPU SAM lines differ")
+        if fu_c != fu_p or cl_c != cl_p:
+            fail("known-STR CUDA and CPU records differ")
+
+    return sum(seg_flows), finish
 
 
 def _split_at_long_str(sam_line) -> bool:
@@ -3950,10 +4009,11 @@ def _point_mutations(rng, seq, rate):
     return s.tobytes().decode()
 
 
-def _gene_genomes(d, rng, n_genomes=3, n_genes=10):
+def _gene_genomes(d, rng, n_genomes=3, n_genes=10, prefix="ga"):
     """n_genomes genomes of 30 kb with the same n_genes genes at the same
     places (the later ones 2% point mutations from the first): gene 3 on
-    the minus strand, gene 5 in two exons.  ga<g>.fa and ga<g>.gff3."""
+    the minus strand, gene 5 in two exons.  <prefix><g>.fa and
+    <prefix><g>.gff3."""
     seq = list(_random_dna(rng, 30_000))
     genes = []  # (first, last, strand, [(cds first, cds last)])
     for i in range(n_genes):
@@ -3974,7 +4034,7 @@ def _gene_genomes(d, rng, n_genomes=3, n_genes=10):
     for g in range(n_genomes):
         chrom = f"chr{'ABC'[g]}1"
         text = base if g == 0 else _point_mutations(rng, base, 0.02)
-        with open(os.path.join(d, f"ga{g}.fa"), "w") as fh:
+        with open(os.path.join(d, f"{prefix}{g}.fa"), "w") as fh:
             fh.write(f">{chrom}\n{text}\n")
         lines = ["##gff-version 3"]
         for i, (first, last, strand, exons) in enumerate(genes):
@@ -3984,7 +4044,7 @@ def _gene_genomes(d, rng, n_genomes=3, n_genes=10):
                          f"ID={gid}.t1;Parent={gid}")
             for a, b in exons:
                 lines.append(f"{chrom}\tsim\tCDS\t{a}\t{b}\t.\t{strand}\t0\tParent={gid}.t1")
-        with open(os.path.join(d, f"ga{g}.gff3"), "w") as fh:
+        with open(os.path.join(d, f"{prefix}{g}.gff3"), "w") as fh:
             fh.write("\n".join(lines) + "\n")
 
 
@@ -4115,6 +4175,204 @@ def long_tail_jobs(d):
     return {label: [a.replace("{d}", d) for a in args] for label, args in jobs.items()}
 
 
+def _revcomp(seq):
+    return seq.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+
+def write_gbs_fastq(path, rng, loci, snv_locus, snv_col, snv_alt, haps, depth, length=None,
+                    error=0.003, quality=30, n_rate=0.0):
+    """One diploid sample's FASTQ over GBS loci (each read from the cut site,
+    so all reads of a locus share its prefix): `depth` reads a locus (an int
+    or one a locus), each from one of the sample's two haplotypes at random;
+    haps (2, SNVs) says which haplotype carries each SNV's alternative
+    (snv_alt at column snv_col of locus snv_locus); substitution errors at
+    `error`, N at `n_rate`, lengths drawn from `length` (lo, hi) or the
+    whole locus, qualities one value or drawn from (lo, hi).  loci is
+    (loci, L) codes."""
+    n_loci, L = loci.shape
+    hap_codes = np.stack([loci, loci])
+    for h in (0, 1):
+        hap_codes[h, snv_locus[haps[h]], snv_col[haps[h]]] = snv_alt[haps[h]]
+    which = np.repeat(np.arange(n_loci), np.broadcast_to(depth, (n_loci,)))
+    which = which[rng.permutation(len(which))]
+    reads = hap_codes[rng.integers(0, 2, len(which)), which]
+    err = rng.random(reads.shape)
+    reads = np.where(err < error, (reads + rng.integers(1, 4, reads.shape)) % 4, reads)
+    reads = np.where(err > 1 - n_rate, 4, reads)
+    qual = (np.full(reads.shape, quality) if np.isscalar(quality)
+            else rng.integers(quality[0], quality[1], reads.shape))
+    seq = np.frombuffer(b"ACGTN", np.uint8)[reads]
+    qual = (qual + 33).astype(np.uint8)
+    lengths = (np.full(len(reads), L) if length is None
+               else rng.integers(length[0], length[1], len(reads)))
+    with open(path, "wb") as fh:
+        if (lengths == L).all():  # fixed-width records in one write
+            rec = np.empty((len(reads), 2 * L + 7), np.uint8)
+            rec[:, :3] = np.frombuffer(b"@r\n", np.uint8)
+            rec[:, 3 : 3 + L] = seq
+            rec[:, 3 + L : 6 + L] = np.frombuffer(b"\n+\n", np.uint8)
+            rec[:, 6 + L : 6 + 2 * L] = qual
+            rec[:, -1] = ord("\n")
+            fh.write(rec.tobytes())
+        else:
+            fh.writelines(b"@r\n" + a[:n].tobytes() + b"\n+\n" + b[:n].tobytes() + b"\n"
+                          for a, b, n in zip(seq, qual, lengths))
+
+
+def genotype_haps(rng, genotypes):
+    """(2, SNVs) haplotype carriers of diploid genotypes 0, 1, 2 (a
+    heterozygote's alternative on a haplotype at random)."""
+    g = np.asarray(genotypes)
+    first = rng.random(len(g)) < 0.5
+    return np.stack([(g == 2) | ((g == 1) & first), (g == 2) | ((g == 1) & ~first)])
+
+
+def write_transcriptome_gbs_inputs(d):
+    """Phase 22's inputs (also tests/test_torch_cli.py's), about 45 kb in
+    all: a 30 kb genome with ten gene models and two more transcripts (one
+    with UTRs, one non-coding) and a VCF of SNVs and indels over it
+    (VCFAnnotate, MutatedPeptidesExtractor, TranscriptomeAnalyzer,
+    TranscriptomeFilter); four GBS samples' FASTQs over 80 loci of 100 bp
+    (DeNovoGBS); a 12 kb genome, a de-novo cluster VCF and a SAM of its
+    cluster consensus sequences on the genome, both strands, gapped,
+    clipped, unmapped and missing (VCFRelativeCoordinatesTranslator); a
+    UNEAK HapMap table and its tag pairs (UneakToVCFConverter)."""
+    rng = np.random.default_rng(22)
+    _gene_genomes(d, rng, n_genomes=1, prefix="tx")
+    with open(os.path.join(d, "tx0.fa")) as fh:
+        genome = fh.read().split("\n")[1]
+    with open(os.path.join(d, "tx0.gff3")) as fh:
+        gff = fh.read()
+    gff += ("chrA1\tsim\tmRNA\t3751\t4306\t.\t+\t.\tID=Ag1.t2;Parent=Ag1\n"
+            "chrA1\tsim\tfive_prime_UTR\t3751\t3800\t.\t+\t.\tParent=Ag1.t2\n"
+            "chrA1\tsim\tCDS\t3801\t4256\t.\t+\t0\tParent=Ag1.t2\n"
+            "chrA1\tsim\tthree_prime_UTR\t4257\t4306\t.\t+\t.\tParent=Ag1.t2\n"
+            "chrA1\tsim\tgene\t28001\t28600\t.\t-\t.\tID=Anc\n"
+            "chrA1\tsim\tmRNA\t28001\t28600\t.\t-\t.\tID=Anc.t1;Parent=Anc\n"
+            "chrA1\tsim\texon\t28001\t28200\t.\t-\t.\tParent=Anc.t1\n"
+            "chrA1\tsim\texon\t28401\t28600\t.\t-\t.\tParent=Anc.t1\n")
+    with open(os.path.join(d, "genes.gff3"), "w") as fh:
+        fh.write(gff)
+    # SNVs at random, at the start codons and around gene 5's intron
+    # (15,241-15,340), in the UTRs and the non-coding exons; indels of 1-3
+    # bases in coding sequence
+    pos = set(int(p) for p in rng.choice(np.arange(30, 29_970), size=300, replace=False))
+    pos |= {1001 + 2800 * i for i in range(10)} | {15_240 + k for k in range(-1, 4)}
+    pos |= {15_339 + k for k in range(-2, 3)} | {3760, 4300, 28_100, 28_300, 28_500}
+    lines = []
+    for p in sorted(pos):
+        ref = genome[p - 1]
+        alt = "ACGT"[("ACGT".index(ref) + int(rng.integers(1, 4))) % 4]
+        lines.append((p, ref, alt))
+    for p in rng.choice(np.arange(1100, 27_000, 2800), size=8, replace=False):
+        k = int(rng.integers(1, 4))
+        p = int(p) + int(rng.integers(0, 100))
+        if rng.random() < 0.5:
+            lines.append((p, genome[p - 1 : p + k], genome[p - 1]))
+        else:
+            lines.append((p, genome[p - 1], genome[p - 1] + _random_dna(rng, k)))
+    with open(os.path.join(d, "annot.vcf"), "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"
+                 "\tFORMAT\ts1\ts2\n")
+        for p, ref, alt in sorted(lines):
+            g = ["0/1", "1/1", "0/0", "./."]
+            fh.write(f"chrA1\t{p}\t.\t{ref}\t{alt}\t60\tPASS\t.\tGT\t"
+                     f"{g[int(rng.integers(0, 4))]}\t{g[int(rng.integers(0, 4))]}\n")
+    # GBS: 80 loci of 100 bp, 0-2 SNVs a locus past the prefix
+    from ngsepcore_tpu_torch.core.sequences import encode_dna
+
+    loci = np.stack([encode_dna(_random_dna(rng, 100)) for _ in range(80)])
+    snv_locus = np.repeat(np.arange(80), rng.integers(0, 3, 80))
+    snv_col = rng.integers(31, 100, len(snv_locus))
+    snv_alt = (loci[snv_locus, snv_col] + 1) % 4
+    for si in range(4):
+        haps = genotype_haps(rng, rng.integers(0, 3, len(snv_locus)))
+        write_gbs_fastq(os.path.join(d, f"gbs_s{si}.fastq"), rng, loci, snv_locus, snv_col,
+                        snv_alt, haps, rng.poisson(10, size=80), length=(80, 101),
+                        error=0.01, quality=(2, 41), n_rate=0.002)
+    # the translator: 40 cluster consensus sequences of 90 bp from a 12 kb
+    # genome, odd ones aligned on the minus strand; every seventh carries
+    # the alternative allele as its reference
+    ref_genome = _random_dna(rng, 12_000)
+    with open(os.path.join(d, "gbs_genome.fa"), "w") as fh:
+        fh.write(f">chrG\n{ref_genome}\n")
+    sam = ["@HD\tVN:1.6", "@SQ\tSN:chrG\tLN:12000"]
+    vcf = []
+    for c in range(1, 41):
+        start = 200 + 280 * c
+        read = ref_genome[start - 1 : start - 1 + 90]  # the aligned orientation
+        rev = c % 2 == 1
+        cons = _revcomp(read) if rev else read
+        cigar = ["90M", "40M2D50M", "30M2I58M", "5S85M"][c % 4]
+        if c in (36, 37, 38):
+            sam.append(f"Cluster_{c}\t4\t*\t0\t0\t*\t*\t0\t0\t{cons}\t*")
+        elif c < 39:
+            sam.append(f"Cluster_{c}\t{16 if rev else 0}\tchrG\t{start}\t60\t{cigar}\t*\t0\t0"
+                       f"\t{read}\t*")
+        for col in sorted(rng.choice(np.arange(32, 90), size=2, replace=False)):
+            base = cons[col - 1]
+            alt = "ACGT"[("ACGT".index(base) + 1) % 4]
+            alleles = [base, alt] if c % 7 else [alt, base]
+            if c == 12:
+                alleles = [base, alt, "ACGT"[("ACGT".index(base) + 2) % 4]]
+            if c == 13:
+                alleles = [base + "A", base]
+            vcf.append((c, int(col), alleles))
+    with open(os.path.join(d, "clusters.vcf"), "w") as fh:
+        fh.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO"
+                 "\tFORMAT\tg1\tg2\tg3\n")
+        for c, col, alleles in vcf:
+            g = ["0/0", "0/1", "1/1", "./."]
+            if len(alleles) == 3:
+                g = ["1/2", "0/2", "2/2", "0/1"]
+            calls = "\t".join(f"{g[int(rng.integers(0, 4))]}:{int(rng.integers(5, 99))}"
+                              f":{int(rng.integers(1, 40))}" for _ in range(3))
+            fh.write(f"Cluster_{c}\t{col}\t.\t{alleles[0]}\t{','.join(alleles[1:])}\t50"
+                     f"\tPASS\t.\tGT:GQ:DP\t{calls}\n")
+    with open(os.path.join(d, "consensus.sam"), "w") as fh:
+        fh.write("\n".join(sam) + "\n")
+    # UNEAK: 30 sites x 6 samples, tag pairs of 64 bp differing at one
+    # offset (none for the last site)
+    cols = ["rs#", "alleles", "chrom", "pos", "strand", "assembly#", "center", "protLSID",
+            "assayLSID", "panelLSID", "QCcode"] + [f"S{i}" for i in range(6)]
+    rows, tags = ["\t".join(cols)], []
+    for i in range(30):
+        t1 = _random_dna(rng, 64)
+        off = int(rng.integers(0, 64))
+        a1 = t1[off]
+        a2 = "ACGT"[("ACGT".index(a1) + 1) % 4]
+        t2 = t1[:off] + a2 + t1[off + 1 :] if i < 29 else t1
+        het = {frozenset("AG"): "R", frozenset("CT"): "Y", frozenset("AC"): "M",
+               frozenset("GT"): "K", frozenset("CG"): "S", frozenset("AT"): "W"}[
+            frozenset(a1 + a2)]
+        gts = [[a1, a2, het, "N"][int(rng.integers(0, 4))] for _ in range(6)]
+        rows.append("\t".join([f"TP{i}", f"{a1}/{a2}", "0", str(i), "+"] + ["-"] * 6 + gts))
+        tags += [f">TP{i}_q\n{t1}\n", f">TP{i}_h\n{t2}\n"]
+    with open(os.path.join(d, "hapmap.txt"), "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    with open(os.path.join(d, "tags.fa"), "w") as fh:
+        fh.writelines(tags)
+
+
+def transcriptome_gbs_jobs(d):
+    """{id: CLI arguments} of the seven commands on
+    write_transcriptome_gbs_inputs' files, `{o}` the output prefix (what
+    a command prints on its standard output is an output too)."""
+    jobs = {
+        "VCFAnnotate": ["-r", "{d}/tx0.fa", "-t", "{d}/genes.gff3", "-i", "{d}/annot.vcf",
+                        "-o", "{o}.vcf"],
+        "TranscriptomeAnalyzer": ["{d}/genes.gff3"],
+        "TranscriptomeFilter": ["{d}/genes.gff3", "{o}.gff3", "-c", "-l", "300"],
+        "MutatedPeptidesExtractor": ["{d}/tx0.fa", "{d}/genes.gff3", "{d}/annot.vcf",
+                                     "-o", "{o}.txt"],
+        "DeNovoGBS": ["-o", "{o}"] + [f"{{d}}/gbs_s{i}.fastq" for i in range(4)],
+        "VCFRelativeCoordinatesTranslator": ["-r", "{d}/gbs_genome.fa", "{d}/clusters.vcf",
+                                             "{d}/consensus.sam", "{o}"],
+        "UneakToVCFConverter": ["{d}/hapmap.txt", "{d}/tags.fa", "{o}"],
+    }
+    return {cid: [a.replace("{d}", d) for a in args] for cid, args in jobs.items()}
+
+
 def _dir_bytes(path):
     return {name: open(os.path.join(path, name), "rb").read() for name in sorted(os.listdir(path))}
 
@@ -4143,47 +4401,15 @@ def phase_long_tail_small(device="cuda"):
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=ROOT) as d:
         write_long_tail_inputs(d)
-        procs = {}
-        try:
-            for label, args in long_tail_jobs(d).items():
-                cid = label.split()[0]
-                for dev, tag in ((device, "dev"), ("cpu", "ref")):
-                    out = os.path.join(d, label.replace(" ", "_"), tag)
-                    os.makedirs(out)
-                    cmd = [sys.executable, "-m", "ngsepcore_tpu_torch", "--device", dev,
-                           "--profile", cid] + [a.replace("{o}", out + "/out") for a in args]
-                    procs[label, tag] = (out, subprocess.Popen(
-                        cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-                        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
-            errs = {}
-            for key, (_, proc) in procs.items():
-                _, errs[key] = proc.communicate(timeout=600)
-                if proc.returncode != 0:
-                    print(errs[key][-4000:], flush=True)
-                    fail(f"phase 20: {key[0]} on {key[1]} exited {proc.returncode}")
-        finally:
-            for _, proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+        jobs = long_tail_jobs(d)
+        dirs, errs = _run_cli_jobs(jobs, d, device, "phase 20")
         calls = {}
-        for label in long_tail_jobs(d):
-            dev_files = _dir_bytes(procs[label, "dev"][0])
-            ref_files = _dir_bytes(procs[label, "ref"][0])
-            if dev_files != ref_files or not dev_files or not all(dev_files.values()):
-                import difflib
-
-                for name in sorted(set(dev_files) & set(ref_files)):
-                    if dev_files[name] != ref_files[name]:
-                        print("".join(list(difflib.unified_diff(
-                            ref_files[name].decode(errors="replace").splitlines(True),
-                            dev_files[name].decode(errors="replace").splitlines(True),
-                            f"cpu/{name}", f"{device}/{name}", n=0))[:40]), flush=True)
-                fail(f"phase 20: {label} output differs between {device} and cpu "
-                     f"({sorted(dev_files)} / {sorted(ref_files)})")
+        for label in jobs:
+            files = _same_files(label, dirs[label, "dev"], dirs[label, "ref"], device,
+                                "phase 20")
             m = re.search(r"device calls: mcl_cluster=(\d+) \(iterations (\d+)\) "
                           r"te_extractions=(\d+)", errs[label, "dev"])
-            calls[label] = (tuple(int(x) for x in m.groups()), len(dev_files))
+            calls[label] = (tuple(int(x) for x in m.groups()), len(files))
         if calls["CDNACatalogAligner"][0][0] == 0 or calls["GenomesAligner"][0][0] == 0:
             fail(f"phase 20: no mcl_cluster call on the card: {calls}")
         if calls["TransposonsFinder -d"][0][2] != 2:
@@ -4332,9 +4558,553 @@ def phase_long_tail_real_size(device="cuda"):
     return report
 
 
+def _run_cli_jobs(jobs, d, device, where, timeout=600):
+    """Each {label: args} job through the CLI on `device` and on the CPU,
+    all side by side (--profile on the card), standard output to a file
+    of the job's output directory; fails on a nonzero exit.  Returns
+    ({(label, tag): output directory}, {(label, tag): standard error})."""
+    procs = {}
+    try:
+        for label, args in jobs.items():
+            cid = label.split()[0]
+            for dev, tag in ((device, "dev"), ("cpu", "ref")):
+                out = os.path.join(d, label.replace(" ", "_"), tag)
+                os.makedirs(out)
+                cmd = [sys.executable, "-m", "ngsepcore_tpu_torch", "--device", dev,
+                       "--profile", cid] + [a.replace("{o}", out + "/out") for a in args]
+                stdout = open(os.path.join(out, "standard_output"), "w")
+                procs[label, tag] = (out, stdout, subprocess.Popen(
+                    cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                    stdout=stdout, stderr=subprocess.PIPE, text=True))
+        errs = {}
+        for key, (_, stdout, proc) in procs.items():
+            _, errs[key] = proc.communicate(timeout=timeout)
+            stdout.close()
+            if proc.returncode != 0:
+                print(errs[key][-4000:], flush=True)
+                fail(f"{where}: {key[0]} on {key[1]} exited {proc.returncode}")
+    finally:
+        for _, stdout, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            stdout.close()
+    return {key: v[0] for key, v in procs.items()}, errs
+
+
+def _same_files(label, dev_dir, ref_dir, device, where):
+    """Fail unless the two output directories hold the same files with the
+    same bytes (printing the first differing lines), every file but the
+    standard output not empty, one at least; returns the files."""
+    dev_files, ref_files = _dir_bytes(dev_dir), _dir_bytes(ref_dir)
+    written = [v for k, v in dev_files.items() if k != "standard_output"]
+    if dev_files != ref_files or not any(dev_files.values()) or not all(written):
+        import difflib
+
+        for name in sorted(set(dev_files) & set(ref_files)):
+            if dev_files[name] != ref_files[name]:
+                print("".join(list(difflib.unified_diff(
+                    ref_files[name].decode(errors="replace").splitlines(True),
+                    dev_files[name].decode(errors="replace").splitlines(True),
+                    f"cpu/{name}", f"{device}/{name}", n=0))[:40]), flush=True)
+        fail(f"{where}: {label} output differs between {device} and cpu "
+             f"({sorted(dev_files)} / {sorted(ref_files)})")
+    return dev_files
+
+
+def _mutated_family(rng, n, length, rate=0.03, indel=0.01):
+    """n copies of a random source of `length` bp, each with substitutions
+    at `rate` and single-base indels at `indel`."""
+    src = _random_dna(rng, length)
+    out = []
+    for _ in range(n):
+        s = list(_point_mutations(rng, src, rate))
+        for p in sorted(rng.choice(len(s), size=int(indel * len(s)), replace=False))[::-1]:
+            if rng.random() < 0.5:
+                del s[p]
+            else:
+                s.insert(p, "ACGT"[int(rng.integers(0, 4))])
+        out.append("".join(s))
+    return out
+
+
+def _pairs_batch(rng, B, lo, hi):
+    """B pairs of related sequences of lo-hi bp (the second a mutated copy
+    of the first), packed as code matrices with N padding."""
+    from ngsepcore_tpu_torch.core.sequences import encode_dna, pack_reads
+
+    a = [_random_dna(rng, int(rng.integers(lo, hi + 1))) for _ in range(B)]
+    b = [_point_mutations(rng, x, 0.05) for x in a]
+    b = [x[: len(x) - int(rng.integers(0, 20))] for x in b]
+    q, ql, _ = pack_reads([encode_dna(x) for x in a], pad_multiple=32)
+    s, sl, _ = pack_reads([encode_dna(x) for x in b], pad_multiple=32)
+    return q, ql, s, sl
+
+
+def genotype_records(var, vcf, dosages, samples, first=100, step=100):
+    """Biallelic SNV records (of the package whose variants and VCF modules
+    are `var` and `vcf`) of (sites, samples) dosages 0-2, -1 missing (an
+    undecided call).  The calls are objects shared by sample and genotype:
+    an association reads only their genotypes."""
+    calls = {(s, g): var.CalledGenomicVariant(
+        sequence_name="chr1", first=first, alleles=["A", "C"], sample_id=s,
+        indexes_called_alleles=[[], [0, 0], [0, 1], [1, 1]][g + 1])
+        for s in samples for g in (-1, 0, 1, 2)}
+    return [vcf.VCFRecord(variant=var.CalledGenomicVariant(
+        sequence_name="chr1", first=first + step * k, alleles=["A", "C"]),
+        calls=[calls[s, int(g)] for s, g in zip(samples, row)])
+        for k, row in enumerate(dosages)]
+
+
+def phase_gbs_small(device="cuda"):
+    """Phase 22, CUDA against the CPU: the seven commands of ROADMAP items
+    17f and 17g through the CLI on write_transcriptome_gbs_inputs' files
+    (side by side, --profile on the card), every output file and standard
+    output byte-equal; in process, MSA of 40 sequences (rows equal, the
+    Gotoh kernel launched), simple_gap_align_batch global and local and
+    banded_align_batch on 1,024 pairs of 200-300 bp, dp_stats_pack on a
+    tier-3 chunk (every output equal), GLM on 300 samples x 5,000 SNVs
+    (tests/test_torch_long_tail.py's tolerances) and DBSCAN."""
+    import torch
+
+    from ngsepcore_tpu_torch.clustering.dbscan import DBSCANClusteringAlgorithm
+    from ngsepcore_tpu_torch.clustering.msa import BestStarMultipleSequenceAlignmentAlgorithm
+    from ngsepcore_tpu_torch.gwas.glm import GeneralLinearModel
+    from ngsepcore_tpu_torch.kernels.pairwise import affine_gap_align_batch, dp_stats_pack
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import gotoh_forward_plane
+    from ngsepcore_tpu_torch.kernels.pairwise_simple import (
+        banded_align_batch,
+        simple_gap_align_batch,
+    )
+
+    report = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        write_transcriptome_gbs_inputs(d)
+        jobs = transcriptome_gbs_jobs(d)
+        dirs, errs = _run_cli_jobs(jobs, d, device, "phase 22")
+        files = {label: _same_files(label, dirs[label, "dev"], dirs[label, "ref"], device,
+                                    "phase 22")
+                 for label in jobs}
+        n_gbs = files["DeNovoGBS"]["out.vcf"].count(b"\nCluster_")
+        if n_gbs < 20:
+            fail(f"phase 22: DeNovoGBS called {n_gbs} variants on 80 loci")
+    report["cli_s"] = round(time.perf_counter() - t0, 3)
+    report["denovo_records"] = n_gbs
+    rng = np.random.default_rng(22)
+    # MSA of 40 sequences
+    seqs = _mutated_family(rng, 40, 300)
+    got = {}
+    for dev in (device, "cpu"):
+        n0 = gotoh_forward_plane.launches
+        t1 = time.perf_counter()
+        got[dev] = BestStarMultipleSequenceAlignmentAlgorithm(device=dev) \
+            .calculate_multiple_sequence_alignment(seqs)
+        report[f"msa_{dev}_s"] = round(time.perf_counter() - t1, 3)
+        report[f"msa_{dev}_gotoh_launches"] = gotoh_forward_plane.launches - n0
+    if got[device] != got["cpu"] or report[f"msa_{device}_gotoh_launches"] < 2:
+        fail(f"phase 22: MSA rows differ between {device} and cpu, or the Gotoh kernel "
+             f"did not run ({report})")
+    if [a.replace("-", "") for a in got[device]] != seqs or len({len(a) for a in got[device]}) != 1:
+        fail("phase 22: the MSA's rows are not its inputs with gaps, of one width")
+    # the simple-gap and banded DPs on 1,024 pairs
+    q, ql, s, sl = _pairs_batch(rng, 1024, 200, 300)
+    cases = {
+        "simple global": lambda *a: simple_gap_align_batch(*a),
+        "simple local": lambda *a: simple_gap_align_batch(
+            *a, local=True, force_start1=False, force_start2=False, force_end1=False,
+            force_end2=False),
+        "banded k 24": lambda *a: banded_align_batch(*a, k=24),
+    }
+    for name, fn in cases.items():
+        out = {}
+        for dev in (device, "cpu"):
+            args = [torch.from_numpy(x).to(dev) for x in (q, ql, s, sl)]
+            t1 = time.perf_counter()
+            out[dev] = {k: v.cpu() for k, v in fn(*args).items()}
+            report[f"{name} {dev}_s"] = round(time.perf_counter() - t1, 3)
+        bad = {k: int((out[device][k] != out["cpu"][k]).sum()) for k in out["cpu"]}
+        if any(bad.values()):
+            fail(f"phase 22: {name} differs between {device} and cpu: {bad}")
+    # dp_stats_pack on a tier-3 chunk
+    q, ql, s, sl = _bench_chunk(rng, 2048, 160, 160)
+    out = {}
+    for dev in (device, "cpu"):
+        args = [torch.from_numpy(x).to(dev) for x in (q, ql, s, sl)]
+        aln = affine_gap_align_batch(*args, free_start2=True, free_end2=True)
+        out[dev] = {k: v.cpu() for k, v in dp_stats_pack(
+            aln["ops"], aln["n_ops"], aln["start_j"], aln["score"], args[0], args[2]).items()}
+    bad = {k: int((out[device][k] != out["cpu"][k]).sum()) for k in out["cpu"]}
+    if any(bad.values()):
+        fail(f"phase 22: dp_stats_pack differs between {device} and cpu: {bad}")
+    report["dp_stats_pack_gapped_rows"] = int(out["cpu"]["has_gap"].sum())
+    # GLM on 300 samples x 5,000 SNVs
+    import ngsepcore_tpu_torch.variants.model as var
+    import ngsepcore_tpu_torch.vcf.io as vcf
+
+    samples = [f"s{i}" for i in range(300)]
+    dos = rng.integers(0, 3, (5000, 300))
+    dos[rng.random(dos.shape) < 0.1] = -1
+    recs = genotype_records(var, vcf, dos, samples)
+    y = dos[:10].clip(0).sum(axis=0) * 0.5 + rng.normal(0, 1, 300)
+    pheno = {s: float(y[i]) for i, s in enumerate(samples)}
+    res = {}
+    for dev in (device, "cpu"):
+        t1 = time.perf_counter()
+        res[dev] = GeneralLinearModel(device=dev).run_association(recs, pheno)
+        report[f"glm_{dev}_s"] = round(time.perf_counter() - t1, 3)
+    a, b = res[device], res["cpu"]
+    same_sites = [(r["position"], r["n"]) for r in a] == [(r["position"], r["n"]) for r in b]
+    err = {k: float(max(abs(x[k] - y[k]) for x, y in zip(a, b))) for k in ("beta", "r2", "p")}
+    err["beta_rel"] = float(max(abs(x["beta"] - y["beta"]) / max(abs(y["beta"]), 1e-300)
+                                for x, y in zip(a, b)))
+    f_ok = all(abs(x["f"] - y["f"]) <= 1e-12 * (y["n"] - 2) for x, y in zip(a, b))
+    if (not same_sites or err["beta_rel"] > 1e-10 or err["r2"] > 1e-12 or err["p"] > 1e-8
+            or not f_ok or len(a) < 4900):
+        fail(f"phase 22: GLM on {device} outside the tolerance of the CPU's: {len(a)} / "
+             f"{len(b)} sites, {err}")
+    report["glm_sites"], report["glm_err"] = len(a), err
+    # DBSCAN over a 2,000-point neighbourhood graph of 20 planted groups
+    pts = np.concatenate([rng.normal(c, 0.02, (100, 2)) for c in rng.random((20, 2)) * 10])
+    dist = np.linalg.norm(pts[:, None] - pts[None, :], axis=2)
+    adjacency = [list(np.flatnonzero((row < 0.1) & (np.arange(len(pts)) != i)))
+                 for i, row in enumerate(dist)]
+    clusters = DBSCANClusteringAlgorithm().run_dbscan_clustering(
+        list(range(len(pts))), adjacency, 4)
+    report["dbscan_clusters"] = len(clusters)
+    if len(clusters) < 15:
+        fail(f"phase 22: DBSCAN found {len(clusters)} of 20 planted groups")
+    report["s"] = round(time.perf_counter() - t0, 3)
+    log(f"phase 22 gbs/transcriptome small: {len(jobs)} CLI runs x 2 devices byte-equal; "
+        f"{json.dumps(report)}")
+    torch.cuda.synchronize()
+
+
+GBS_SAMPLES = 24
+GBS_LOCI = 10_000
+GBS_READ_LEN = 100
+APEKI = ("GCAGC", "GCTGC")  # G^CWGC
+
+
+def apeki_loci(codes, merged, n_loci, read_len=GBS_READ_LEN, spacing=200):
+    """Start offsets (0-based) of the first n_loci ApeKI loci on the forward
+    strand: the read_len bases from each cut site (after the motif's G)
+    outside every merged repeat interval, each at least `spacing` bp after
+    the last one taken."""
+    L = len(codes)
+    hit = np.zeros(L, bool)
+    for motif in APEKI:
+        m = np.frombuffer(motif.encode(), np.uint8)
+        m = np.searchsorted(np.frombuffer(b"ACGT", np.uint8), m)
+        ok = np.ones(L - len(m) + 1, bool)
+        for k, c in enumerate(m):
+            ok &= codes[k : L - len(m) + 1 + k] == c
+        hit[: len(ok)] |= ok
+    starts = np.flatnonzero(hit) + 1
+    starts = starts[starts + read_len <= L]
+    rep = np.zeros(L + 1, np.int64)
+    for lo, hi in merged:
+        rep[lo] += 1
+        rep[hi] -= 1
+    covered = np.concatenate([[0], np.cumsum(np.cumsum(rep)[:-1] > 0)])
+    starts = starts[covered[starts + read_len] == covered[starts]]
+    out, last = [], -spacing
+    for p in starts:
+        if p - last >= spacing:
+            out.append(int(p))
+            last = p
+            if len(out) == n_loci:
+                break
+    return np.array(out, np.int64)
+
+
+def gbs_population(rng, codes, starts, n_samples, read_len=GBS_READ_LEN, snv_every=100):
+    """Planted SNVs at 1 per `snv_every` bp at locus columns 31-99 (1-based
+    positions 32-100), alt frequency uniform in [0.05, 0.5], diploid
+    genotypes in Hardy-Weinberg proportions.  Returns (loci (n, read_len)
+    int8, SNV locus, SNV column, SNV alt code, haplotypes (samples, 2,
+    SNVs) bool)."""
+    loci = codes[starts[:, None] + np.arange(read_len)[None, :]]
+    cols = np.arange(31, read_len)
+    at = rng.random((len(starts), len(cols))) < 1 / snv_every
+    s_locus, s_col = np.nonzero(at)
+    s_col = cols[s_col]
+    s_alt = ((loci[s_locus, s_col] + rng.integers(1, 4, len(s_locus))) % 4).astype(np.int8)
+    freq = rng.uniform(0.05, 0.5, len(s_locus))
+    haps = rng.random((n_samples, 2, len(s_locus))) < freq[None, None, :]
+    return loci, s_locus, s_col, s_alt, haps
+
+
+def _vcf_records_text(path):
+    """{cluster id: [record lines]} of a de-novo GBS VCF."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("Cluster_"):
+                out.setdefault(int(line[8 : line.index("\t")]), []).append(line)
+    return out
+
+
+def _timed_once(fn):
+    """(ms, result) of one fn() between two CUDA events."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b), out
+
+
+def _msa_shape_entry(name, pairs, device):
+    """Timing of the Gotoh kernel and of the walk (runs mode, budget Lq +
+    Ls) on one of the MSA's batches (a list of code pairs, packed as the
+    MSA packs them), beside their plain versions and bounds."""
+    import torch
+
+    from ngsepcore_tpu_torch.core.sequences import pack_reads
+    from ngsepcore_tpu_torch.kernels import pairwise
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
+        gotoh_forward_plane,
+        gotoh_forward_plane_ref,
+        kernel_for,
+    )
+
+    L = max(max(len(a), len(b)) for a, b in pairs)
+    q, ql, _ = pack_reads([a for a, _ in pairs], pad_to=L, pad_multiple=32)
+    s, sl, _ = pack_reads([b for _, b in pairs], pad_to=L, pad_multiple=32)
+    args = [torch.from_numpy(x).to(device) for x in (q, ql, s, sl)]
+    cfg = dict(match=1, mismatch=1, open_gap=1, ext_gap=1)
+    B, Lq, Ls = q.shape[0], q.shape[1], s.shape[1]
+    got = gotoh_forward_plane(*args, **cfg)
+    # the plain version's one run (seconds at these widths) is both the
+    # reference and its time
+    plain, ref = _timed_once(lambda: gotoh_forward_plane_ref(*args, **cfg))
+    full, vec_bad, err = _gotoh_mismatches(got, ref)
+    if full or any(vec_bad):
+        fail(f"phase 23: the Gotoh kernel disagrees with its plain version on {name}")
+    del ref
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: gotoh_forward_plane(*args, **cfg), reps=3, calls=3)
+    g_ms = graph_ms(lambda: gotoh_forward_plane(*args, **cfg), calls=2, reps=3)
+    torch.cuda.empty_cache()
+    b_ms, b_by = gotoh_bound(B, Lq, Ls)
+    gotoh_t = dict(ms=ms, plain_ms=plain, max_abs_err=err, graph_ms=g_ms, bound_ms=b_ms,
+                   bound_by=b_by, shape=f"{B}x{Lq}x{Ls}", kernel=kernel_for(Ls))
+    plane, score, end_i, end_j, start_k = got
+    R = Lq + Ls
+    wargs = (plane, score, end_i, end_j, start_k, B, R, True)
+    runs = pairwise._runs_from_plane(*wargs)
+    w_plain, want = _timed_once(lambda: pairwise._runs_from_plane_ref(*wargs))
+    bad = {k: int((runs[k] != want[k]).sum()) for k in want}
+    if any(bad.values()):
+        fail(f"phase 23: the walk disagrees with its plain version on {name}: {bad}")
+    w_ms = cuda_ms(lambda: pairwise._runs_from_plane(*wargs), reps=3, calls=5)
+    w_g = graph_ms(lambda: pairwise._runs_from_plane(*wargs), calls=5, reps=3)
+    loads = walk_loads(plane, end_i, end_j, start_k, R)
+    wb_ms, wb_by = walk_bound(B, R, loads, "runs")
+    walk_t = dict(ms=w_ms, plain_ms=w_plain, max_abs_err=0, graph_ms=w_g, bound_ms=wb_ms,
+                  bound_by=wb_by, shape=f"{B}x{Lq}x{Ls} R {R}", mode="runs")
+    log(f"  time MSA {name} {B}x{Lq}x{Ls} ({kernel_for(Ls)}): kernel {ms:.4f} ms (median of 3 "
+        f"x 3 calls), {g_ms:.4f} ms in a CUDA graph of 2 calls, plain {plain:.3f} ms (one "
+        f"call); bound "
+        f"{b_ms:.4f} ms by {b_by}, kernel at {100 * b_ms / ms:.1f}% of it; walk R {R}: "
+        f"{w_ms:.4f} ms, graph {w_g:.4f}, plain {w_plain:.3f}, bound {wb_ms:.4f} by {wb_by} "
+        f"(longest chain {int(loads.max())} loads)")
+    del plane, got, runs, want
+    torch.cuda.empty_cache()
+    return gotoh_t, walk_t
+
+
+def phase_gbs_real_size(device="cuda"):
+    """Phase 23, on the card at user size: DeNovoGBS on a 24-plex ApeKI lane
+    cut to 10,000 loci of bench.build_repeat_genome(rng 2024, 12 Mbp)
+    (stage seconds, peak device memory; SNV precision and recall gates; the
+    first 1,000 clusters' records equal to the port's CPU run on their
+    reads), then the best-star MSA of each of the genome's 30 repeat
+    families (source and copies: rows of one width that are their inputs
+    with gaps; CUDA rows equal to the CPU's for the 5 smallest families;
+    Gotoh launches by kernel and shape, the most time-taking shape timed
+    against its plain version)."""
+    import torch
+
+    from ngsepcore_tpu_torch.clustering.msa import BestStarMultipleSequenceAlignmentAlgorithm
+    from ngsepcore_tpu_torch.core.sequences import decode_dna
+    from ngsepcore_tpu_torch.gbs.denovo import (
+        GBSReads,
+        KmerPrefixReadsClusteringAlgorithm,
+        read_fastq_sample,
+    )
+    from ngsepcore_tpu_torch.kernels.pairwise import _runs_from_plane
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import gotoh_forward_plane
+    from ngsepcore_tpu_torch.utils import profiling
+    from ngsepcore_tpu_torch.vcf.io import VCFFileWriter
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    codes, merged, _, families = build_repeat_genome(np.random.default_rng(2024), 12_000_000,
+                                                     30, 400)
+    starts = apeki_loci(codes, merged, GBS_LOCI)
+    if len(starts) < GBS_LOCI:
+        fail(f"phase 23: {len(starts)} ApeKI loci outside the repeats, not {GBS_LOCI}")
+    loci, s_locus, s_col, s_alt, haps = gbs_population(rng, codes, starts, GBS_SAMPLES)
+    report = {"loci": len(starts), "planted_snvs": len(s_locus)}
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        paths = [os.path.join(d, f"gbs{si:02d}.fastq") for si in range(GBS_SAMPLES)]
+        for si, path in enumerate(paths):  # Poisson(8) reads a locus, 0.3% errors, Q30
+            write_gbs_fastq(path, rng, loci, s_locus, s_col, s_alt, haps[si],
+                            rng.poisson(8, len(loci)))
+        report["setup_s"] = round(time.perf_counter() - t0, 3)
+        ids = [f"gbs{i:02d}" for i in range(GBS_SAMPLES)]
+        algo = KmerPrefixReadsClusteringAlgorithm(device=device)
+        profiling.enable()
+        profiling.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        n_rec = algo.run(paths, ids, os.path.join(d, "lane"))
+        torch.cuda.synchronize()
+        report["run_s"] = round(time.perf_counter() - t1, 3)
+        profiling.enable(False)
+        report["stages_s"] = _stage_split(profiling, "gbs.")
+        report["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+        report["host_bytes"] = algo.host_bytes
+        report["records"] = n_rec
+        # the clusters' prefix codes, for the gates and the CPU check
+        reads = GBSReads.concatenate([read_fastq_sample(p, i) for i, p in enumerate(paths)])
+        report["reads"] = len(reads.lengths)
+        valid, code = algo.prefix_codes(reads)
+        rows, cstarts = algo._cluster_layout(reads, GBS_SAMPLES)
+        cluster_code = code[rows[cstarts]].cpu().numpy()
+        report["clusters"] = len(cluster_code)
+        w = 4 ** np.arange(30, -1, -1, dtype=np.int64)
+        locus_of = {int(c): i for i, c in enumerate(loci[:, :31].astype(np.int64) @ w)}
+        planted = {(int(l), int(c)): int(a) for l, c, a in zip(s_locus, s_col, s_alt)}
+        carried = haps.any(axis=(0, 1))
+        records = _vcf_records_text(os.path.join(d, "lane.vcf"))
+        true, found = 0, set()
+        for cid, lines in records.items():
+            li = locus_of.get(int(cluster_code[cid - 1]))
+            for line in lines:
+                f = line.split("\t")
+                col, ref, alt = int(f[1]) - 1, f[3], f[4]
+                key = (li, col)
+                # the same two alleles: a record's REF is its cluster's
+                # consensus, the planted alternative where most reads carry it
+                ok = (li is not None and key in planted
+                      and {ref, alt} == {"ACGT"[loci[li, col]], "ACGT"[planted[key]]})
+                true += ok
+                if ok:
+                    found.add(key)
+        want = {(int(l), int(c)) for l, c, k in zip(s_locus, s_col, carried) if k}
+        report["precision"] = round(true / max(1, n_rec), 4)
+        report["recall"] = round(len(found & want) / max(1, len(want)), 4)
+        if report["precision"] < 0.90 or report["recall"] < 0.80:
+            fail(f"phase 23: DeNovoGBS misses its gates (precision >= 0.90, recall >= 0.80): "
+                 f"{report}")
+        # the first 1,000 clusters on the CPU, from their reads
+        last = int(cluster_code[min(1000, len(cluster_code)) - 1])
+        c_all = code.cpu().numpy()
+        keep = valid.cpu().numpy() & (c_all <= last)
+        sub = GBSReads(reads.codes[keep], reads.quals[keep], reads.lengths[keep],
+                       reads.samples[keep])
+        t1 = time.perf_counter()
+        cpu_recs = KmerPrefixReadsClusteringAlgorithm(device="cpu").call_variants(
+            sub, GBS_SAMPLES)
+        report["cpu_1000_s"] = round(time.perf_counter() - t1, 3)
+        with VCFFileWriter(os.path.join(d, "cpu.vcf"), ids) as wr:
+            for r in cpu_recs:
+                wr.write(r)
+        cpu_lines = _vcf_records_text(os.path.join(d, "cpu.vcf"))
+        dev_lines = {cid: v for cid, v in records.items() if cid <= 1000}
+        if cpu_lines != dev_lines or not cpu_lines:
+            fail(f"phase 23: the records of the first 1,000 clusters differ between {device} "
+                 f"and cpu ({sum(map(len, dev_lines.values()))} / "
+                 f"{sum(map(len, cpu_lines.values()))} records)")
+        report["first_1000_records"] = sum(map(len, cpu_lines.values()))
+        del reads, sub, valid, code, rows, cstarts
+    torch.cuda.empty_cache()
+    log(f"phase 23 de-novo GBS real size: {json.dumps(report)}")
+    # MSA of each repeat family: the source and its copies, read from the genome
+    fams = []
+    for src, slen, _seg, copies in families:
+        fams.append([decode_dna(codes[p : p + slen]) for p in [src] + list(copies)])
+    order = sorted(range(len(fams)), key=lambda i: (len(fams[i][0]), len(fams[i])))
+    msa = {"families": len(fams), "sequences": sum(map(len, fams)),
+           "lengths": [min(len(f[0]) for f in fams), max(len(f[0]) for f in fams)]}
+    gotoh_forward_plane.launches = 0
+    gotoh_forward_plane.launch_shapes.clear()
+    _runs_from_plane.launches = 0
+    _runs_from_plane.launch_shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    rows = {}
+    for i in order:
+        rows[i] = BestStarMultipleSequenceAlignmentAlgorithm(device=device) \
+            .calculate_multiple_sequence_alignment(fams[i])
+    torch.cuda.synchronize()
+    msa["s"] = round(time.perf_counter() - t1, 3)
+    msa["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    launches = {"gotoh": gotoh_forward_plane.launches, "walk": _runs_from_plane.launches}
+    if not launches["gotoh"]:
+        fail("phase 23: the MSA launched no Gotoh kernel")
+    walk_route((gotoh_forward_plane, _runs_from_plane), "runs", "phase 23 MSA")
+    shapes = Counter()
+    for (_ends, B, Lq, Ls, kern), n in gotoh_forward_plane.launch_shapes.items():
+        shapes[B, Lq, Ls, kern] += n
+    msa["launches"] = launches
+    by_kernel = Counter()
+    for (_, _, _, kern), n in shapes.items():
+        by_kernel[kern] += n
+    msa["by_kernel"] = dict(by_kernel)
+    log(f"phase 23 MSA launches by shape: {shapes_text(shapes)}")
+    for i, r in rows.items():
+        if len({len(a) for a in r}) != 1 or [a.replace("-", "") for a in r] != fams[i]:
+            fail(f"phase 23: family {i}'s MSA rows are not its inputs with gaps, of one width")
+    t1 = time.perf_counter()
+    for i in order[:5]:
+        cpu = BestStarMultipleSequenceAlignmentAlgorithm(device="cpu") \
+            .calculate_multiple_sequence_alignment(fams[i])
+        if cpu != rows[i]:
+            fail(f"phase 23: family {i}'s MSA rows differ between {device} and cpu")
+    msa["cpu_5_smallest_s"] = round(time.perf_counter() - t1, 3)
+    # the launched batch with the most cells (a family's first all-pairs
+    # chunk), timed with its plain version; the same for the wide kernel's
+    # (subjects over SEG_MAX_LS), where a family reaches it
+    from ngsepcore_tpu_torch.clustering.msa import PLANE_BUDGET_BYTES
+    from ngsepcore_tpu_torch.core.sequences import encode_dna
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import SEG_MAX_LS
+
+    def first_chunk(i):
+        L = -(-max(map(len, fams[i])) // 32) * 32
+        n = len(fams[i])
+        return min(n * (n - 1) // 2, max(1, PLANE_BUDGET_BYTES // (4 * L * L))), L
+
+    def timed(fams_of):
+        fam = max(fams_of, key=lambda i: first_chunk(i)[0] * first_chunk(i)[1] ** 2)
+        cs = [encode_dna(x) for x in fams[fam]]
+        pairs = [(cs[a], cs[b]) for a in range(len(cs)) for b in range(a + 1, len(cs))]
+        return _msa_shape_entry(f"family {fam}", pairs[: first_chunk(fam)[0]], device)
+
+    timing = timed(order)
+    msa["timed_shape"] = timing[0]["shape"]
+    wide = [i for i in order if first_chunk(i)[1] > SEG_MAX_LS]
+    if wide:
+        w_g, w_w = timed(wide)
+        # the wide kernel's batch beside the entry's (seg) one
+        timing[0].update({f"wide_{k}": w_g[k] for k in (
+            "shape", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")})
+        timing[1].update({f"wide_{k}": w_w[k] for k in (
+            "shape", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")})
+    log(f"phase 23 MSA of 30 repeat families: {json.dumps(msa)}")
+    return {"launches": launches, "gotoh": timing[0], "walk": timing[1],
+            "report": report, "msa": msa}
+
+
 # ---------------------------------------------------------------------------
 PHASES = ("2", "2b", "2c", "2d", "3", "4", "5", "6", "7", "9", "10", "12", "13", "8", "11",
-          "14", "15", "16", "17", "18", "19", "20", "21")
+          "14", "15", "16", "17", "18", "19", "20", "21", "22", "23")
 NEEDS = {"6": "4", "8": "5", "10": "5", "11": "5", "13": "5"}  # uses that phase's data
 
 
@@ -4375,6 +5145,7 @@ def main(argv=None) -> None:
     lr_counters = (gotoh_forward_plane, run_walk)
     phase_build()
     t = {}  # what each phase returns, by phase
+    deferred = []  # checks of work left running in the background
     for p in chosen:
         if p == "2":
             t[p] = phase_gotoh()
@@ -4396,7 +5167,8 @@ def main(argv=None) -> None:
         elif p == "7":
             phase_span(counters)
         elif p == "9":
-            t[p] = phase_str_50kb(counters)
+            t[p], finish = phase_str_50kb(counters)
+            deferred.append(finish)
         elif p == "10":
             _, _, _, genome, reads, truth, table, tandem, metrics5 = t["5"]
             str_launches, str_shapes, walk_t2 = phase_str_real_size(
@@ -4441,8 +5213,16 @@ def main(argv=None) -> None:
         elif p == "21":
             torch.cuda.empty_cache()
             t[p] = phase_long_tail_real_size()
+        elif p == "22":
+            torch.cuda.empty_cache()
+            phase_gbs_small()
+        elif p == "23":
+            torch.cuda.empty_cache()
+            t[p] = phase_gbs_real_size()
     if "d" in t:
         t.pop("d").cleanup()
+    for finish in deferred:
+        finish()
     print(json.dumps({"kernels": kernel_entries(t)}), flush=True)
     print(nvidia_smi() or smi, flush=True)
     print(json.dumps({
@@ -4484,6 +5264,7 @@ def kernel_entries(t: dict) -> list:
             "shape", "kernel", "graph_ms", "mode", "walk_graph_ms", "replaced_ms",
             "replaced_graph_ms", "chain_cycles", "human", "bound_terms_ms",
             "fp64_lane_cycles", "log_form_ms", "log_form_graph_ms") if k in timing})
+        out.update({k: v for k, v in timing.items() if k.startswith("wide_")})
         return out
 
     gotoh = ("ngsepcore_tpu_torch/csrc/gotoh_forward.cu",
@@ -4569,6 +5350,14 @@ def kernel_entries(t: dict) -> list:
                          "ngsepcore_tpu/kernels/hmm.py:33,57,75",
                          t["19"]["launches"], t["2d"]))
         out[-1]["launches_by_form"] = t["19"]["launches_by_form"]
+    if "23" in t:
+        # the best-star MSA of phase 23's 30 repeat families (all-pairs and
+        # centre batches, unit costs, free subject ends): its launches, timed
+        # at its launched shape with the most cells
+        out.append(entry("gotoh_forward_msa", *gotoh, t["23"]["launches"]["gotoh"],
+                         t["23"]["gotoh"]))
+        out.append(entry("run_walk_msa", *walk(t["23"]["walk"]),
+                         t["23"]["launches"]["walk"], t["23"]["walk"]))
     return out
 
 

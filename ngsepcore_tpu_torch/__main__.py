@@ -98,11 +98,6 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Unknown command: {argv[0]}\n", file=sys.stderr)
         print_help()
         return 1
-    if cmd.pending:
-        raise SystemExit(
-            f"Command {cmd.id} is not ported to ngsepcore_tpu_torch yet: "
-            f"{cmd.pending}"
-        )
     device = _open_device(device_name)
     from .utils import profiling
 

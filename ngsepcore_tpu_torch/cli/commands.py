@@ -1,25 +1,26 @@
 """Command implementations wired into the registry.
 
 Command ids, groups, flags and former ids are those of
-ngsepcore_tpu/cli/commands.py (the reference's CommandsDescriptor.xml).
-39 commands are ported: KmersExtractor, GenomeIndexer, ReadsAligner
-(short and long reads), ReadsFileErrorsCorrector, Assembler,
-AssemblyGraphStatistics, SingleSampleVariantsDetector, SIH,
-MultisampleVariantsDetector, ReadDepthComparator, CoverageStats,
-BasePairQualStats; the genome builders and simulators
-(IndividualGenomeBuilder, GenomeAssemblyMask, SingleReadsSimulator,
-SingleIndividualSimulator); VCFImpute (which also takes -seed); and the VCF
-downstream commands (VCFFilter, VCFSummaryStats, VCFDiversityStats,
-VCFVariantDensityCalculator, VCFDistanceMatrixCalculator, NeighborJoining,
-DistanceClusteringService, VCFComparator, VCFConverter, VCFMerge,
-MergeVariants, RelativeAlleleCountsCalculator, VCFAlleleSharingStats,
-VCFIntrogressionAnalysis); the benchmark tools (VCFGoldStandardComparator,
-TillingIndividualVCF2PoolVCF, TillingPopulationSimulator,
-TillingPoolsIndividualGenotyper), Demultiplex, and the genome comparison
-commands (GenomesAligner, CDNACatalogAligner, TransposonsFinder).  Every
-other id is registered as pending:
-running it exits with an error naming the ROADMAP.md item that ports it.
-Runners take the device the CLI's --device flag names.
+ngsepcore_tpu/cli/commands.py (the reference's CommandsDescriptor.xml), and
+all 46 are ported: KmersExtractor, GenomeIndexer, ReadsAligner (short and
+long reads), ReadsFileErrorsCorrector, Assembler, AssemblyGraphStatistics,
+SingleSampleVariantsDetector, SIH, MultisampleVariantsDetector,
+ReadDepthComparator, CoverageStats, BasePairQualStats; the genome builders
+and simulators (IndividualGenomeBuilder, GenomeAssemblyMask,
+SingleReadsSimulator, SingleIndividualSimulator); VCFImpute (which also
+takes -seed); the VCF downstream commands (VCFFilter, VCFSummaryStats,
+VCFDiversityStats, VCFVariantDensityCalculator, VCFDistanceMatrixCalculator,
+NeighborJoining, DistanceClusteringService, VCFComparator, VCFConverter,
+VCFMerge, MergeVariants, RelativeAlleleCountsCalculator,
+VCFAlleleSharingStats, VCFIntrogressionAnalysis); the benchmark tools
+(VCFGoldStandardComparator, TillingIndividualVCF2PoolVCF,
+TillingPopulationSimulator, TillingPoolsIndividualGenotyper), Demultiplex,
+the genome comparison commands (GenomesAligner, CDNACatalogAligner,
+TransposonsFinder), the transcriptome commands (VCFAnnotate,
+TranscriptomeAnalyzer, TranscriptomeFilter, MutatedPeptidesExtractor) and
+the GBS commands (DeNovoGBS, VCFRelativeCoordinatesTranslator,
+UneakToVCFConverter).  Runners take the device the CLI's --device flag
+names.
 """
 from __future__ import annotations
 
@@ -1603,26 +1604,237 @@ register(
 )
 
 
-# ---- command ids not ported yet -----------------------------------------
+# ---- transcriptome, GBS and the rest (ROADMAP items 17f, 17g) -----------
 
-_TAIL = "ROADMAP.md Queue 1 item 17 (the long tail)"
+def _run_vcf_annotate(opts: dict, args: list[str], device) -> None:
+    from ..core.genome import ReferenceGenome
+    from ..transcriptome.annotator import VariantFunctionalAnnotator
+    from ..transcriptome.io_formats import load_transcriptome
+    from ..vcf.io import VCFFileReader, VCFFileWriter
 
-# id -> (group, description, former id, hidden, ROADMAP item)
-_PENDING: dict[str, tuple[str, str, str | None, bool, str]] = {
-    "VCFAnnotate": ("VariantsDownstream", "Functional annotation of variants vs gene models (SO terms)", "Annotate", False, _TAIL),
-    "TranscriptomeAnalyzer": ("Genomes", "Gene-model statistics from a GFF3", None, False, _TAIL),
-    "DeNovoGBS": ("Reads", "De-novo GBS read clustering and variant calling", None, False, _TAIL),
-    "TranscriptomeFilter": ("Genomes", "Filters gene annotations", None, False, _TAIL),
-    "MutatedPeptidesExtractor": ("VariantsDownstream", "Mutated peptides from missense variants + gene models", None, True, _TAIL),
-    "VCFRelativeCoordinatesTranslator": ("VariantsDownstream", "Maps de-novo GBS cluster variants to reference coordinates", None, False, _TAIL),
-    "UneakToVCFConverter": ("VariantsDownstream", "Converts UNEAK HapMap+consensus output to VCF", None, True, _TAIL),
-}
-
-
-for _cid, (_grp, _desc, _former, _hidden, _item) in _PENDING.items():
-    register(
-        Command(
-            id=_cid, group=_grp, description=_desc, runner=None,
-            former_id=_former, hidden=_hidden, pending=_item,
+    genome_path = opts.pop("genome", None)
+    gff = opts.pop("transcriptome", None)
+    inp = opts.pop("input_file", None) or (args[0] if args else None)
+    out = opts.pop("output_file", None) or (args[1] if len(args) > 1 else None)
+    if not genome_path or not gff or not inp or not out:
+        raise SystemExit(
+            "Usage: VCFAnnotate -r <genome.fa> -t <genes.gff3> -i <in.vcf> -o <out.vcf>"
         )
+    genome = ReferenceGenome.load(genome_path)
+    transcriptome = load_transcriptome(gff)
+    reader = VCFFileReader(inp)
+    records = reader.load_all()
+    VariantFunctionalAnnotator(genome, transcriptome).annotate_records(records)
+    with VCFFileWriter(out, reader.sample_ids) as w:
+        for r in records:
+            w.write(r)
+    print(f"Annotated {len(records)} records -> {out}", file=sys.stderr)
+
+
+register(
+    Command(
+        id="VCFAnnotate",
+        former_id="Annotate",
+        group="VariantsDownstream",
+        description="Functional annotation of variants vs gene models (SO terms)",
+        runner=_run_vcf_annotate,
+        options=[
+            Option("r", "genome", "str", None, "Reference genome FASTA"),
+            Option("t", "transcriptome", "str", None, "Gene models GFF3"),
+            Option("i", "input_file", "str", None, "Input VCF"),
+            Option("o", "output_file", "str", None, "Output VCF"),
+        ],
     )
+)
+
+
+def _run_transcriptome_analyzer(opts: dict, args: list[str], device) -> None:
+    import numpy as np
+
+    from ..transcriptome.io_formats import load_transcriptome
+
+    inp = opts.pop("transcriptome", None) or (args[0] if args else None)
+    if not inp:
+        raise SystemExit("Usage: TranscriptomeAnalyzer <genes.gff3>")
+    t = load_transcriptome(inp)
+    coding = sum(1 for tr in t.transcripts.values() if tr.coding)
+    lengths = [tr.last - tr.first + 1 for tr in t.transcripts.values()]
+    print(f"Genes\t{len(t.genes)}")
+    print(f"Transcripts\t{len(t.transcripts)}")
+    print(f"Coding transcripts\t{coding}")
+    if lengths:
+        print(f"Mean transcript length\t{np.mean(lengths):.1f}")
+        print(f"Median transcript length\t{np.median(lengths):.1f}")
+
+
+register(
+    Command(
+        id="TranscriptomeAnalyzer",
+        group="Genomes",
+        description="Gene-model statistics from a GFF3",
+        runner=_run_transcriptome_analyzer,
+        options=[Option("t", "transcriptome", "str", None, "Gene models GFF3")],
+    )
+)
+
+
+def _run_transcriptome_filter(opts: dict, args: list[str], device) -> None:
+    from ..transcriptome.io_formats import load_transcriptome
+    from ..transcriptome.tools import filter_transcriptome, write_transcriptome_gff3
+
+    if len(args) < 2:
+        raise SystemExit("Usage: TranscriptomeFilter <in.gff3> <out.gff3> [-c] [-l minLen]")
+    t = load_transcriptome(args[0])
+    f = filter_transcriptome(
+        t,
+        only_coding=bool(opts.pop("only_coding", False)),
+        min_length=int(opts.pop("min_length", 0) or 0),
+    )
+    write_transcriptome_gff3(f, args[1])
+    print(f"Kept {len(f.transcripts)}/{len(t.transcripts)} transcripts", file=sys.stderr)
+
+
+register(
+    Command(
+        id="TranscriptomeFilter",
+        group="Genomes",
+        description="Filters gene annotations",
+        runner=_run_transcriptome_filter,
+        options=[
+            Option("c", "only_coding", "bool", False, "Keep only coding"),
+            Option("l", "min_length", "int", 0, "Min transcript length"),
+        ],
+    )
+)
+
+
+def _run_mutated_peptides(opts: dict, args: list[str], device) -> None:
+    from ..core.genome import ReferenceGenome
+    from ..transcriptome.io_formats import load_transcriptome
+    from ..transcriptome.tools import extract_mutated_peptides
+    from ..vcf.io import VCFFileReader
+
+    if len(args) < 3:
+        raise SystemExit(
+            "Usage: MutatedPeptidesExtractor <genome.fa> <genes.gff3> <vars.vcf> [-o out]"
+        )
+    genome = ReferenceGenome.load(args[0])
+    t = load_transcriptome(args[1])
+    variants = [r.variant for r in VCFFileReader(args[2])]
+    peps = extract_mutated_peptides(genome, t, variants)
+    out = opts.pop("output_file", None)
+    with (open(out, "w") if out else contextlib.nullcontext(sys.stdout)) as fh:
+        fh.write("TRANSCRIPT\tPOS\tCHANGE\tPEPTIDE\n")
+        for p in peps:
+            fh.write(f"{p.transcript_id}\t{p.variant_pos}\t{p.aa_change}\t{p.peptide}\n")
+
+
+register(
+    Command(
+        id="MutatedPeptidesExtractor",
+        group="VariantsDownstream",
+        description="Mutated peptides from missense variants + gene models",
+        runner=_run_mutated_peptides,
+        hidden=True,
+        options=[Option("o", "output_file", "str", None, "Output file")],
+    )
+)
+
+
+def _run_denovo_gbs(opts: dict, args: list[str], device) -> None:
+    from ..gbs.denovo import KmerPrefixReadsClusteringAlgorithm
+
+    out = opts.pop("output_prefix", None) or "gbs"
+    if not args:
+        raise SystemExit("Usage: DeNovoGBS -o <prefix> <s1.fastq> <s2.fastq> ...")
+    sample_ids = [p.rsplit("/", 1)[-1].split(".")[0] for p in args]
+    algo = KmerPrefixReadsClusteringAlgorithm(**opts, device=device)
+    n = algo.run(args, sample_ids, out)
+    print(f"Called {n} de-novo GBS variants -> {out}.vcf", file=sys.stderr)
+
+
+register(
+    Command(
+        id="DeNovoGBS",
+        group="Reads",
+        description="De-novo GBS read clustering and variant calling",
+        runner=_run_denovo_gbs,
+        options=[
+            Option("o", "output_prefix", "str", None, "Output prefix"),
+            Option("q", "min_quality", "int", 40, "Min variant quality"),
+        ],
+    )
+)
+
+
+def _run_relative_coords_translator(opts: dict, args: list[str], device) -> None:
+    from ..core.genome import ReferenceGenome
+    from ..gbs.translator import translate_records
+    from ..io.sam import ReadAlignmentFileReader
+    from ..vcf.io import VCFFileReader, VCFFileWriter
+
+    genome_file = opts.pop("genome", None)
+    if len(args) < 3:
+        raise SystemExit(
+            "Usage: VCFRelativeCoordinatesTranslator -r <genome.fa> "
+            "<cluster.vcf> <consensus.sam> <out_prefix>"
+        )
+    genome = ReferenceGenome.load(genome_file) if genome_file else None
+    reader = VCFFileReader(args[0])
+    records = reader.load_all()
+    alns = {
+        a.read_name: a
+        for a in ReadAlignmentFileReader(args[1], skip_secondary=True)
+    }
+    out, stats = translate_records(records, alns, genome=genome)
+    prefix = args[2]
+    vcf_path = prefix if prefix.endswith(".vcf") else prefix + ".vcf"
+    with VCFFileWriter(vcf_path, reader.sample_ids) as w:
+        for r in out:
+            w.write(r)
+    info_path = (
+        prefix[: -len(".vcf")] if prefix.endswith(".vcf") else prefix
+    ) + ".info"
+    with open(info_path, "w") as fh:
+        fh.write(stats.report() + "\n")
+    print(stats.report(), file=sys.stderr)
+
+
+register(
+    Command(
+        id="VCFRelativeCoordinatesTranslator",
+        group="VariantsDownstream",
+        description="Maps de-novo GBS cluster variants to reference coordinates",
+        runner=_run_relative_coords_translator,
+        options=[
+            Option("r", "genome", "str", None,
+                   "Reference genome FASTA (refbase reconciliation)"),
+        ],
+    )
+)
+
+
+def _run_uneak_to_vcf(opts: dict, args: list[str], device) -> None:
+    from ..gbs.uneak import convert_uneak
+
+    if len(args) < 3:
+        raise SystemExit(
+            "Usage: UneakToVCFConverter <hapmap.txt> <consensus.fa> <out_prefix>"
+        )
+    n_sites, n_samples = convert_uneak(args[0], args[1], args[2])
+    print(
+        f"Converted {n_sites} UNEAK sites x {n_samples} samples",
+        file=sys.stderr,
+    )
+
+
+register(
+    Command(
+        id="UneakToVCFConverter",
+        group="VariantsDownstream",
+        description="Converts UNEAK HapMap+consensus output to VCF",
+        runner=_run_uneak_to_vcf,
+        hidden=True,  # main-class-only tool in the reference (no XML entry)
+        options=[],
+    )
+)

@@ -27,15 +27,12 @@ class Option:
 @dataclass
 class Command:
     id: str
-    runner: Callable | None  # (options dict, positional args, torch device)
+    runner: Callable  # (options dict, positional args, torch device)
     description: str
     group: str
     options: list[Option] = field(default_factory=list)
     former_id: str | None = None
     hidden: bool = False
-    # ROADMAP.md item of a command that is registered but not ported yet
-    # (its runner is None)
-    pending: str | None = None
 
 
 _REGISTRY: dict[str, Command] = {}

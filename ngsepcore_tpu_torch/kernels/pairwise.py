@@ -472,6 +472,74 @@ def dp_stats_runs(out: dict, query: torch.Tensor, subject: torch.Tensor):
     }
 
 
+RLE_MAX = 16  # CIGAR runs a row in dp_stats_pack's RLE (mism <= 0.1*len caps
+# gap runs at ~7); n_runs reports overflow and la_fallback flags the row
+
+
+def dp_stats_pack(ops, n_ops, start_j, score, query, subject):
+    """Post-pass over affine_gap_align_batch's per-column ops, plain
+    PyTorch on the tensors' device (counterpart of
+    ngsepcore_tpu/kernels/pairwise.py:dp_stats_pack, which only an entry
+    script calls there; the port's paths take dp_stats_runs on the walk's
+    runs instead).
+
+    Per row: the tier-3 mismatch statistic (+1 per mismatched pair, +2 per
+    internal gap run, -2 when the alignment ends in a gap —
+    ShortReadsUngappedSearchHitsClusterAligner.java:140-156) from the score
+    decomposition of the tier-3 costs (match +1, mismatch -1, open 3,
+    ext 1: neq = (#M - score - 2*K_runs - gap_len) / 2), a gap flag, the
+    ops 2-bit-packed 16 a uint32, and the left-aligned RLE of the op runs
+    ((op | len<<2) as int16, RLE_MAX slots)."""
+    B, S = ops.shape
+    dev = ops.device
+    col = torch.arange(S, dtype=_I32, device=dev)[None, :]
+    n_ops = n_ops.to(_I32)
+    valid = col < n_ops[:, None]
+    m = (ops == OP_MATCH) & valid
+    g = ((ops == OP_INS) | (ops == OP_DEL)) & valid
+    z = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+    run_start = g & ~torch.cat([z, g[:, :-1]], dim=1)
+    m_cnt = m.sum(dim=1, dtype=_I32)
+    gap_len = g.sum(dim=1, dtype=_I32)
+    k_all = run_start.sum(dim=1, dtype=_I32)
+    sub_mm = (m_cnt - score - 2 * k_all - gap_len) >> 1
+    after_m = torch.cat([z, m[:, :-1]], dim=1)
+    k_runs = (run_start & after_m).sum(dim=1, dtype=_I32)
+    last_op = ops.gather(1, (n_ops - 1).clamp(min=0).long()[:, None])[:, 0]
+    ends_gap = (n_ops > 0) & ((last_op == OP_INS) | (last_op == OP_DEL))
+    mism = sub_mm + 2 * k_runs - 2 * ends_gap.to(_I32)
+    has_gap = g.any(dim=1).to(torch.int8)
+    o = torch.nn.functional.pad(ops.to(torch.int64), (0, (-S) % 16)).reshape(B, -1, 16)
+    sh = 2 * torch.arange(16, dtype=torch.int64, device=dev)
+    packed = (o << sh).sum(dim=2).to(torch.uint32)  # disjoint bit fields: sum = or
+    prev = torch.cat([torch.full((B, 1), 255, dtype=ops.dtype, device=dev), ops[:, :-1]], dim=1)
+    is_start = valid & (ops != prev)
+    rank = torch.cumsum(is_start.to(_I32), dim=1) - 1
+    n_runs = is_start.sum(dim=1, dtype=_I32)
+    starts = torch.stack(
+        [torch.where(is_start & (rank == k), col, S).amin(dim=1) for k in range(RLE_MAX)],
+        dim=1,
+    ).to(_I32)
+    starts = torch.where(starts == S, 0, starts)
+    slot = torch.arange(RLE_MAX, dtype=_I32, device=dev)[None, :]
+    nxt = torch.cat([starts[:, 1:], torch.zeros((B, 1), dtype=_I32, device=dev)], dim=1)
+    end = torch.where(slot + 1 < n_runs[:, None], nxt, n_ops[:, None])
+    rlen = torch.where(slot < n_runs[:, None], end - starts, 0).to(_I32)
+    rop = ops.gather(1, starts.clamp(max=S - 1).long()).to(_I32)
+    rlen, la_fallback = _left_align_rle(rop, rlen, n_runs, start_j, query, subject)
+    rle = torch.where(slot < n_runs[:, None], rop | (rlen << 2), 0).to(torch.int16)
+    return {
+        "mism": mism,
+        "has_gap": has_gap,
+        "packed": packed,
+        "rle": rle,
+        "n_runs": n_runs,
+        "n_ops": n_ops,
+        "start_j": start_j,
+        "la_fallback": la_fallback,
+    }
+
+
 def dp_stats_runs_hamming(out: dict):
     """Long-read segment stats from run-jump traceback output.  The
     long-read chain walk counts mismatches Hamming-style: +1 per mismatched

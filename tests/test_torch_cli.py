@@ -127,15 +127,34 @@ def test_device_cuda_without_card_exits_nonzero(files):
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["DeNovoGBS", "x.fastq"], "Queue 1 item 17"),
+        (["DeNovoGBS"], "Queue 1 item 17"),
         (["VCFAnnotate", "-i", "x.vcf"], "Queue 1 item 17"),
-        (["TranscriptomeAnalyzer", "g1.gff3"], "Queue 1 item 17"),
+        (["TranscriptomeAnalyzer"], "Queue 1 item 17"),
     ],
 )
 def test_unported_commands_name_their_roadmap_item(argv, item):
+    """The ids that were pending last (ROADMAP.md item 17) are ported: they
+    reach their runner, whose usage message answers missing arguments,
+    and no message names the ROADMAP item any more."""
     with pytest.raises(SystemExit) as e:
         tmain(["--device", "cpu"] + argv)
-    assert item in str(e.value.code)
+    assert str(e.value.code).startswith(f"Usage: {argv[0]}")
+    assert item not in str(e.value.code)
+
+
+def test_every_command_id_is_ported():
+    """All 46 ids of the JAX package's registry are registered in the port
+    with a runner, with the same group, former id and hidden flag."""
+    import ngsepcore_tpu.cli.commands  # noqa: F401
+    import ngsepcore_tpu_torch.cli.commands  # noqa: F401
+    from ngsepcore_tpu.cli.registry import all_commands as jax_commands
+    from ngsepcore_tpu_torch.cli.registry import all_commands, get_command
+
+    want = {c.id: (c.group, c.former_id, c.hidden) for c in jax_commands()}
+    got = {c.id: (c.group, c.former_id, c.hidden) for c in all_commands()}
+    assert len(got) == 46 and got == want
+    assert all(callable(c.runner) for c in all_commands())
+    assert get_command("Annotate").id == "VCFAnnotate"
 
 
 def test_unported_detector_options_name_their_roadmap_item(files):
@@ -165,11 +184,13 @@ def _gff_rows(path):
 
 @pytest.fixture(scope="module")
 def long_tail_dir(tmp_path_factory):
-    """chip_smoke.py phase 20's inputs (write_long_tail_inputs)."""
-    from chip_smoke import write_long_tail_inputs
+    """chip_smoke.py phase 20's and phase 22's inputs
+    (write_long_tail_inputs, write_transcriptome_gbs_inputs)."""
+    from chip_smoke import write_long_tail_inputs, write_transcriptome_gbs_inputs
 
     d = tmp_path_factory.mktemp("long_tail")
     write_long_tail_inputs(str(d))
+    write_transcriptome_gbs_inputs(str(d))
     return d
 
 
@@ -178,6 +199,9 @@ LONG_TAIL_LABELS = [
     "TillingPoolsIndividualGenotyper", "VCFGoldStandardComparator", "Demultiplex",
     "GenomesAligner", "CDNACatalogAligner", "CDNACatalogAligner cdna",
     "TransposonsFinder", "TransposonsFinder -d",
+    # items 17f and 17g (phase 22's commands)
+    "VCFAnnotate", "TranscriptomeAnalyzer", "TranscriptomeFilter", "MutatedPeptidesExtractor",
+    "DeNovoGBS", "VCFRelativeCoordinatesTranslator", "UneakToVCFConverter",
 ]
 
 
@@ -204,10 +228,12 @@ def test_long_tail_cli_outputs_equal_jax(long_tail_dir, label, capsys):
     standard output is the port's -o file.  On protein catalogs the port's
     CDNACatalogAligner is held against the JAX package's orthogroups of the
     catalogs read as text (_jax_orthogroups_of_text); on cDNA catalogs
-    against the JAX CLI."""
-    from chip_smoke import long_tail_jobs
+    against the JAX CLI.  The seven commands of items 17f and 17g run on
+    phase 22's inputs; what they print is one of their outputs."""
+    from chip_smoke import long_tail_jobs, transcriptome_gbs_jobs
 
-    args = long_tail_jobs(str(long_tail_dir))[label]
+    jobs = {**long_tail_jobs(str(long_tail_dir)), **transcriptome_gbs_jobs(str(long_tail_dir))}
+    args = jobs[label]
     cid = label.split()[0]
     got = {}
     for tag, main, pre in (("j", jmain, []), ("t", tmain, ["--device", "cpu"])):
@@ -226,8 +252,13 @@ def test_long_tail_cli_outputs_equal_jax(long_tail_dir, label, capsys):
                     for p in sorted(out.iterdir())}
         if tag == "j" and cid == "VCFGoldStandardComparator":
             got[tag]["out.txt"] = printed
+        if label in transcriptome_gbs_jobs(str(long_tail_dir)):
+            got[tag]["standard output"] = printed
     assert got["t"] == got["j"]
     files = got["t"]
+    if files.pop("standard output", None) is not None and cid == "TranscriptomeAnalyzer":
+        assert printed.startswith("Genes\t11\nTranscripts\t12\nCoding transcripts\t11\n")
+        return
     assert files and all(files.values())
     if cid == "Demultiplex":
         assert sorted(files) == ["out_3x.fastq", "out_s1.fastq", "out_s2.fastq", "out_s4.fastq"]
@@ -240,6 +271,15 @@ def test_long_tail_cli_outputs_equal_jax(long_tail_dir, label, capsys):
         assert len(files) > 5 and "out_design.txt" in files
     elif cid == "TransposonsFinder":
         assert len(files["out.gff"]) > 5
+    elif cid == "DeNovoGBS":
+        assert files["out.vcf"].count("\nCluster_") >= 20
+    elif cid == "VCFRelativeCoordinatesTranslator":
+        assert sorted(files) == ["out.info", "out.vcf"] and files["out.vcf"].count("\nchrG\t") > 20
+    elif cid == "VCFAnnotate":
+        assert all(f"TA={t}" in files["out.vcf"] for t in (
+            "missense_variant", "synonymous_variant", "splice_donor_variant",
+            "splice_acceptor_variant", "non_coding_transcript_exon_variant",
+            "5_prime_UTR_variant", "frameshift_variant", "intergenic_variant"))
     elif label == "CDNACatalogAligner":
         groups = [l.split("\t")[1:] for l in files["out_orthogroups.txt"].splitlines()]
         triples = sum(len(g) == 3 and len({m.split(":")[1] for m in g}) == 1 for g in groups)

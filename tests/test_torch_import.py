@@ -92,6 +92,17 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "ngsepcore_tpu_torch.core.degenerate",
         "ngsepcore_tpu_torch.sequencing.trimmer",
         "ngsepcore_tpu_torch.sequencing.demultiplex",
+        "ngsepcore_tpu_torch.transcriptome.annotator",
+        "ngsepcore_tpu_torch.transcriptome.tools",
+        "ngsepcore_tpu_torch.transcriptome.codon_alignment",
+        "ngsepcore_tpu_torch.gbs.denovo",
+        "ngsepcore_tpu_torch.gbs.translator",
+        "ngsepcore_tpu_torch.gbs.uneak",
+        "ngsepcore_tpu_torch.clustering.dbscan",
+        "ngsepcore_tpu_torch.clustering.msa",
+        "ngsepcore_tpu_torch.gwas.glm",
+        "ngsepcore_tpu_torch.kernels.pairwise_simple",
+        "ngsepcore_tpu_torch.align.pairwise_aligners",
     ):
         assert mod in got["modules"]
     assert got["jax"] == []
