@@ -52,8 +52,12 @@ through the CLI (ReadsAligner -p PACBIO, SingleSampleVariantsDetector
 -runLongReadSVs), with a planted insertion and deletion to find; phase
 15 aligns bench_configs.bench_long_reads' 600 reads of 10 kb against
 4 Mbp with its accuracy gates, then calls long-read SVs on them.
-Phase 2 also holds the seg Gotoh kernel (256 < Ls <= 3,584) and the wide
-one (above) at Ls 1025-8192 and, forced, at every narrower case; phase 9's
+Phase 2 also holds the seg Gotoh kernel (256 < Ls <= 3,584), the cluster
+kernel (a thread-block cluster an alignment, up to 24,576: by shape at
+3,585-24,576 in the paths' four free-end configurations, on a batch of
+more than one wave, and forced on every case wider than 256 columns) with
+the clusters the card holds at once, and the wide one (above; forced at
+every narrower case); phase 9's
 genome carries a 1,500 bp tandem array whose flanks take the seg kernel,
 and phase 9 also runs the known-STR detector through the CLI, CUDA against
 the CPU.  De-novo assembly follows: phase 16 runs the
@@ -108,9 +112,10 @@ against the CPU; phase 23 runs DeNovoGBS on a 24-sample ApeKI lane of
 0.90 and recall >= 0.80 over the planted SNVs, the first 1,000 clusters'
 records equal to the CPU's, stage seconds, peak device memory), then the
 best-star MSA of each of the genome's 30 repeat families (rows of one
-width that are their inputs with gaps, the 5 smallest CUDA = CPU, Gotoh
-launches by kernel and shape, the batch with the most cells timed
-beside its plain version and bound).
+width that are their inputs with gaps, the 5 smallest and the smallest
+over 3,584 bp CUDA = CPU, Gotoh launches by kernel and shape, the batch
+with the most cells and the cluster kernel's timed beside their plain
+version and bound).
 With --phases only the listed phases run (and the ones whose data they
 use; 0 and 1 always run).
 Prints one line per phase and exits nonzero at the first failure.  The
@@ -130,6 +135,7 @@ Imports torch, numpy and the port only (bench.py's gates are numpy).
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -846,17 +852,55 @@ def _gotoh_mismatches(got, ref):
     return full, vec_bad, err
 
 
+def _cluster_cases(rng):
+    """The cluster kernel's cases (name, inputs, configurations): by shape
+    at its widths, B 5 and Lq 64 with qlen-0 rows, slen 0 and N runs, in
+    the four free-end configurations the paths use; runs past 255; a batch
+    whose clusters do not all fit one wave.  Every case also runs the
+    cluster kernel forced (two blocks a cluster or more) and the wide
+    kernel forced."""
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import CLUSTER_MAX_LS
+
+    cfgs = (LONG_READ_CFGS["center"], TIER2_LEFT, TIER2_RIGHT, _GOTOH_CFGS[0])
+    out = []
+    for Ls in (3585, 4096, 5000, 8192, 16384, CLUSTER_MAX_LS):
+        q, ql, s, sl = _noisy(rng, 5, 64, Ls)
+        ql[0] = 0
+        sl[1] = 0
+        q[2, 32:] = 4
+        s[2, Ls // 2 :] = 4
+        out += [(f"cluster Ls {Ls}, B 5, qlen 0, slen 0, N runs", (q, ql, s, sl), cfgs)]
+    out.append(("cluster Ls 4096, runs past 255", _saturating(rng, 5, 300, 4096), ({},)))
+    out.append((f"cluster Ls {CLUSTER_MAX_LS}, runs past 255",
+                _saturating(rng, 3, 260, CLUSTER_MAX_LS), ({},)))
+    q, ql, s, sl = _noisy(rng, 300, 32, 4096)
+    ql[::7] = 0
+    out.append(("cluster Ls 4096, B 300 (more than one wave)", (q, ql, s, sl),
+                (_GOTOH_CFGS[0], TIER2_LEFT)))
+    # the forced cluster kernel at the seg kernel's widths
+    for Ls in (257, 1664, 3584):
+        q, ql, s, sl = _noisy(rng, 37, 64, Ls)
+        ql[::5] = 0
+        sl[1] = 0
+        out.append((f"cluster forced, Ls {Ls}, B 37", (q, ql, s, sl), cfgs))
+    return out
+
+
 def phase_gotoh():
-    """The three Gotoh kernels against the plain version, bit for bit on
+    """The four Gotoh kernels against the plain version, bit for bit on
     the full plane; times of the kernel the wrapper picks and of the plain
     version at the shapes the main paths use.  The seg kernel is also held
-    at every narrower case (one warp, 4-8 columns a lane), and the wide
-    kernel at every case it does not take by shape."""
+    at every narrower case (one warp, 4-8 columns a lane), the cluster
+    kernel (forced, two blocks a cluster or more) at every case of more
+    than 256 columns, and the wide kernel at every case it does not take
+    by shape."""
     import torch
 
     from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
-        SEG_MAX_LS,
+        CLUSTER_MAX_LS,
+        device_cluster_layout,
         gotoh_forward_plane,
+        gotoh_forward_plane_cluster,
         gotoh_forward_plane_ref,
         gotoh_forward_plane_seg,
         gotoh_forward_plane_wide,
@@ -896,7 +940,7 @@ def phase_gotoh():
     for name, data in _edge_cases(rng):
         for cfg in _GOTOH_CFGS:
             cases.append((f"{name} {cfg}", data, cfg))
-    # the seg kernel's widths up to SEG_MAX_LS, then the wide kernel's
+    # the seg kernel's widths up to SEG_MAX_LS, then the cluster kernel's
     for Ls in (1025, 1536, 2048, 3584, 4096, 8192):
         q, ql, s, sl = _noisy(rng, 37, 160, Ls)
         ql[::5] = 0
@@ -912,7 +956,12 @@ def phase_gotoh():
         cases.append((f"seg Ls 700, all-N query and subject {cfg}", (qn, qln, sn, sln), cfg))
     cases.append(("seg Ls 300, runs past 255", _saturating(rng, 30, 300, 300), {}))
     cases.append(("seg Ls 2100, runs past 255", _saturating(rng, 9, 300, 2100), {}))
-    cases.append(("wide Ls 5000, runs past 255", _saturating(rng, 5, 300, 5000), {}))
+    cases.append(("Ls 5000, runs past 255", _saturating(rng, 5, 300, 5000), {}))
+    for name, data, cfgs in _cluster_cases(rng):
+        cases += [(f"{name} {cfg}", data, cfg) for cfg in cfgs]
+    # the wide kernel by shape just past the cluster kernel's widest
+    cases.append((f"wide Ls {CLUSTER_MAX_LS + 1}, B 3",
+                  _noisy(rng, 3, 24, CLUSTER_MAX_LS + 1), {}))
     timed_names = {n for n, _ in timed} | {n for n, _, _ in timed_t2 + timed_lr}
     timing = {}
     n_cells = 0
@@ -923,7 +972,9 @@ def phase_gotoh():
         kernels = [("kernel", gotoh_forward_plane)]
         if Ls <= 256:  # wider subjects take the seg kernel anyway
             kernels.append(("seg kernel", gotoh_forward_plane_seg))
-        if Ls <= SEG_MAX_LS:  # wider subjects take the wide kernel anyway
+        if Ls > 256:  # two blocks a cluster or more, at every width
+            kernels.append(("cluster kernel", gotoh_forward_plane_cluster))
+        if Ls <= CLUSTER_MAX_LS:  # wider subjects take the wide kernel anyway
             kernels.append(("wide kernel", gotoh_forward_plane_wide))
         err = 0
         for label, fn in kernels:
@@ -943,6 +994,9 @@ def phase_gotoh():
             if kern == "seg":
                 kern_text = "seg, K {}, W {}".format(
                     *seg_layout(Ls, cfg.get("free_end1", False)))
+            elif kern == "cluster":
+                kern_text = "cluster, N {}, W {}, K {}".format(*device_cluster_layout(
+                    B, Ls, cfg.get("free_start1", False), cfg.get("free_end1", False)))
             else:
                 kern_text = kern
             ms = cuda_ms(lambda: gotoh_forward_plane(*args, **cfg), calls=20)
@@ -959,7 +1013,36 @@ def phase_gotoh():
         del ref
     log(f"phase 2 gotoh: {len(cases)} cases, {n_cells} plane cells compared, "
         "0 differing")
+    timing["cluster occupancy"] = cluster_occupancy_report()
     return timing
+
+
+def cluster_occupancy_report():
+    """cudaOccupancyMaxActiveClusters of the cluster kernel at the MSA's
+    69x3936x3936 layouts (every N, free subject ends) beside the SM
+    arithmetic (16 // W blocks an SM of 128 registers a thread), which GPC
+    boundaries can make larger; the layout rule takes the card's."""
+    import torch
+
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
+        cluster_occupancy,
+        cluster_shape,
+        device_cluster_layout,
+    )
+
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rule = device_cluster_layout(69, 3936)
+    out = {}
+    for n in range(1, 9):
+        W, K = cluster_shape(3936, False, n)
+        held = cluster_occupancy(n, W, K)
+        arithmetic = n_sms * (16 // W) // n
+        out[f"N {n}, W {W}, K {K}"] = dict(clusters=held, sm_arithmetic=arithmetic)
+        log(f"phase 2 cluster kernel at 3936 columns, N {n}, W {W}, K {K}: the card holds "
+            f"{held} clusters at once (cudaOccupancyMaxActiveClusters), the SM arithmetic "
+            f"{arithmetic}; 69 alignments {'fit' if held >= 69 else 'do not fit'} one "
+            f"wave{' (the rule picks this layout)' if rule == (n, W, K) else ''}")
+    return out
 
 
 def _wide_plane(rng, B, Lq, Ls):
@@ -4918,6 +5001,20 @@ def _msa_shape_entry(name, pairs, device):
     return gotoh_t, walk_t
 
 
+def _msa_cpu(seqs):
+    """Phase 23's CPU side, in a process of its own: the best-star MSA of
+    one family on the CPU with two torch threads; (rows, seconds)."""
+    import torch
+
+    from ngsepcore_tpu_torch.clustering.msa import BestStarMultipleSequenceAlignmentAlgorithm
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    rows = BestStarMultipleSequenceAlignmentAlgorithm(device="cpu") \
+        .calculate_multiple_sequence_alignment(seqs)
+    return rows, time.perf_counter() - t0
+
+
 def phase_gbs_real_size(device="cuda"):
     """Phase 23, on the card at user size: DeNovoGBS on a 24-plex ApeKI lane
     cut to 10,000 loci of bench.build_repeat_genome(rng 2024, 12 Mbp)
@@ -4925,9 +5022,12 @@ def phase_gbs_real_size(device="cuda"):
     first 1,000 clusters' records equal to the port's CPU run on their
     reads), then the best-star MSA of each of the genome's 30 repeat
     families (source and copies: rows of one width that are their inputs
-    with gaps; CUDA rows equal to the CPU's for the 5 smallest families;
-    Gotoh launches by kernel and shape, the most time-taking shape timed
-    against its plain version)."""
+    with gaps; CUDA rows equal to the CPU's for the 5 smallest families
+    and, its CPU side in a background process from the start of the
+    phase, the smallest family over SEG_MAX_LS; Gotoh launches by kernel
+    and shape, every family over SEG_MAX_LS on the cluster kernel; the
+    batch with the most cells and the cluster kernel's timed against
+    their plain version)."""
     import torch
 
     from ngsepcore_tpu_torch.clustering.msa import BestStarMultipleSequenceAlignmentAlgorithm
@@ -4938,7 +5038,11 @@ def phase_gbs_real_size(device="cuda"):
         read_fastq_sample,
     )
     from ngsepcore_tpu_torch.kernels.pairwise import _runs_from_plane
-    from ngsepcore_tpu_torch.kernels.pairwise_cuda import gotoh_forward_plane
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
+        SEG_MAX_LS,
+        device_cluster_layout,
+        gotoh_forward_plane,
+    )
     from ngsepcore_tpu_torch.utils import profiling
     from ngsepcore_tpu_torch.vcf.io import VCFFileWriter
 
@@ -4951,6 +5055,16 @@ def phase_gbs_real_size(device="cuda"):
         fail(f"phase 23: {len(starts)} ApeKI loci outside the repeats, not {GBS_LOCI}")
     loci, s_locus, s_col, s_alt, haps = gbs_population(rng, codes, starts, GBS_SAMPLES)
     report = {"loci": len(starts), "planted_snvs": len(s_locus)}
+    # MSA of each repeat family: the source and its copies, read from the
+    # genome.  The smallest family whose widest sequence is over SEG_MAX_LS
+    # (the cluster kernel's) starts on the CPU in the background now.
+    fams = []
+    for src, slen, _seg, copies in families:
+        fams.append([decode_dna(codes[p : p + slen]) for p in [src] + list(copies)])
+    order = sorted(range(len(fams)), key=lambda i: (len(fams[i][0]), len(fams[i])))
+    over_seg = [i for i in order if max(map(len, fams[i])) > SEG_MAX_LS]
+    cpu_over_seg = (_InBackground(functools.partial(_msa_cpu, fams[over_seg[0]]))
+                    if over_seg else None)
     with tempfile.TemporaryDirectory(dir=ROOT) as d:
         paths = [os.path.join(d, f"gbs{si:02d}.fastq") for si in range(GBS_SAMPLES)]
         for si, path in enumerate(paths):  # Poisson(8) reads a locus, 0.3% errors, Q30
@@ -5026,11 +5140,6 @@ def phase_gbs_real_size(device="cuda"):
         del reads, sub, valid, code, rows, cstarts
     torch.cuda.empty_cache()
     log(f"phase 23 de-novo GBS real size: {json.dumps(report)}")
-    # MSA of each repeat family: the source and its copies, read from the genome
-    fams = []
-    for src, slen, _seg, copies in families:
-        fams.append([decode_dna(codes[p : p + slen]) for p in [src] + list(copies)])
-    order = sorted(range(len(fams)), key=lambda i: (len(fams[i][0]), len(fams[i])))
     msa = {"families": len(fams), "sequences": sum(map(len, fams)),
            "lengths": [min(len(f[0]) for f in fams), max(len(f[0]) for f in fams)]}
     gotoh_forward_plane.launches = 0
@@ -5059,6 +5168,9 @@ def phase_gbs_real_size(device="cuda"):
         by_kernel[kern] += n
     msa["by_kernel"] = dict(by_kernel)
     log(f"phase 23 MSA launches by shape: {shapes_text(shapes)}")
+    if by_kernel["wide"] or (over_seg and not by_kernel["cluster"]):
+        fail(f"phase 23: the families over {SEG_MAX_LS} bp did not take the cluster "
+             f"kernel: {dict(by_kernel)}")
     for i, r in rows.items():
         if len({len(a) for a in r}) != 1 or [a.replace("-", "") for a in r] != fams[i]:
             fail(f"phase 23: family {i}'s MSA rows are not its inputs with gaps, of one width")
@@ -5069,12 +5181,19 @@ def phase_gbs_real_size(device="cuda"):
         if cpu != rows[i]:
             fail(f"phase 23: family {i}'s MSA rows differ between {device} and cpu")
     msa["cpu_5_smallest_s"] = round(time.perf_counter() - t1, 3)
+    if cpu_over_seg:
+        i = over_seg[0]
+        cpu, cpu_s = cpu_over_seg.result("phase 23")
+        if cpu != rows[i]:
+            fail(f"phase 23: family {i}'s MSA rows (over {SEG_MAX_LS} bp) differ between "
+                 f"{device} and cpu")
+        msa["cpu_over_seg"] = dict(family=i, sequences=len(fams[i]),
+                                   widest=max(map(len, fams[i])), cpu_s=round(cpu_s, 3))
     # the launched batch with the most cells (a family's first all-pairs
-    # chunk), timed with its plain version; the same for the wide kernel's
-    # (subjects over SEG_MAX_LS), where a family reaches it
+    # chunk), timed with its plain version; the same for the cluster
+    # kernel's (subjects over SEG_MAX_LS), where a family reaches it
     from ngsepcore_tpu_torch.clustering.msa import PLANE_BUDGET_BYTES
     from ngsepcore_tpu_torch.core.sequences import encode_dna
-    from ngsepcore_tpu_torch.kernels.pairwise_cuda import SEG_MAX_LS
 
     def first_chunk(i):
         L = -(-max(map(len, fams[i])) // 32) * 32
@@ -5089,16 +5208,19 @@ def phase_gbs_real_size(device="cuda"):
 
     timing = timed(order)
     msa["timed_shape"] = timing[0]["shape"]
-    wide = [i for i in order if first_chunk(i)[1] > SEG_MAX_LS]
-    if wide:
-        w_g, w_w = timed(wide)
-        # the wide kernel's batch beside the entry's (seg) one
-        timing[0].update({f"wide_{k}": w_g[k] for k in (
-            "shape", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")})
-        timing[1].update({f"wide_{k}": w_w[k] for k in (
+    over = [i for i in order if first_chunk(i)[1] > SEG_MAX_LS]
+    cluster = None
+    if over:
+        # the cluster kernel's batch, its own kernels-line entry, with the
+        # walk behind it beside the entry's walk
+        cluster, c_w = timed(over)
+        B, _, Ls = map(int, cluster["shape"].split("x"))
+        cluster["layout"] = "N {}, W {}, K {}".format(*device_cluster_layout(B, Ls))
+        timing[1].update({f"over_seg_{k}": c_w[k] for k in (
             "shape", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by")})
     log(f"phase 23 MSA of 30 repeat families: {json.dumps(msa)}")
     return {"launches": launches, "gotoh": timing[0], "walk": timing[1],
+            "cluster": cluster, "cluster_launches": by_kernel["cluster"],
             "report": report, "msa": msa}
 
 
@@ -5264,7 +5386,7 @@ def kernel_entries(t: dict) -> list:
             "shape", "kernel", "graph_ms", "mode", "walk_graph_ms", "replaced_ms",
             "replaced_graph_ms", "chain_cycles", "human", "bound_terms_ms",
             "fp64_lane_cycles", "log_form_ms", "log_form_graph_ms") if k in timing})
-        out.update({k: v for k, v in timing.items() if k.startswith("wide_")})
+        out.update({k: v for k, v in timing.items() if k.startswith("over_seg_")})
         return out
 
     gotoh = ("ngsepcore_tpu_torch/csrc/gotoh_forward.cu",
@@ -5358,6 +5480,12 @@ def kernel_entries(t: dict) -> list:
                          t["23"]["gotoh"]))
         out.append(entry("run_walk_msa", *walk(t["23"]["walk"]),
                          t["23"]["launches"]["walk"], t["23"]["walk"]))
+        if t["23"]["cluster"]:
+            # the same launches' share over SEG_MAX_LS columns, on the
+            # cluster kernel: timed at its batch with the most cells
+            out.append(entry("gotoh_forward_cluster_msa", *gotoh,
+                             t["23"]["cluster_launches"], t["23"]["cluster"]))
+            out[-1]["layout"] = t["23"]["cluster"]["layout"]
     return out
 
 

@@ -98,7 +98,61 @@
 //     free_end1 takes at most 7 columns a lane and kSegMaxLs is 16 x 32 x
 //     7 = 3,584 for every configuration: the dispatch stays on Ls alone.
 //
-// gotoh_forward_wide_kernel, Ls > kSegMaxLs: one block per alignment,
+// gotoh_forward_cluster_kernel<K>, kSegMaxLs < Ls <= kClusterMaxLs
+// (24,576): THE SEG KERNEL'S CHAIN OF WARPS OVER THE N BLOCKS OF A
+// THREAD-BLOCK CLUSTER, one alignment a cluster (grid B x N, cluster dims
+// (N,1,1), cudaLaunchKernelEx).  One block an alignment leaves an SM idle
+// for every alignment short of 132, and the plane's memory caps a batch
+// (the MSA's 4 GiB of plane: 69 alignments at 3,936 columns), so a wide
+// row is split over the SMs of a cluster instead.
+//   * Block c owns columns c*W*32K+1 .. (c+1)*W*32K; its warp v is warp
+//     w = c*W + v of one chain and runs the same row body (kClusterRows):
+//     state in registers, no global scratch, rows stored as whole lines.
+//   * Inside a block the seg kernel's SegLink rings, unchanged.  Across a
+//     block boundary lane 31 of block c's last warp writes the slot (the
+//     y and z prefixes, the diagonal hand-off) into block c+1's links[0]
+//     in distributed shared memory (mapa, st.shared::cluster) and
+//     publishes seq with st.release.cluster; block c+1's warp 0 polls its
+//     own shared memory with ld.acquire.cluster and returns done the same
+//     way into block c's links[kSegMaxWarps].  Every poll is a local load,
+//     every write that crosses a block a remote store.  The seg kernel's
+//     .cta-scope flags would not order memory across blocks.
+//   * A cluster barrier after the rings are set and another before any
+//     block leaves (a neighbour may still write its done flag); with a
+//     free subject end each block's best goes into rank 0's shared memory
+//     and rank 0 reduces them after the second barrier.  free_end1 and the
+//     global end are written by the thread that owns column slen, in any
+//     block.
+//   * Registers: the seg kernel's rules (launch bound 512 threads, 128
+//     registers a thread, 16 warps a block).  Its extra state (which links
+//     cross a block, the remote addresses) sits in shared memory
+//     (ClusterLink), and it packs the subject codes four to a register;
+//     even so its K = 7 free_end1 variants spilled 4-68 bytes in every
+//     arrangement tried, so free_end1 takes at most 6 columns a lane here
+//     and kClusterMaxLs is 8 x 16 x 32 x 6 = 24,576 for every
+//     configuration.  0 spills in every variant that is built.
+//   * Layout (cluster_layout, the same in kernels/pairwise_cuda.py): for
+//     each N <= 8, the fewest warps W <= 16, then the fewest columns a
+//     lane K (4-8, 6 with free_end1) that own every column with a column
+//     in every block; warps past the row's end (only in the last block)
+//     sit the rows out, because some widths (3,585 with free_end1) have no
+//     layout without one.  Among the N, the least time of the busiest SM:
+//     the B clusters in ceil(B/h) waves of the h clusters the card holds
+//     at once (cudaOccupancyMaxActiveClusters, asked once a device and
+//     layout), ceil(min(B,h)*N/SMs) blocks an SM a wave, a block's row
+//     K * (3W + 4); then the fewest N.  A cluster runs at the pace of its
+//     slowest block, so the SM with the most blocks sets the time; the 4/3
+//     of a warp's row a block costs beyond its warps is measured.  GPC
+//     boundaries make h smaller than the SM arithmetic (79 clusters of N
+//     3, W 6 against 88; 15 of N 7, W 11 against 18).
+//   * Measured (gotoh_bench.py --kernels; the wide kernel beside it): the
+//     MSA's 69x3936x3936, N 3, W 6, K 7: 7.4730 ms, 38.5% of the bound,
+//     against 23.9262 (N 1: 8.4995, N 2: 9.9107, N 4: 8.8515, N 7: 7.5270);
+//     tier-2 flanks at 37 x 160 x 4,096 / 8,192 / 16,384: 0.2888-1.0246
+//     ms against the wide kernel's 0.9737-5.0650.  Forced at 93x3392x3392
+//     it runs 8.2715 ms against the seg kernel's 6.9022.
+//
+// gotoh_forward_wide_kernel, Ls > kClusterMaxLs: one block per alignment,
 // thread t owning the C = ceil(Ls/1024) contiguous columns t*C+1 .. t*C+C,
 // as the warp kernel's lanes own theirs.  The owned columns' previous-row
 // M, I, D and run carries, and the row's values between passes, live in a
@@ -110,8 +164,9 @@
 // Shared memory is O(threads), so no width limit is left short of the
 // plane's own size.  A first, simple kernel: each cell moves ~80 bytes of
 // scratch through L1/L2 on top of its plane word, and a row takes 8 block
-// barriers; 0.949 ms at 256x160x1664, 19% of its operations bound.  None
-// of chip_smoke.py's paths launches it (their widest row: 1,664 columns).
+// barriers; 0.949 ms at 256x160x1664, 19% of its operations bound.  It
+// keeps only the widths past the cluster kernel's (Ls > 24,576), which no
+// path of chip_smoke.py launches; phase 2 holds it forced at every width.
 //
 // gotoh_forward_launch picks the kernel BY SHAPE (Ls); nothing falls back
 // from one to another.
@@ -130,7 +185,9 @@
 //   alone the 256-row tier-3 shape ran 8% slower: 0.0871 against 0.0807 ms).
 #include <cuda_runtime.h>
 #include <climits>
+#include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -142,6 +199,14 @@ constexpr int kSegEnd1LaneCols = 7;  // widest seg variant with free_end1
 constexpr int kSegMaxWarps = 16;  // 16 x 32 threads x 128 registers = an SM's
 constexpr int kSegMaxLs = kSegMaxWarps * 32 * kSegEnd1LaneCols;  // 3,584
 constexpr int kRing = 8;  // rows of messages in flight across a warp boundary
+constexpr int kClusterMaxCtas = 8;  // the portable thread-block cluster size
+constexpr int kClusterEnd1LaneCols = 6;  // widest cluster variant with free_end1
+constexpr int kClusterMaxLs =  // 8 x 16 x 32 x 6 = 24,576
+    kClusterMaxCtas * kSegMaxWarps * 32 * kClusterEnd1LaneCols;
+
+// what gotoh_forward_rows runs: one warp an alignment, the chain of warps of
+// one block an alignment, or that chain over the blocks of a cluster
+enum { kWarpRows, kSegRows, kClusterRows };
 
 // ---------------------------------------------------------------------------
 // the row body of the warp and seg kernels
@@ -200,6 +265,21 @@ struct SegLink {
   int done;
 };
 
+// The cluster kernel's link into warp v of a block: SegLink's fields and,
+// for warp v, whether its links cross a block boundary and where it then
+// writes (its done flags into the previous block's
+// links[kSegMaxWarps].done, its messages into the next block's links[0]:
+// shared::cluster addresses), and whether a warp follows it in the chain.
+// The row loop reads them from shared memory where it needs them, so that
+// they hold no register across the row.
+struct ClusterLink {
+  int4 slot[kRing];
+  int seq[kRing];
+  int done;
+  int from_block, to_block, has_next;
+  unsigned done_to, link_to;
+};
+
 // Block-scope acquire load and release store of a shared int: the seg
 // kernel's flags.
 __device__ __forceinline__ int ld_acquire(const int* p) {
@@ -218,6 +298,74 @@ __device__ __forceinline__ void st_release(int* p, int v) {
                : "memory");
 }
 
+// The cluster kernel's link between blocks, in distributed shared memory:
+// the writer stores into the reader's block (mapa + st.shared::cluster),
+// publishing with a cluster-scope release; the reader polls its own shared
+// memory with a cluster-scope acquire.  The block-scope pair above does not
+// order memory across blocks.
+// volatile: read where it is used, so that no register holds it across
+// the row loop
+__device__ __forceinline__ int cluster_ctarank() {
+  int v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int block_warps() {
+  int v;
+  asm volatile("mov.u32 %0, %%ntid.x;" : "=r"(v));
+  return v >> 5;
+}
+
+__device__ __forceinline__ unsigned cluster_nctarank() {
+  unsigned v;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int cluster_id() {
+  int v;
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(v));
+  return v;
+}
+
+// the shared::cluster address of *p in block `rank` of the cluster
+__device__ __forceinline__ unsigned dsmem_addr(const void* p, int rank) {
+  unsigned a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(a)
+      : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ int ld_acquire_cluster(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cluster.shared::cta.b32 %0, [%1];"
+               : "=r"(v)
+               : "r"((unsigned)__cvta_generic_to_shared(p))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_cluster(unsigned a, int v) {
+  asm volatile("st.release.cluster.shared::cluster.b32 [%0], %1;" ::"r"(a), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(unsigned a, int x, int y) {
+  asm volatile("st.shared::cluster.v2.b32 [%0], {%1, %2};" ::"r"(a), "r"(x), "r"(y)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(unsigned a, long long v) {
+  asm volatile("st.shared::cluster.b64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
+}
+
+// every thread of every block of the cluster; release before, acquire after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::: "memory");
+}
+
 #define GOTOH_PARAMS                                                        \
   const int8_t *__restrict__ query, const int *__restrict__ qlen,           \
       const int8_t *__restrict__ subject, const int *__restrict__ slen,     \
@@ -230,17 +378,37 @@ __device__ __forceinline__ void st_release(int* p, int v) {
       startk_out, B, Lq, Ls, match, mismatch, open_gap, ext_gap,            \
       free_start2, free_end2
 
-// kSeg false: warp w of the block is alignment blockIdx.x * kWarps + w and
-// owns all its columns.  kSeg true: the block is alignment blockIdx.x and
-// warp w owns its columns w*32K+1 .. (w+1)*32K.
-template <int K, bool kSeg, bool kFreeStart1, bool kFreeEnd1>
+// The score a free subject end takes: the best (M, column) key of the
+// alignment, ties to the largest column.
+__device__ __forceinline__ void write_free_end2(long long key, int b, int* score_out,
+                                                int* endj_out, int* startk_out) {
+  constexpr long long kCol = 1LL << 32;
+  const int ej = (int)(key & 0xffffffffLL);
+  score_out[b] = (int)((key - ej) / kCol);
+  endj_out[b] = ej;
+  startk_out[b] = 0;
+}
+
+// kWarpRows: warp w of the block is alignment blockIdx.x * kWarps + w and
+// owns all its columns.  kSegRows: the block is alignment blockIdx.x and
+// warp w owns its columns w*32K+1 .. (w+1)*32K.  kClusterRows: the cluster
+// is alignment %clusterid.x, and warp v of the block of rank c is warp w =
+// c*nwb + v of one chain over the cluster's blocks.
+template <int K, int kMode, bool kFreeStart1, bool kFreeEnd1>
 __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
+  constexpr bool kSeg = kMode != kWarpRows;  // the row split over a chain of warps
+  constexpr bool kClu = kMode == kClusterRows;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = kSeg ? blockIdx.x : blockIdx.x * kWarps + warp;
+  const int nwb = kSeg ? blockDim.x >> 5 : 1;  // the block's warps in the chain
+  const int b = kClu ? cluster_id() : kSeg ? blockIdx.x : blockIdx.x * kWarps + warp;
   if (!kSeg && b >= B) return;  // whole warp; nothing below synchronises the block
-  const int w = kSeg ? warp : 0;  // the warp's segment of the row
-  const int nw = kSeg ? blockDim.x >> 5 : 1;
+  // the warp's segment of the row
+  const int w = kClu ? cluster_ctarank() * nwb + warp : kSeg ? warp : 0;
+  // warps of the chain: the cluster's last block may hold warps past the
+  // row's end, which sit the rows out
+  const int nw = kClu ? min((int)cluster_nctarank() * nwb, (Ls + 32 * K - 1) / (32 * K))
+                      : nwb;
   // word i of a warp's row sits at tile[i + i/32]
   int* tile;
   if constexpr (kSeg) {
@@ -250,19 +418,35 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
     __shared__ int tiles[kWarps][K * 33];
     tile = tiles[warp];
   }
-  __shared__ SegLink links[kSeg ? kSegMaxWarps : 1];
-  SegLink* in = links + warp;  // seg: from warp w-1; in + 1 to warp w+1
+  // seg: links[v] carries warp v-1's messages to warp v, in + 1 those to
+  // warp v+1.  Cluster: links[kSegMaxWarps] holds only the done flag that
+  // the next block's warp 0 writes back to the last warp; the messages
+  // themselves go into that block's links[0].
+  using Link = std::conditional_t<kClu, ClusterLink, SegLink>;
+  __shared__ Link links[kClu ? kSegMaxWarps + 1 : kSeg ? kSegMaxWarps : 1];
+  __shared__ long long cta_best[kClu ? kClusterMaxCtas : 1];  // free_end2, in rank 0
+  Link* in = links + warp;
   const int ql = qlen[b];
   const int sl = slen[b];
   const int c0 = w * 32 * K + lane * K + 1;  // first owned column
 
   // previous-row state of the owned columns (columns past Ls compute
-  // values nobody reads: the scans only look to the left)
-  int s_ch[K], m[K], i[K], d[K], cwm[K], cwi[K];
+  // values nobody reads: the scans only look to the left).  The subject
+  // codes: one a register, or in the cluster kernel four bytes a register
+  // (s_pk), one more instruction a cell for K - ceil(K/4) registers; with
+  // one a register its K = 6-8 variants spilled 4-68 bytes.
+  int s_ch[kClu ? 1 : K], m[K], i[K], d[K], cwm[K], cwi[K];
+  unsigned s_pk[kClu ? (K + 3) / 4 : 1];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int c = c0 + k;
-    s_ch[k] = c <= Ls ? subject[(size_t)b * Ls + c - 1] : 0;
+    const int code = c <= Ls ? subject[(size_t)b * Ls + c - 1] : 0;
+    if constexpr (kClu) {
+      const unsigned byte = (unsigned)(code & 0xFF) << (8 * (k & 3));
+      s_pk[k >> 2] = (k & 3) ? s_pk[k >> 2] | byte : byte;
+    } else {
+      s_ch[k] = code;
+    }
     m[k] = kNeg;
     i[k] = kNeg;
     d[k] = free_start2 ? 0 : -open_gap - ext_gap * (c - 1);
@@ -274,13 +458,30 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
     if (lane < kRing) in->seq[lane] = 0;
     if (lane == 0) {
       in->done = 0;
+      if constexpr (kClu) {
+        const int rank = cluster_ctarank();
+        in->from_block = warp == 0;
+        in->to_block = warp == nwb - 1;
+        in->has_next = w + 1 < nw;
+        if (warp == 0 && rank > 0)
+          in->done_to = dsmem_addr(&links[kSegMaxWarps].done, rank - 1);
+        if (warp == nwb - 1) {
+          links[kSegMaxWarps].done = 0;
+          if (w + 1 < nw) in->link_to = dsmem_addr(links, rank + 1);
+        }
+      }
       // row 1's hand-off into column w*32K+1: column w*32K's initial state
       const int cb = w * 32 * K;
       int2* hand = reinterpret_cast<int2*>(&in->slot[1 % kRing]) + 1;
       diag_out(kNeg, kNeg, free_start2 ? 0 : -open_gap - ext_gap * (cb - 1), 0,
                &hand->x, &hand->y);
     }
-    __syncthreads();
+    // every ring is set before any warp, of this block or a neighbour, writes
+    if constexpr (kClu) {
+      cluster_sync();
+    } else {
+      __syncthreads();
+    }
   }
   // free_end1: running best M[r][sl] of the lane that owns column sl, ties
   // to the largest row.  Row 0 counts (as 0) only when sl == 0; rows past
@@ -296,6 +497,7 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
   const int neg_mismatch = -mismatch;
   int q_next = qrow[0];
 
+  if (!kClu || w < nw)
   for (int r = 1; r <= Lq; ++r) {
     const int q = q_next;
     if (r < Lq) q_next = qrow[r];  // in flight during this row
@@ -311,11 +513,31 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
     if constexpr (kSeg) {
       if (w > 0) {
         const int slot = r % kRing;
-        while (ld_acquire(&in->seq[slot]) != r) {
+        if constexpr (kClu) {
+          if (in->from_block) {  // from the previous block's last warp
+            while (ld_acquire_cluster(&in->seq[slot]) != r) {
+            }
+          } else {
+            while (ld_acquire(&in->seq[slot]) != r) {
+            }
+          }
+        } else {
+          while (ld_acquire(&in->seq[slot]) != r) {
+          }
         }
         msg = in->slot[slot];
         __syncwarp();  // every lane has read the slot
-        if (lane == 0) st_release(&in->done, r);
+        if (lane == 0) {
+          if constexpr (kClu) {
+            if (in->from_block) {
+              st_release_cluster(in->done_to, r);
+            } else {
+              st_release(&in->done, r);
+            }
+          } else {
+            st_release(&in->done, r);
+          }
+        }
       }
     }
 
@@ -339,8 +561,9 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
     bool m_ge_i[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      m_row[k] = (k == 0 ? hd_in : hd[k - 1]) +
-                 (s_ch[k] == q ? match : neg_mismatch);
+      const bool hit = kClu ? ((s_pk[k >> 2] >> (8 * (k & 3))) & 0xFF) == (q & 0xFF)
+                            : s_ch[k] == q;
+      m_row[k] = (k == 0 ? hd_in : hd[k - 1]) + (hit ? match : neg_mismatch);
       const int cm = m[k] - open_gap, ci = i[k] - ext_gap, cd = d[k] - open_gap;
       bool ci_ge_cd, cm_ge;
       const int mx = max_ge(ci, cd, &ci_ge_cd);
@@ -397,11 +620,11 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
       }
     }
 
-    if constexpr (kSeg) {
+    if constexpr (kSeg && !kClu) {
       // to warp w+1: row r's prefixes, and row r+1's hand-off into the slot
       // of row r+1 once warp w+1 has read row r+1 - kRing from it
       if (w + 1 < nw) {
-        SegLink* out = in + 1;
+        Link* out = in + 1;
         while (r + 1 > kRing && ld_acquire(&out->done) < r + 1 - kRing) {
         }
         if (lane == 31) {
@@ -410,6 +633,37 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
           *pre_r = make_int2(max(yseed, yincl), max(zseed, zincl));
           diag_out(m[K - 1], i[K - 1], d[K - 1], cwm[K - 1], &hand->x, &hand->y);
           st_release(&out->seq[r % kRing], r);
+        }
+      }
+    }
+    if constexpr (kClu) {
+      // the same, from the last warp of a block into the next block
+      if (in->has_next) {
+        if (in->to_block) {  // to the next block's warp 0
+          const int* done = &links[kSegMaxWarps].done;
+          while (r + 1 > kRing && ld_acquire_cluster(done) < r + 1 - kRing) {
+          }
+        } else {
+          while (r + 1 > kRing && ld_acquire(&in[1].done) < r + 1 - kRing) {
+          }
+        }
+        if (lane == 31) {
+          int2 hand;
+          diag_out(m[K - 1], i[K - 1], d[K - 1], cwm[K - 1], &hand.x, &hand.y);
+          if (in->to_block) {
+            // into the next block's links[0]: slots of 16 bytes, seq words of 4
+            const unsigned slots = in->link_to + (unsigned)offsetof(ClusterLink, slot);
+            const unsigned seq = in->link_to + (unsigned)offsetof(ClusterLink, seq);
+            st_cluster(slots + 16u * (r % kRing), max(yseed, yincl), max(zseed, zincl));
+            st_cluster(slots + 16u * ((r + 1) % kRing) + 8u, hand.x, hand.y);
+            st_release_cluster(seq + 4u * (r % kRing), r);
+          } else {
+            Link* out = in + 1;
+            *reinterpret_cast<int2*>(&out->slot[r % kRing]) =
+                make_int2(max(yseed, yincl), max(zseed, zincl));
+            reinterpret_cast<int2*>(&out->slot[(r + 1) % kRing])[1] = hand;
+            st_release(&out->seq[r % kRing], r);
+          }
         }
       }
     }
@@ -440,9 +694,7 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
       endj_out[b] = sl;
       startk_out[b] = 0;
     }
-    return;
-  }
-  if (free_end2) {
+  } else if (free_end2) {
     // best M over columns 0..Ls (columns past slen count as kNeg); ties go
     // to the largest column: maximise (value, column) packed in 64 bits
     constexpr long long kCol = 1LL << 32;
@@ -465,13 +717,15 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
       if (lane == 0) warp_best[warp] = key;
       __syncthreads();
       key = warp_best[0];
-      for (int v = 1; v < nw; ++v) key = warp_best[v] > key ? warp_best[v] : key;
+      const int n = kClu ? block_warps() : nwb;
+      for (int v = 1; v < n; ++v) key = warp_best[v] > key ? warp_best[v] : key;
     }
-    if (w == 0 && lane == 0) {
-      const int ej = (int)(key & 0xffffffffLL);
-      score_out[b] = (int)((key - ej) / kCol);
-      endj_out[b] = ej;
-      startk_out[b] = 0;
+    if constexpr (kClu) {
+      // each block's best into rank 0, which reduces them after the
+      // cluster barrier below
+      if (threadIdx.x == 0) st_cluster(dsmem_addr(&cta_best[cluster_ctarank()], 0), key);
+    } else if (w == 0 && lane == 0) {
+      write_free_end2(key, b, score_out, endj_out, startk_out);
     }
   } else {
     const int sc = min(max(sl, 0), Ls);  // callers keep slen <= Ls
@@ -494,19 +748,38 @@ __device__ __forceinline__ void gotoh_forward_rows(GOTOH_PARAMS) {
       startk_out[b] = sk;
     }
   }
+  if constexpr (kClu) {
+    // no block leaves while a neighbour may still write into its shared
+    // memory (the last done flags, the free_end2 bests)
+    cluster_sync();
+    if (!kFreeEnd1 && free_end2 && threadIdx.x == 0 && cluster_ctarank() == 0) {
+      long long key = cta_best[0];
+      const int n = (int)cluster_nctarank();
+      for (int c = 1; c < n; ++c) key = cta_best[c] > key ? cta_best[c] : key;
+      write_free_end2(key, b, score_out, endj_out, startk_out);
+    }
+  }
 }
 
 template <int K, bool kFreeStart1, bool kFreeEnd1>
 __global__ void __launch_bounds__(kWarps * 32, 16 / kWarps)
     gotoh_forward_warp_kernel(GOTOH_PARAMS) {
-  gotoh_forward_rows<K, false, kFreeStart1, kFreeEnd1>(GOTOH_FWD);
+  gotoh_forward_rows<K, kWarpRows, kFreeStart1, kFreeEnd1>(GOTOH_FWD);
 }
 
 // blockDim.x = 32 * W; K * 33 * W ints of dynamic shared memory (the tiles)
 template <int K, bool kFreeStart1, bool kFreeEnd1>
 __global__ void __launch_bounds__(kSegMaxWarps * 32, 1)
     gotoh_forward_seg_kernel(GOTOH_PARAMS) {
-  gotoh_forward_rows<K, true, kFreeStart1, kFreeEnd1>(GOTOH_FWD);
+  gotoh_forward_rows<K, kSegRows, kFreeStart1, kFreeEnd1>(GOTOH_FWD);
+}
+
+// launched as clusters of N blocks of nw warps (grid B * N); each block
+// K * 33 * nw ints of dynamic shared memory (the tiles)
+template <int K, bool kFreeStart1, bool kFreeEnd1>
+__global__ void __launch_bounds__(kSegMaxWarps * 32, 1)
+    gotoh_forward_cluster_kernel(GOTOH_PARAMS) {
+  gotoh_forward_rows<K, kClusterRows, kFreeStart1, kFreeEnd1>(GOTOH_FWD);
 }
 
 // One alignment a block of nw warps.  free_end1 never takes more than
@@ -522,8 +795,67 @@ cudaError_t launch_seg(int nw, cudaStream_t stream, GOTOH_PARAMS) {
   }
 }
 
+// The cluster kernel's launch: B clusters of n blocks of nw warps.
+// `grid_clusters` is B for a launch, 1 for an occupancy query.
+inline void cluster_config(cudaLaunchConfig_t* config, cudaLaunchAttribute* attr,
+                           int grid_clusters, int n, int nw, int K, cudaStream_t stream) {
+  *config = cudaLaunchConfig_t{};
+  config->gridDim = dim3(grid_clusters * n);
+  config->blockDim = dim3(nw * 32);
+  config->dynamicSmemBytes = (size_t)nw * K * 33 * sizeof(int);
+  config->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  config->attrs = attr;
+  config->numAttrs = 1;
+}
+
+template <int K, bool kFreeStart1, bool kFreeEnd1>
+cudaError_t launch_cluster(int n, int nw, cudaStream_t stream, GOTOH_PARAMS) {
+  if constexpr (!kFreeEnd1 || K <= kClusterEnd1LaneCols) {
+    cudaLaunchConfig_t config;
+    cudaLaunchAttribute attr;
+    cluster_config(&config, &attr, B, n, nw, K, stream);
+    const cudaError_t rc = cudaLaunchKernelEx(
+        &config, gotoh_forward_cluster_kernel<K, kFreeStart1, kFreeEnd1>, GOTOH_FWD);
+    return rc != cudaSuccess ? rc : cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+template <int K, bool kFreeStart1, bool kFreeEnd1>
+cudaError_t cluster_occupancy(int n, int nw, int* clusters) {
+  if constexpr (!kFreeEnd1 || K <= kClusterEnd1LaneCols) {
+    cudaLaunchConfig_t config;
+    cudaLaunchAttribute attr;
+    cluster_config(&config, &attr, 1, n, nw, K, nullptr);
+    return cudaOccupancyMaxActiveClusters(
+        clusters, gotoh_forward_cluster_kernel<K, kFreeStart1, kFreeEnd1>, &config);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+// (warps a block, columns a lane) of a cluster of n blocks at Ls: the
+// fewest warps, then the fewest columns a lane (kSegMinLaneCols up to
+// `most`), such that every column is owned and every block owns one.
+bool cluster_shape(int Ls, int most, int n, int* nw, int* lane_cols) {
+  for (int v = 1; v <= kSegMaxWarps; ++v) {
+    const int k = max(kSegMinLaneCols, (Ls + 32 * n * v - 1) / (32 * n * v));
+    if (k <= most && 32 * k * v * (n - 1) < Ls) {
+      *nw = v;
+      *lane_cols = k;
+      return true;
+    }
+  }
+  return false;
+}
+
 // ---------------------------------------------------------------------------
-// wide kernel (Ls > kSegMaxLs): contiguous columns per thread, state in
+// wide kernel (Ls > kClusterMaxLs): contiguous columns per thread, state in
 // scratch
 
 __device__ __forceinline__ int warp_incl_max(int v, int lane) {
@@ -789,15 +1121,93 @@ __global__ void __launch_bounds__(1024) gotoh_forward_wide_kernel(
   else if (free_end1) { LAUNCH(false, true); }                              \
   else { LAUNCH(false, false); }
 
+// clusters of n blocks of nw warps of the cluster kernel's <lane_cols,
+// free_start1, free_end1> variant that the device holds at once
+// (cudaOccupancyMaxActiveClusters)
+cudaError_t query_occupancy(int n, int nw, int lane_cols, int free_start1, int free_end1,
+                            int* out) {
+#define GOTOH_OCC(FS1, FE1) return cluster_occupancy<KK, FS1, FE1>(n, nw, out)
+#define GOTOH_OCC_CASE(K)                                                   \
+  case K: {                                                                 \
+    constexpr int KK = K;                                                   \
+    GOTOH_BY_QUERY_ENDS(GOTOH_OCC)                                          \
+    break;                                                                  \
+  }
+  switch (lane_cols) {
+    GOTOH_OCC_CASE(4)
+    GOTOH_OCC_CASE(5)
+    GOTOH_OCC_CASE(6)
+    GOTOH_OCC_CASE(7)
+    GOTOH_OCC_CASE(8)
+  }
+#undef GOTOH_OCC_CASE
+#undef GOTOH_OCC
+  return cudaErrorInvalidValue;
+}
+
+// query_occupancy on the current device, asked once a device and layout;
+// 0 where the layout does not fit
+int clusters_held(int n, int nw, int lane_cols, int free_start1, int free_end1) {
+  constexpr int kDevices = 16;
+  // held + 1 by device, K, query ends, n, nw; 0: not asked yet
+  static int cache[kDevices][kMaxLaneCols - kSegMinLaneCols + 1][4][kClusterMaxCtas]
+                  [kSegMaxWarps];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int* slot = dev < kDevices ? &cache[dev][lane_cols - kSegMinLaneCols]
+                                     [free_start1 * 2 + free_end1][n - 1][nw - 1]
+                             : nullptr;
+  if (slot && *slot) return *slot - 1;
+  int held = 0;
+  if (query_occupancy(n, nw, lane_cols, free_start1, free_end1, &held) != cudaSuccess) {
+    cudaGetLastError();  // not an error of the next launch
+    held = 0;
+  }
+  if (slot) *slot = held + 1;
+  return held;
+}
+
+// The cluster kernel's layout (kernels/pairwise_cuda.py:cluster_layout):
+// over cluster sizes n = 1..8 (or `ctas` alone), each with cluster_shape's
+// (nw, k), the least time of the busiest SM: the B clusters run in
+// ceil(B / held) waves of the `held` the card holds at once, a wave puts
+// ceil(min(B, held) * n / n_sms) blocks on an SM, and a block's row costs
+// k * (3 * nw + 4) (k columns a lane on nw warps and a fixed 4/3 of a
+// warp's row: measured); then the fewest blocks a cluster.
+bool cluster_layout(int B, int Ls, int free_start1, int free_end1, int n_sms, int ctas,
+                    int* n, int* nw, int* lane_cols) {
+  const int most = free_end1 ? kClusterEnd1LaneCols : kMaxLaneCols;
+  long long best = -1;
+  for (int c = ctas ? ctas : 1; c <= (ctas ? ctas : kClusterMaxCtas); ++c) {
+    int v, k;
+    if (!cluster_shape(Ls, most, c, &v, &k)) continue;
+    const long long held = clusters_held(c, v, k, free_start1, free_end1);
+    if (held <= 0) continue;
+    const long long wave = B < held ? B : held;
+    const long long cost =
+        (B + held - 1) / held * ((wave * c + n_sms - 1) / n_sms) * k * (3 * v + 4);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *n = c;
+      *nw = v;
+      *lane_cols = k;
+    }
+  }
+  return best >= 0;
+}
+
 }  // namespace
 
 // Launches the warp-per-alignment kernel for Ls <= 256, the seg kernel for
-// 256 < Ls <= kSegMaxLs and the wide kernel above; `kernel` 1 asks for the
-// seg kernel at any Ls <= kSegMaxLs and 2 for the wide kernel at any Ls
-// (to check them at narrow shapes).  The seg kernel takes the fewest warps
-// of at most kMaxLaneCols columns a lane (kSegEnd1LaneCols with
-// free_end1), then the fewest columns a lane, at least kSegMinLaneCols
-// (kernels/pairwise_cuda.py:seg_layout).
+// 256 < Ls <= kSegMaxLs, the cluster kernel for kSegMaxLs < Ls <=
+// kClusterMaxLs and the wide kernel above.  `kernel & 0xFF` 1 asks for the
+// seg kernel at any Ls <= kSegMaxLs, 2 for the wide kernel at any Ls and 3
+// for the cluster kernel (to check them at narrow shapes); `kernel >> 8`,
+// when not 0, is the cluster kernel's blocks a cluster.  The seg kernel
+// takes the fewest warps of at most kMaxLaneCols columns a lane
+// (kSegEnd1LaneCols with free_end1), then the fewest columns a lane, at
+// least kSegMinLaneCols (kernels/pairwise_cuda.py:seg_layout); the cluster
+// kernel the layout of cluster_layout on this device's SMs.
 // `scratch` holds B * 8 * C * threads ints for the wide kernel, with C =
 // ceil(Ls/1024) and threads = ceil(ceil(Ls/C)/32)*32
 // (kernels/pairwise_cuda.py:wide_layout); the others ignore it.  The four
@@ -810,11 +1220,42 @@ extern "C" int gotoh_forward_launch(
     int open_gap, int ext_gap, int free_start1, int free_end1,
     int free_start2, int free_end2, int kernel, void* scratch,
     void* stream_ptr) {
+  const int code = kernel & 0xFF;
+  const int ctas = kernel >> 8;
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  if (Ls < 1 || (kernel == 1 && Ls > kSegMaxLs)) return (int)cudaErrorInvalidValue;
+  if (Ls < 1 || code > 3 || (code == 1 && Ls > kSegMaxLs) || ctas < 0 ||
+      ctas > kClusterMaxCtas)
+    return (int)cudaErrorInvalidValue;
   if (free_end1 && free_end2) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (kernel == 2 || (kernel == 0 && Ls > kSegMaxLs)) {
+  if (code == 3 || (code == 0 && Ls > kSegMaxLs && Ls <= kClusterMaxLs)) {
+    int dev = 0, n_sms = 0, n = 0, nw = 0, lane_cols = 0;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess)
+      rc = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return (int)rc;
+    if (!cluster_layout(B, Ls, free_start1, free_end1, n_sms, ctas, &n, &nw, &lane_cols))
+      return (int)cudaErrorInvalidValue;
+#define GOTOH_CLUSTER(FS1, FE1) \
+  return (int)launch_cluster<KK, FS1, FE1>(n, nw, stream, GOTOH_ARGS)
+#define GOTOH_CLUSTER_CASE(K)                                               \
+  case K: {                                                                 \
+    constexpr int KK = K;                                                   \
+    GOTOH_BY_QUERY_ENDS(GOTOH_CLUSTER)                                      \
+    break;                                                                  \
+  }
+    switch (lane_cols) {
+      GOTOH_CLUSTER_CASE(4)
+      GOTOH_CLUSTER_CASE(5)
+      GOTOH_CLUSTER_CASE(6)
+      GOTOH_CLUSTER_CASE(7)
+      GOTOH_CLUSTER_CASE(8)
+    }
+#undef GOTOH_CLUSTER_CASE
+#undef GOTOH_CLUSTER
+    return (int)cudaErrorInvalidValue;
+  }
+  if (code == 2 || (code == 0 && Ls > kSegMaxLs)) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
     const int C = (Ls + 1023) / 1024;
     const int threads = (((Ls + C - 1) / C + 31) / 32) * 32;
@@ -825,7 +1266,7 @@ extern "C" int gotoh_forward_launch(
 #undef GOTOH_WIDE
     return (int)cudaGetLastError();
   }
-  if (kernel == 1 || Ls > 32 * kMaxLaneCols) {
+  if (code == 1 || Ls > 32 * kMaxLaneCols) {
     const int most = free_end1 ? kSegEnd1LaneCols : kMaxLaneCols;
     const int nw = (Ls + 32 * most - 1) / (32 * most);
     const int lane_cols = max(kSegMinLaneCols, (Ls + 32 * nw - 1) / (32 * nw));
@@ -870,7 +1311,17 @@ extern "C" int gotoh_forward_launch(
   }
 #undef GOTOH_WARP_CASE
 #undef GOTOH_WARP
-#undef GOTOH_BY_QUERY_ENDS
 #undef GOTOH_ARGS
+#undef GOTOH_BY_QUERY_ENDS
   return (int)cudaGetLastError();
+}
+
+// The clusters of the cluster kernel's <lane_cols, free_start1, free_end1>
+// variant in clusters of n blocks of nw warps that the device holds at once
+// (cudaOccupancyMaxActiveClusters), into *clusters.
+extern "C" int gotoh_cluster_occupancy(int n, int nw, int lane_cols, int free_start1,
+                                       int free_end1, void* clusters) {
+  if (n < 1 || n > kClusterMaxCtas || nw < 1 || nw > kSegMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  return (int)query_occupancy(n, nw, lane_cols, free_start1, free_end1, (int*)clusters);
 }

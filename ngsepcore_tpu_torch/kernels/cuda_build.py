@@ -40,9 +40,14 @@ _SIGNATURES = {
         _I, _I, _I,  # B, Lq, Ls
         _I, _I, _I, _I,  # match, mismatch, open_gap, ext_gap
         _I, _I, _I, _I,  # free_start1, free_end1, free_start2, free_end2
-        _I,  # kernel: 0 by shape, 1 seg, 2 wide
+        _I,  # kernel: 0 by shape, 1 seg, 2 wide, 3 | blocks << 8 cluster
         _P,  # scratch of the wide kernel
         _P,  # stream
+    ],
+    "gotoh_cluster_occupancy": [
+        _I, _I, _I,  # blocks a cluster, warps a block, columns a lane
+        _I, _I,  # free_start1, free_end1
+        _P,  # out: clusters held at once
     ],
     "shear_hist_launch": [
         _P, _I, _I, _I,  # stage_t, S, w0s, window

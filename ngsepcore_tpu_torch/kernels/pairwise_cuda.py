@@ -27,7 +27,7 @@ What bounds the function on the H100 (3.35 TB/s; 64 INT32 lanes on each of
                 (2048x192x192: 75.5 M cells, 0.203 ms).  This is the larger
                 bound at every shape.
 
-CUDA design (csrc/gotoh_forward.cu), three kernels picked by Ls:
+CUDA design (csrc/gotoh_forward.cu), four kernels picked by Ls:
 
     Ls <= 256   one WARP per alignment, four alignments a block.  A lane
                 owns ceil(Ls/32) contiguous columns and keeps their
@@ -53,13 +53,31 @@ CUDA design (csrc/gotoh_forward.cu), three kernels picked by Ls:
                 SEG_MAX_LS is the widest row whose 16 warps a block fit
                 the register file (128 a thread) without spills in every
                 configuration.
-    Ls > SEG_MAX_LS
+    Ls <= CLUSTER_MAX_LS (24,576)
+                the CLUSTER kernel: the seg kernel's chain of warps over
+                the N blocks of a thread-block cluster (N <= 8, W <= 16
+                warps a block, K columns a lane: cluster_layout), one
+                alignment a cluster, so a batch too small to fill the
+                card's SMs with one block an alignment (the MSA's 69
+                alignments of 3,936 columns under its 4 GiB of plane)
+                still does.  Inside a block the seg kernel's rings; across
+                a block boundary the same four ints a row, written by the
+                producer into the consumer block's shared memory
+                (distributed shared memory) with a cluster-scope release,
+                polled there with a cluster-scope acquire.  State in
+                registers, no global scratch.  cluster_layout picks the
+                blocks a cluster from the busiest SM's load and the
+                clusters the card holds at once.  At the MSA's
+                69x3936x3936: N 3, W 6, K 7, 7.4730 ms against the wide
+                kernel's 23.9262, 38.5% of the 2.8758 ms bound (gotoh_bench.py
+                --kernels on an NVIDIA H100 80GB HBM3, 700.00 W).
+    Ls > CLUSTER_MAX_LS
                 the WIDE kernel: one block per alignment, a thread owning
                 C = ceil(Ls/1024) contiguous columns, their state in a
                 global scratch of 8 ints a column (the wrapper allocates
                 B x 8 x C x threads ints); block barriers with the warp
                 kernel's blocked max-scans.  No width limit short of the
-                plane's size.
+                plane's size; no path of chip_smoke.py reaches it.
 
 The plane is (Lq, B, Ls) int32: 1.34 GB at the tier-2 chunk of 256 rows,
 Lq 160 and Ls 8,192, so a caller with long subjects bounds its rows
@@ -87,9 +105,15 @@ FREE_END_FLAGS = ("free_start1", "free_end1", "free_start2", "free_end2")
 # of csrc/gotoh_forward.cu); wider ones take the seg kernel
 WARP_KERNEL_MAX_LS = 256
 # widest subject of the seg kernel (kSegMaxLs: 16 warps of 7 columns a
-# lane, the most a free query end takes); wider ones take the wide kernel
+# lane, the most a free query end takes); wider ones take the cluster kernel
 SEG_MAX_LS = 3584
-_KERNEL_CODES = {None: 0, "seg": 1, "wide": 2}
+CLUSTER_MAX_CTAS = 8  # the portable thread-block cluster size
+# widest subject of the cluster kernel (kClusterMaxLs: 8 blocks of 16 warps
+# of 6 columns a lane, the most a free query end takes there: its 7-column
+# variants spill registers); wider ones take the wide kernel
+CLUSTER_MAX_LS = CLUSTER_MAX_CTAS * 16 * 32 * 6
+H100_SMS = 132
+_KERNEL_CODES = {None: 0, "seg": 1, "wide": 2, "cluster": 3}
 WIDE_FIELDS = 8  # scratch ints an owned column of the wide kernel
 WIDE_THREADS = 1024  # the wide kernel's most threads a block
 
@@ -103,6 +127,69 @@ def seg_layout(Ls: int, free_end1: bool = False) -> tuple[int, int]:
     return max(4, -(-Ls // (32 * W))), W
 
 
+def cluster_shape(Ls: int, free_end1: bool, n: int) -> tuple[int, int] | None:
+    """(warps a block W, columns a lane K) of a cluster of n blocks at Ls,
+    as csrc/gotoh_forward.cu:cluster_shape computes them: the fewest warps
+    (at most 16), then the fewest columns a lane (4 to 8, 6 with a free
+    query end), such that every column is owned and every block owns one;
+    None where no such shape exists."""
+    most = 6 if free_end1 else 8
+    for W in range(1, 17):
+        K = max(4, -(-Ls // (32 * n * W)))
+        if K <= most and 32 * K * W * (n - 1) < Ls:
+            return W, K
+    return None
+
+
+def cluster_layout(B: int, Ls: int, free_end1: bool = False, n_sms: int = H100_SMS, *,
+                   ctas: int | None = None, min_ctas: int = 1,
+                   held=None) -> tuple[int, int, int]:
+    """(blocks a cluster N, warps a block W, columns a lane K) of the
+    cluster kernel, as gotoh_forward_launch computes them on a card of
+    n_sms SMs: over N = min_ctas..8 (or `ctas` alone), each with
+    cluster_shape's (W, K), the least time of the busiest SM.  The B
+    clusters run in ceil(B / h) waves of the h = held(N, W, K) clusters
+    the card holds at once, a wave puts ceil(min(B, h) N / n_sms) blocks
+    on an SM, and a block's row costs K (3W + 4): its warps' columns and a
+    fixed 4/3 of a warp's row, measured on the H100.  Then the fewest
+    blocks a cluster.  `held` is the card's cudaOccupancyMaxActiveClusters
+    (cluster_occupancy; the kernel asks it itself), by default the SM
+    arithmetic n_sms (16 // W) // N of blocks of 128 registers a thread,
+    which GPC boundaries can make larger than the card's.  Raises
+    ValueError where no N has a layout.  Warps past the row's end (only
+    in the last block) sit the rows out."""
+    if held is None:
+        def held(n, W, K):
+            return n_sms * (16 // W) // n
+    best, best_cost = None, None
+    for n in [ctas] if ctas else range(min_ctas, CLUSTER_MAX_CTAS + 1):
+        shape = cluster_shape(Ls, free_end1, n)
+        if shape is None:
+            continue
+        W, K = shape
+        h = held(n, W, K)
+        if h <= 0:
+            continue
+        cost = -(-B // h) * -(-min(B, h) * n // n_sms) * K * (3 * W + 4)
+        if best is None or cost < best_cost:
+            best, best_cost = (n, W, K), cost
+    if best is None:
+        raise ValueError(f"the cluster kernel has no layout at Ls {Ls} "
+                         f"(free_end1 {free_end1}, blocks a cluster {ctas or min_ctas}+)")
+    return best
+
+
+def device_cluster_layout(B: int, Ls: int, free_start1: bool = False,
+                          free_end1: bool = False, device=None, *,
+                          min_ctas: int = 1) -> tuple[int, int, int]:
+    """cluster_layout with the current card's SMs and the clusters it holds
+    at once: the layout gotoh_forward_launch picks there."""
+    props = torch.cuda.get_device_properties(device or torch.cuda.current_device())
+    return cluster_layout(
+        B, Ls, free_end1, props.multi_processor_count, min_ctas=min_ctas,
+        held=lambda n, W, K: cluster_occupancy(n, W, K, free_start1, free_end1))
+
+
 def wide_layout(Ls: int) -> tuple[int, int]:
     """(columns a thread C, threads a block) of the wide kernel at Ls, as
     gotoh_forward_launch computes them."""
@@ -114,7 +201,9 @@ def kernel_for(Ls: int) -> str:
     """The kernel gotoh_forward_plane launches at subject width Ls."""
     if Ls <= WARP_KERNEL_MAX_LS:
         return "warp"
-    return "seg" if Ls <= SEG_MAX_LS else "wide"
+    if Ls <= SEG_MAX_LS:
+        return "seg"
+    return "cluster" if Ls <= CLUSTER_MAX_LS else "wide"
 
 
 def gotoh_forward_plane_ref(
@@ -281,7 +370,8 @@ def _check_args(query, qlen, subject, slen, free_end1, free_end2):
 
 def _launch(query, qlen, subject, slen, cfg, kernel: str | None):
     """Launch csrc/gotoh_forward.cu on checked CUDA tensors (kernel by Ls,
-    or the "seg" or "wide" kernel when asked) or raise."""
+    or the "seg", "wide" or "cluster" kernel when asked, the last in
+    clusters of the layout's size among two to eight) or raise."""
     dev = query.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -289,6 +379,13 @@ def _launch(query, qlen, subject, slen, cfg, kernel: str | None):
     Ls = subject.shape[1]
     if kernel == "seg" and Ls > SEG_MAX_LS:
         raise ValueError(f"the seg kernel takes Ls <= {SEG_MAX_LS}, got {Ls}")
+    code = _KERNEL_CODES[kernel]
+    if kernel == "cluster":
+        if Ls <= WARP_KERNEL_MAX_LS:
+            raise ValueError(f"the cluster kernel takes Ls > {WARP_KERNEL_MAX_LS}, got {Ls}")
+        with torch.cuda.device(dev):
+            code |= device_cluster_layout(B, Ls, bool(cfg["free_start1"]),
+                                          bool(cfg["free_end1"]), dev, min_ctas=2)[0] << 8
     name = kernel or kernel_for(Ls)
     query = query.contiguous()
     subject = subject.contiguous()
@@ -310,7 +407,7 @@ def _launch(query, qlen, subject, slen, cfg, kernel: str | None):
             B, Lq, Ls, cfg["match"], cfg["mismatch"], cfg["open_gap"],
             cfg["ext_gap"], int(cfg["free_start1"]), int(cfg["free_end1"]),
             int(cfg["free_start2"]), int(cfg["free_end2"]),
-            _KERNEL_CODES[kernel], None if scratch is None else scratch.data_ptr(),
+            code, None if scratch is None else scratch.data_ptr(),
             stream,
         )
     check("gotoh_forward", rc)
@@ -346,7 +443,8 @@ def gotoh_forward_plane(
     (every free-end configuration: free subject ends for the tier-3 aligner,
     free query ends for the tier-2 STR flanks) or raise: the
     warp-per-alignment kernel for Ls <= 256, the seg kernel up to
-    SEG_MAX_LS, the wide kernel above, a dispatch on the shape alone."""
+    SEG_MAX_LS, the cluster kernel up to CLUSTER_MAX_LS, the wide kernel
+    above, a dispatch on the shape alone."""
     cfg = dict(
         match=match, mismatch=mismatch, open_gap=open_gap, ext_gap=ext_gap,
         free_start1=free_start1, free_end1=free_end1,
@@ -360,7 +458,8 @@ def gotoh_forward_plane(
 
 gotoh_forward_plane.launches = 0  # launches of any of the kernels
 # the same launches by ((free_start1, free_end1, free_start2, free_end2), B,
-# Lq, Ls, "warp", "seg" or "wide"): what a path asked of which kernel
+# Lq, Ls, "warp", "seg", "cluster" or "wide"): what a path asked of which
+# kernel
 gotoh_forward_plane.launch_shapes = Counter()
 
 
@@ -384,3 +483,24 @@ def gotoh_forward_plane_wide(query, qlen, subject, slen, **cfg):
     """The wide kernel at any Ls, CUDA tensors only (a check at the
     narrow shapes of the other two kernels)."""
     return _forced("wide", query, qlen, subject, slen, **cfg)
+
+
+def gotoh_forward_plane_cluster(query, qlen, subject, slen, **cfg):
+    """The cluster kernel at any Ls > 256, CUDA tensors only, in clusters
+    of the layout rule's size among two to eight: lets a check reach it
+    at the seg kernel's widths and hold it across a block boundary where
+    the rule would take one block.  Same keywords as gotoh_forward_plane."""
+    return _forced("cluster", query, qlen, subject, slen, **cfg)
+
+
+def cluster_occupancy(N: int, W: int, K: int, free_start1: bool = False,
+                      free_end1: bool = False) -> int:
+    """Clusters of N blocks of W warps (K columns a lane) of the cluster
+    kernel's variant that the current card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    check("gotoh_cluster_occupancy", library().gotoh_cluster_occupancy(
+        N, W, K, int(free_start1), int(free_end1), ctypes.addressof(out)))
+    return out.value

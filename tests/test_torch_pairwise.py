@@ -15,8 +15,12 @@ from ngsepcore_tpu.kernels import pairwise as jpw
 from ngsepcore_tpu.kernels.pairwise_pallas import gotoh_forward_plane_pallas
 from ngsepcore_tpu_torch.kernels import pairwise as tpw
 from ngsepcore_tpu_torch.kernels.pairwise_cuda import (
+    CLUSTER_MAX_LS,
     SEG_MAX_LS,
+    cluster_layout,
+    cluster_shape,
     gotoh_forward_plane,
+    gotoh_forward_plane_cluster,
     gotoh_forward_plane_ref,
     kernel_for,
     seg_layout,
@@ -749,7 +753,7 @@ def _excl_from_incl(incl, seed):
     return out
 
 
-def _seg_kernel_model(q, ql, s, sl, *, K=None, W=None, match=1, mismatch=1,
+def _seg_kernel_model(q, ql, s, sl, *, K=None, W=None, ctas=1, match=1, mismatch=1,
                       open_gap=3, ext_gap=1, free_start1=False, free_end1=False,
                       free_start2=True, free_end2=True):
     """gotoh_forward_seg_kernel<K, kFreeStart1, kFreeEnd1> of
@@ -764,7 +768,15 @@ def _seg_kernel_model(q, ql, s, sl, *, K=None, W=None, match=1, mismatch=1,
     initial state).  It runs in skewed order, step t taking warp w on row
     t - w and the warps from the last to the first, so no message is read
     in the step that wrote it; a ring of RING rows a boundary bounds the
-    rows in flight.  Returns (plane, score, end_j, start_k, end_i)."""
+    rows in flight.
+
+    ctas > 1 models gotoh_forward_cluster_kernel: one chain of ctas * W
+    warps over the blocks of a cluster, W a block.  A message across a
+    block boundary carries the same four ints (the kernel writes it into
+    the receiving block's shared memory), warps past the row's end (only
+    in the last block) sit the rows out, and with a free subject end each
+    block reduces its warps' best (value, column) keys and block 0 reduces
+    the blocks'.  Returns (plane, score, end_j, start_k, end_i)."""
     i32 = torch.int32
     B, Lq = q.shape
     Ls = s.shape[1]
@@ -773,12 +785,15 @@ def _seg_kernel_model(q, ql, s, sl, *, K=None, W=None, match=1, mismatch=1,
     n = 32 * K
     NEG = -(10**7)
     RING = 8
+    total = ctas * W
+    chain = min(total, -(-Ls // n))  # the warps that own a column
+    assert 32 * K * W * (ctas - 1) < Ls <= total * n  # no block without a column
     sl = sl.to(i32)
-    s_all = torch.zeros((B, W * n), dtype=i32)
+    s_all = torch.zeros((B, chain * n), dtype=i32)
     s_all[:, :Ls] = s.to(i32)
-    plane = torch.empty((Lq, B, W * n), dtype=i32)
+    plane = torch.empty((Lq, B, chain * n), dtype=i32)
     warps = []
-    for w in range(W):
+    for w in range(chain):
         c = torch.arange(w * n + 1, (w + 1) * n + 1, dtype=i32).reshape(1, 32, K)
         st = dict(c=c, s_ch=s_all[:, w * n:(w + 1) * n].reshape(B, 32, K),
                   m=torch.full((B, 32, K), NEG, dtype=i32),
@@ -791,7 +806,7 @@ def _seg_kernel_model(q, ql, s, sl, *, K=None, W=None, match=1, mismatch=1,
             st["m0"] = st["i0"] = st["d0"] = torch.zeros(B, dtype=i32)
         warps.append(st)
     prefixes, hand = {}, {}  # (receiving warp, row): the two halves of a message
-    for w in range(1, W):  # row 1's hand-off: column w*32K's initial state
+    for w in range(1, chain):  # row 1's hand-off: column w*32K's initial state
         d_cb = 0 if free_start2 else -open_gap - ext_gap * (w * n - 1)
         full = lambda v: torch.full((B,), v, dtype=i32)
         hand[w, 1] = _diag_out(full(NEG), full(NEG), full(d_cb), full(0))
@@ -849,7 +864,7 @@ def _seg_kernel_model(q, ql, s, sl, *, K=None, W=None, match=1, mismatch=1,
             st["m0"] = torch.where(act, NEG, st["m0"]).to(i32)
             st["i0"] = torch.where(act, i0n, st["i0"]).to(i32)
             st["d0"] = torch.where(act, NEG, st["d0"]).to(i32)
-        if w + 1 < W:  # lane 31: row r's prefixes, row r+1's hand-off
+        if w + 1 < chain:  # lane 31: row r's prefixes, row r+1's hand-off
             prefixes[w + 1, r] = (torch.maximum(yseed, yincl[:, 31]),
                                   torch.maximum(zseed, zincl[:, 31]))
             hand[w + 1, r + 1] = _diag_out(m[:, 31, K - 1], i[:, 31, K - 1],
@@ -861,8 +876,8 @@ def _seg_kernel_model(q, ql, s, sl, *, K=None, W=None, match=1, mismatch=1,
         plane[r - 1, :, w * n:(w + 1) * n] = (cwm | cwi | (sd << 4) | (ed << 24)).reshape(B, n)
         return m.reshape(B, n), active[:, 0, 0]
 
-    for t in range(1, Lq + W):
-        for w in reversed(range(W)):
+    for t in range(1, Lq + chain):
+        for w in reversed(range(chain)):
             r = t - w
             if not 1 <= r <= Lq:
                 continue
@@ -882,10 +897,18 @@ def _seg_kernel_model(q, ql, s, sl, *, K=None, W=None, match=1, mismatch=1,
     zeros = torch.zeros(B, dtype=i32)
     if free_end1:
         return plane, best, sl, zeros, brow
-    c = torch.arange(1, W * n + 1)[None, :]
+    c = torch.arange(1, chain * n + 1)[None, :]
     if free_end2:
+        low = torch.iinfo(torch.int64).min
         key = torch.where(c <= sl[:, None], m, NEG).long() * (1 << 32) + c
-        key = torch.maximum(key[:, :Ls].amax(dim=1), m0.long() * (1 << 32))
+        key = torch.where(c <= Ls, key, low)  # columns past Ls do not count
+        # each block's best over its warps (block 0's with column 0), then
+        # block 0's reduction of the blocks'
+        blocks = torch.full((B, total * n), low, dtype=torch.int64)
+        blocks[:, : chain * n] = key
+        blocks = blocks.reshape(B, ctas, W * n).amax(dim=2)
+        blocks[:, 0] = torch.maximum(blocks[:, 0], m0.long() * (1 << 32))
+        key = blocks.amax(dim=1)
         end_j = key & 0xFFFFFFFF
         return plane, ((key - end_j) // (1 << 32)).to(i32), end_j.to(i32), zeros, ql.to(i32)
     sc = sl.clamp(0, Ls).long()[:, None]
@@ -934,14 +957,105 @@ def test_seg_kernel_decomposition_reproduces_plain_plane(B, Lq, Ls, layout, cfg)
     assert torch.equal(got[4], want[2])
 
 
+@pytest.mark.parametrize("cfg", _WIDE_CFGS, ids=_WIDE_CFG_IDS)
+@pytest.mark.parametrize(
+    "B,Lq,Ls,layout_B,layout",
+    [(4, 12, 3585, 4, None), (4, 12, 4096, 4, None), (4, 10, 5000, 4, None),
+     (3, 12, 3936, 69, None), (3, 300, 380, None, (2, 1, 6))],
+    ids=["Ls3585", "Ls4096", "Ls5000", "Ls3936-MSA-layout", "saturating-runs-N2-W1"],
+)
+def test_cluster_kernel_decomposition_reproduces_plain_plane(B, Lq, Ls, layout_B, layout,
+                                                             cfg):
+    """Full plane and final vectors of the cluster kernel's model (the seg
+    chain over the blocks of a cluster) against the plain version at
+    cluster_layout's (N, W, K) on 132 SMs for a batch of layout_B (or the
+    layout given): ragged qlen with qlen 0, N runs, slen 0; runs past 255
+    across a block boundary.  At Ls 3,585 the last block holds a warp past
+    the row's end."""
+    rng = np.random.default_rng(B * 13 + Lq + Ls)
+    q, ql, s, sl = _noisy(rng, B, Lq, Ls)
+    if Lq >= 300:  # M and I runs longer than the 8-bit saturation
+        q[0] = 1
+        s[0] = 1
+        ql[0], sl[0] = Lq, Ls
+        q[1] = 4
+        ql[1] = Lq
+    ql[-1] = 0
+    sl[-2] = 0
+    q[2, Lq // 2 :] = 4
+    s[2, Ls // 2 :] = 4
+    N, W, K = layout or cluster_layout(layout_B, Ls, cfg.get("free_end1", False), 132)
+    assert N >= 2
+    want = gotoh_forward_plane_ref(T(q), T(ql), T(s), T(sl), **cfg)
+    got = _seg_kernel_model(T(q), T(ql), T(s), T(sl), K=K, W=W, ctas=N, **cfg)
+    if Lq >= 300:
+        assert int(((want[0] >> 8) & 255).max()) == 255
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[2], want[3])
+    assert torch.equal(got[3], want[4])
+    assert torch.equal(got[4], want[2])
+
+
+def test_cluster_layout_invariants():
+    """cluster_layout over a grid of (B, Ls, free_end1) at 132 SMs: every
+    column owned, every block with a column (so only the last block can
+    hold warps past the row's end, fewer than a block's), N <= 8, W <= 16,
+    4 <= K <= 8 (6 with a free query end), the least cost of the busiest
+    SM (ceil(B / h) waves of ceil(min(B, h) N / 132) blocks of K (3W + 4),
+    h the clusters held at once) and the fewest N at a tie; the MSA's
+    69x3936 pinned, with the SM arithmetic and with an H100's clusters."""
+    # 207 blocks of 6 warps: two on 75 SMs.  N 2 (W 8, K 8) puts 138
+    # blocks of 8 warps on the 132 SMs, so 6 SMs hold two halves of an
+    # alignment and set every cluster's pace: 10.70 ms against 7.61.
+    assert cluster_layout(69, 3936, False, 132) == (3, 6, 7)
+    h100 = {1: 132, 2: 132, 3: 79, 4: 124, 5: 94, 6: 101, 7: 84, 8: 124}  # at 3936
+    assert cluster_layout(69, 3936, False, 132, held=lambda n, W, K: h100[n]) == (3, 6, 7)
+    # at 16,384 columns the SM arithmetic takes N 6 (W 11: 22 clusters at
+    # once, two waves of 37); an H100 holds 17 of them, three waves
+    # (1.159 ms), and the rule takes N 5 (W 13, 22 held: 0.944 ms)
+    assert cluster_layout(37, 16384, False, 132) == (6, 11, 8)
+    h100 = {4: 30, 5: 22, 6: 17, 7: 15, 8: 30}  # at 16384
+    assert cluster_layout(37, 16384, False, 132, held=lambda n, W, K: h100[n]) == (5, 13, 8)
+    assert cluster_layout(69, 3936, True, 132) == (5, 5, 5)
+    assert cluster_shape(3936, False, 2) == (8, 8)
+    assert cluster_shape(3936, False, 4) == (4, 8)
+    assert cluster_layout(69, 3936, False, 132, ctas=2) == (2, 8, 8)
+    assert cluster_layout(5, 3585, True, 132) == (8, 3, 5)  # 23 of 24 warps in the chain
+    with pytest.raises(ValueError):  # 8 x 16 x 32 x 6 columns at the most
+        cluster_layout(4, CLUSTER_MAX_LS + 1, True, 132)
+    for free_end1, most in ((False, 8), (True, 6)):
+        for B in (1, 5, 37, 69, 93, 132, 256, 300, 2048):
+            for Ls in list(range(SEG_MAX_LS + 1, CLUSTER_MAX_LS + 1, 397)) + [
+                    SEG_MAX_LS + 1, 4096, 3936, 5000, 8192, 16384, CLUSTER_MAX_LS]:
+                N, W, K = cluster_layout(B, Ls, free_end1, 132)
+                assert 1 <= N <= 8 and 1 <= W <= 16 and 4 <= K <= most
+                assert N * W * 32 * K >= Ls  # every column owned
+                assert (N - 1) * W * 32 * K < Ls  # every block owns one
+                def cost(n, W, K):
+                    h = 132 * (16 // W) // n
+                    return -(-B // h) * -(-min(B, h) * n // 132) * K * (3 * W + 4)
+
+                costs = [(cost(n, *cluster_shape(Ls, free_end1, n)), n)
+                         for n in range(1, 9) if cluster_shape(Ls, free_end1, n)]
+                assert (cost(N, W, K), N) == min(costs)
+
+
 def test_kernel_choice_at_the_width_boundaries():
     """kernel_for and seg_layout where the kernels meet: the warp kernel up
     to 256 columns, the seg kernel (the fewest warps of at most 8 columns a
     lane, 7 with a free query end, then the fewest columns a lane) up to
-    SEG_MAX_LS, the wide kernel above."""
+    SEG_MAX_LS, the cluster kernel up to CLUSTER_MAX_LS, the wide kernel
+    above; every width of the cluster kernel's range has a layout in every
+    configuration."""
     assert SEG_MAX_LS >= 2048
-    assert [kernel_for(Ls) for Ls in (1, 256, 257, SEG_MAX_LS, SEG_MAX_LS + 1)] == [
-        "warp", "warp", "seg", "seg", "wide"]
+    assert CLUSTER_MAX_LS == 8 * 16 * 32 * 6
+    assert [kernel_for(Ls) for Ls in (1, 256, 257, SEG_MAX_LS, SEG_MAX_LS + 1,
+                                      CLUSTER_MAX_LS, CLUSTER_MAX_LS + 1)] == [
+        "warp", "warp", "seg", "seg", "cluster", "cluster", "wide"]
+    for free_end1 in (False, True):
+        for Ls in range(SEG_MAX_LS + 1, CLUSTER_MAX_LS + 1):
+            assert any(cluster_shape(Ls, free_end1, n) for n in range(1, 9))
     assert seg_layout(257) == (5, 2)
     assert seg_layout(384) == (6, 2)
     assert seg_layout(512) == (8, 2)
@@ -1023,6 +1137,8 @@ def test_gotoh_wrapper_rejects_bad_arguments(case, exc):
         ql = ql[:3]
     if exc is None:
         assert gotoh_forward_plane(q, ql, s, sl)[0].shape == (8, 4, 1025)
+        with pytest.raises(ValueError):  # the forced kernels take CUDA tensors only
+            gotoh_forward_plane_cluster(q, ql, s, sl)
         return
     with pytest.raises(exc):
         gotoh_forward_plane(q, ql, s, sl)
