@@ -116,11 +116,24 @@ width that are their inputs with gaps, the 5 smallest and the smallest
 over 3,584 bp CUDA = CPU, Gotoh launches by kernel and shape, the batch
 with the most cells and the cluster kernel's timed beside their plain
 version and bound).
+The sorted-key seed table (the MinimizerTable layout past 2^24 distinct
+minimizers) follows.  Phase 4 also runs its 50 kb input fused and classic
+with the layout forced (MinimizerTable.MAX_BUCKETIZED_CODES set low on the
+class): records, SAM lines and the seeds of 2,048 reads on CUDA equal to
+the CPU's; and tests/test_accuracy_anchor.py's 30x of 150 bp reads over
+250 kb through the fused pipeline on CUDA with its gates (SNV recall and
+precision >= 0.95, indel recall >= 0.90).  Phase 24 runs phase 5's
+individual and reads against a rice-sized reference (phase 5's genome as
+chr1 and eleven random sequences, 373.2 Mbp in 12 sequences, the size and
+count of IRGSP-1.0), whose more than 2^24 distinct codes take the
+sorted-key layout by themselves: index build seconds, table bytes, the
+culled codes, reads/s, stage seconds, peak device memory, bench.py's gates
+and the records that differ from phase 5's.
 With --phases only the listed phases run (and the ones whose data they
 use; 0 and 1 always run).
 Prints one line per phase and exits nonzero at the first failure.  The
 last lines are a JSON object of the kernels (launch counts from the timed
-runs of phases 5, 6, 9, 10, 13, 15, 17, 19 and 23, errors and times measured here; the
+runs of phases 5, 6, 9, 10, 13, 15, 17, 19, 23 and 24, errors and times measured here; the
 tier-2 and long-read entries at the launched shape that takes most of
 their time), the card's name and power limit, and the result line.  A kernel's bound is the least time the card could take: the
 larger of its bytes (inputs read once, outputs written once) over the
@@ -1748,6 +1761,139 @@ def phase_cuda_vs_cpu(counters):
     return kc
 
 
+SORTED_KEY_SWITCH = 1 << 24  # MinimizerTable.MAX_BUCKETIZED_CODES, the reference's
+FORCED_SWITCH = 1 << 10  # below the 50 kb genome's distinct codes
+
+
+def _sorted_key_on(table, device):
+    """Fail unless `table` answers with the sorted-key layout on `device`
+    and holds no copy on another device."""
+    import torch
+
+    from ngsepcore_tpu_torch.index.minimizer_table import SortedKeyTable
+
+    arr = table.device_arrays(device)
+    dev = torch.device(device)
+    if not isinstance(arr, SortedKeyTable) or any(x.device.type != dev.type for x in arr):
+        fail(f"the table did not take the sorted-key layout on {device}")
+    if any(d.type != dev.type for d in table._device_arrays):
+        fail(f"the table was copied off {device}: {list(table._device_arrays)}")
+    return arr
+
+
+def phase_sorted_key_50kb(counters, bucket_keys, device="cuda"):
+    """Phase 4's 50 kb input with the sorted-key layout forced: fused
+    records, classic SAM lines and seeds on CUDA equal to the CPU's, and,
+    with no code culled, the fused records equal to the bucket layout's.
+    The layout is forced by setting MinimizerTable.MAX_BUCKETIZED_CODES low
+    on the class for the phase."""
+    from unittest import mock
+
+    from ngsepcore_tpu_torch.index.minimizer_table import MinimizerTable
+
+    genome, reads = _simulate_50kb()
+    with mock.patch.object(MinimizerTable, "MAX_BUCKETIZED_CODES", FORCED_SWITCH):
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        with plain_post_pass_forbidden():
+            pipe, rec_cuda = _run_pipeline(genome, reads, device, 1024)
+        sync(device)
+        t_cuda = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        walk_route(counters, "tier3", "phase 4, sorted-key fused")
+        arr = _sorted_key_on(pipe.aligner.table, device)
+        culled = len(pipe.aligner.table.unique_codes) - arr.keys.shape[0]
+        _, rec_cpu = _run_pipeline(genome, reads, "cpu", 1024)
+        with plain_post_pass_forbidden():
+            sam_cuda, _, al_cuda = _run_classic(genome, reads, device)
+        _sorted_key_on(al_cuda.table, device)
+        sam_cpu, _, al_cpu = _run_classic(genome, reads, "cpu")
+        seeds_cuda = al_cuda._seed(reads[:2048])[3]
+        seeds_cpu = al_cpu._seed(reads[:2048])[3]
+    kc = [record_key(r) for r in rec_cuda]
+    kp = [record_key(r) for r in rec_cpu]
+    seed_diff = [k for k in seeds_cpu if not np.array_equal(seeds_cuda[k], seeds_cpu[k])]
+    n_sam_diff = sum(a != b for a, b in zip(sam_cuda, sam_cpu))
+    log(f"phase 4 sorted-key layout forced ({arr.keys.shape[0]} keys, {culled} culled): "
+        f"fused {len(kc)} records on CUDA ({t_cuda:.2f}s), {len(kp)} on CPU, launches "
+        f"{launches}; classic {len(sam_cuda)} SAM lines, {n_sam_diff} differing; seeds of "
+        f"2,048 reads differing in {seed_diff or 'no field'}")
+    if len(kc) <= 10 or kc != kp:
+        fail("sorted-key layout: CUDA and CPU fused records differ")
+    if len(sam_cuda) != len(sam_cpu) or n_sam_diff:
+        fail("sorted-key layout: CUDA and CPU classic SAM lines differ")
+    if seed_diff:
+        fail(f"sorted-key layout: CUDA and CPU seeds differ in {seed_diff}")
+    if culled == 0 and kc != bucket_keys:
+        fail("sorted-key layout: with no code culled, the records differ from the bucket layout's")
+    if device == "cuda" and min(launches.values()) == 0:
+        fail(f"a kernel was not launched on the sorted-key run: {launches}")
+
+
+ANCHOR_BP = 250_000  # tests/test_accuracy_anchor.py's input and gates
+ANCHOR_COVERAGE = 30
+
+
+def phase_anchor_30x(counters, device="cuda"):
+    """tests/test_accuracy_anchor.py on the card: 30x of 150 bp reads over
+    250 kb through AlignCallPipeline; SNV recall and precision >= 0.95,
+    indel recall >= 0.90 (within 5 bp)."""
+    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
+    from ngsepcore_tpu_torch.core.sequences import (
+        QualifiedSequence,
+        QualifiedSequenceList,
+        ReadBlock,
+    )
+    from ngsepcore_tpu_torch.simulation.individual_simulator import SingleIndividualSimulator
+    from ngsepcore_tpu_torch.simulation.reads_simulator import SingleReadsSimulator
+
+    rng = np.random.default_rng(2025)
+    seqs = QualifiedSequenceList()
+    seqs.add(QualifiedSequence(
+        name="chr1", codes=rng.integers(0, 4, size=ANCHOR_BP).astype(np.int8)))
+    genome = ReferenceGenome(seqs)
+    sim = SingleIndividualSimulator(genome, snv_rate=0.001, indel_rate=0.0002, seed=9)
+    sim.simulate()
+    n_reads = ANCHOR_BP * ANCHOR_COVERAGE // READ_LEN
+    reads = ReadBlock.concatenate([
+        SingleReadsSimulator(
+            hg, read_length=READ_LEN, substitution_error_rate=0.003, seed=100 + h
+        ).simulate_block(n_reads // 2)
+        for h, hg in enumerate(sim.build_haplotype_genomes())
+    ])
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    _, records = _run_pipeline(genome, reads, device, 16384)
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    truth_snv = {(c.first, c.alleles[1]) for c in sim.calls if c.is_snv}
+    called_snv = {(r.variant.first, r.variant.alleles[1]) for r in records
+                  if r.variant.is_snv and len(r.variant.alleles) > 1}
+    tp = len(called_snv & truth_snv)
+    recall, precision = tp / max(1, len(truth_snv)), tp / max(1, len(called_snv))
+    ti = np.array(sorted(c.first for c in sim.calls if not c.is_snv), np.int64)
+    ci = np.array(sorted(r.variant.first for r in records if not r.variant.is_snv), np.int64)
+    if len(ci):
+        j = np.clip(np.searchsorted(ci, ti), 0, len(ci) - 1)
+        jm = np.clip(j - 1, 0, len(ci) - 1)
+        near = (np.abs(ci[j] - ti) <= 5) | (np.abs(ci[jm] - ti) <= 5)
+    else:
+        near = np.zeros(len(ti), bool)
+    indel_recall = float(near.mean()) if len(ti) else 1.0
+    log(f"phase 4 30x anchor: {len(reads)} reads over {ANCHOR_BP} bp on {device} "
+        f"({dt:.2f}s), {len(records)} records; SNV recall {recall:.4f}, precision "
+        f"{precision:.4f} of {len(truth_snv)}; indel recall {indel_recall:.4f} of {len(ti)}; "
+        f"launches {launches}")
+    if len(truth_snv) <= 150 or len(ti) <= 30:
+        fail("30x anchor: too few planted variants")
+    if recall < 0.95 or precision < 0.95 or indel_recall < 0.90:
+        fail("30x anchor gates: SNV recall and precision >= 0.95, indel recall >= 0.90")
+    if device == "cuda" and min(launches.values()) == 0:
+        fail(f"a kernel was not launched on the 30x anchor run: {launches}")
+    return {"snv_recall": recall, "snv_precision": precision, "indel_recall": indel_recall}
+
+
 # ---------------------------------------------------------------------------
 GENOME_MBP = 4.6
 N_READS = 345_000
@@ -1905,6 +2051,110 @@ def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS):
         walk_route(counters, "tier3", "phase 5, fused")
     truth = (truth_snv, truth_indel_pos, in_repeat)
     return launches, dt, records, genome, reads, truth, table, tandem, acc["metrics"]
+
+
+RICE_BP = 373_200_000  # rice, IRGSP-1.0: 373.2 Mbp in 12 pseudomolecules
+RICE_SEQS = 12
+
+
+def rice_sized_genome(chr1, total_bp=RICE_BP, n_seqs=RICE_SEQS, seed=373):
+    """`chr1` (phase 5's genome) and n_seqs - 1 random sequences of equal
+    length (one base more for the first total % (n_seqs - 1)) that fill
+    the genome to total_bp."""
+    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
+    from ngsepcore_tpu_torch.core.sequences import QualifiedSequence, QualifiedSequenceList
+
+    rng = np.random.default_rng(seed)
+    rest, n = total_bp - len(chr1), n_seqs - 1
+    seqs = QualifiedSequenceList()
+    seqs.add(QualifiedSequence(name="chr1", codes=chr1))
+    for i in range(n):
+        L = rest // n + (i < rest % n)
+        seqs.add(QualifiedSequence(
+            name=f"chr{i + 2}", codes=rng.integers(0, 4, size=L, dtype=np.int8)))
+    return ReferenceGenome(seqs)
+
+
+def phase_rice_sized(counters, data5, device="cuda", total_bp=RICE_BP):
+    """Phase 5's individual and reads against a rice-sized reference: chr1
+    is phase 5's genome, eleven random sequences fill it to 373.2 Mbp.  Its
+    table has more than 2^24 distinct codes, so it takes the sorted-key
+    layout by its own size; the fused run must pass bench.py's gates (a
+    record on a filler sequence counts as a call) and launch G, W and S."""
+    import torch
+
+    from bench import check_accuracy
+    from ngsepcore_tpu_torch.index.minimizer_table import MinimizerTable
+    from ngsepcore_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    _, _, records5, genome5, reads, truth, _, _, _ = data5
+    cuda = torch.device(device).type == "cuda"
+    genome = rice_sized_genome(genome5.sequences[0].codes, total_bp)
+    log(f"phase 24 rice-sized reference: {genome.total_length} bp in "
+        f"{genome.num_sequences} sequences ({time.perf_counter() - t_phase:.1f}s)")
+    if MinimizerTable.MAX_BUCKETIZED_CODES != SORTED_KEY_SWITCH:
+        fail(f"MAX_BUCKETIZED_CODES is {MinimizerTable.MAX_BUCKETIZED_CODES}, "
+             f"not the reference's {SORTED_KEY_SWITCH}")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table = MinimizerTable.build_from_genome(genome, device=device)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arr = _sorted_key_on(table, device)
+    sync(device)
+    t_layout = time.perf_counter() - t0
+    n_codes = len(table.unique_codes)
+    culled = n_codes - arr.keys.shape[0]
+    nbytes = sum(x.numel() * x.element_size() for x in arr)
+    peak_build = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    log(f"  index on {device}: {n_codes} codes (switch {SORTED_KEY_SWITCH}), {culled} "
+        f"culled ({culled / max(1, n_codes):.4%}), {table.size} entries "
+        f"({arr.entry_packed.shape[0]} kept); build_from_genome {t_build:.2f}s, "
+        f"sorted-key layout {t_layout:.2f}s; table {nbytes} bytes on the device; "
+        f"peak {peak_build:.3f} GiB")
+    if n_codes <= SORTED_KEY_SWITCH:
+        fail(f"the rice-sized table has {n_codes} codes, not more than {SORTED_KEY_SWITCH}")
+
+    t0 = time.perf_counter()
+    _run_pipeline(genome, reads, device, 65536, table=table)
+    sync(device)
+    log(f"  warm-up run: {time.perf_counter() - t0:.2f}s")
+    profiling.enable()
+    profiling.reset()
+    reset_counts(counters)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe, records = _run_pipeline(genome, reads, device, 65536, table=table)
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    profiling.enable(False)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    al = pipe.aligner
+    log(f"  timed run: {dt:.3f}s = {len(reads) / dt:.1f} reads/s; {len(records)} records; "
+        f"aligned {al.aligned_reads}, tier-3 jobs {al.complete_alns}; launches {launches}; "
+        f"peak {peak:.3f} GiB")
+    for name, (total, calls) in sorted(
+        profiling._stages.items(), key=lambda kv: -kv[1][0]
+    ):
+        print(f"  stage {name:<28} {total:9.3f}s x{calls}", flush=True)
+    k24 = {record_key(r) for r in records}
+    k5 = {record_key(r) for r in records5}
+    off_chr1 = sum(r.variant.sequence_name != "chr1" for r in records)
+    acc = check_accuracy(records, *truth)
+    log(f"  accuracy: {json.dumps(acc['metrics'])}; records differing from phase 5's: "
+        f"{len(k24 - k5)} only here, {len(k5 - k24)} only there; {off_chr1} on the "
+        f"filler sequences; phase {time.perf_counter() - t_phase:.1f}s")
+    if acc["gates"]:
+        fail("phase 24 accuracy gates: " + "; ".join(acc["gates"]))
+    if cuda and min(launches.values()) == 0:
+        fail(f"a kernel was not launched on the rice-sized run: {launches}")
+    if cuda:
+        walk_route(counters, "tier3", "phase 24, fused")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5226,8 +5476,9 @@ def phase_gbs_real_size(device="cuda"):
 
 # ---------------------------------------------------------------------------
 PHASES = ("2", "2b", "2c", "2d", "3", "4", "5", "6", "7", "9", "10", "12", "13", "8", "11",
-          "14", "15", "16", "17", "18", "19", "20", "21", "22", "23")
-NEEDS = {"6": "4", "8": "5", "10": "5", "11": "5", "13": "5"}  # uses that phase's data
+          "24", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23")
+# uses that phase's data
+NEEDS = {"6": "4", "8": "5", "10": "5", "11": "5", "13": "5", "24": "5"}
 
 
 def _chosen(argv):
@@ -5281,6 +5532,8 @@ def main(argv=None) -> None:
             t[p] = phase_shear()
         elif p == "4":
             t[p] = phase_cuda_vs_cpu(counters)
+            phase_sorted_key_50kb(counters, t[p])
+            phase_anchor_30x(counters)
         elif p == "5":
             t[p] = phase_real_size(counters)
             t["5 launches"] = t[p][0]
@@ -5312,6 +5565,10 @@ def main(argv=None) -> None:
                 phase_cli(t["d"].name, genome, reads, truth, fused_records)
             else:
                 phase_kmers(t["d"].name, genome, reads)
+        elif p == "24":
+            torch.cuda.empty_cache()
+            t[p] = phase_rice_sized(counters, t["5"])
+            torch.cuda.empty_cache()
         elif p in ("14", "15"):
             t.pop("5", None)  # phase 5's genome, reads and index are done with
             if "d" in t:
@@ -5345,6 +5602,7 @@ def main(argv=None) -> None:
         t.pop("d").cleanup()
     for finish in deferred:
         finish()
+    log(f"phases {','.join(chosen)} passed; wall {time.perf_counter() - T_START:.1f}s")
     print(json.dumps({"kernels": kernel_entries(t)}), flush=True)
     print(nvidia_smi() or smi, flush=True)
     print(json.dumps({
@@ -5455,6 +5713,19 @@ def kernel_entries(t: dict) -> list:
         out.append(entry("shear_hist", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
                          "ngsepcore_tpu/kernels/shear_pileup.py:227",
                          t["5 launches"]["shear_hist"], t["3"][1]))
+    if "24" in t:
+        # the fused path against the rice-sized reference (phase 24, the
+        # sorted-key table), timed at the fused path's shapes
+        if g:
+            out.append(entry("gotoh_forward_rice", *gotoh, t["24"]["gotoh_forward_plane"],
+                             g["main-path chunk 2048x160x160"]))
+        if w:
+            wt = w["fused tier 3 2048x160x160"]
+            out.append(entry("run_walk_rice", *walk(wt), t["24"]["_runs_from_plane"], wt))
+        if "3" in t:
+            out.append(entry("shear_hist_rice", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
+                             "ngsepcore_tpu/kernels/shear_pileup.py:227",
+                             t["24"]["shear_hist"], t["3"][1]))
     if "13" in t and "2b" in t:
         # a lax.scan in the JAX package, no Pallas counterpart; launches of
         # the read-depth HMM callers at full width (phase 13)

@@ -18,7 +18,8 @@ and, through the fused pipeline, the aligner's tier-2 split alignment.
 Read-depth CNVs (-cnvs, call/read_depth.py; the HMM callers decode on the
 detector's device) and read-pair SVs (-svs, call/read_pair_sv.py) join the
 VCF with END/SVTYPE/SVLEN and land in a GFF next to it.  Long-read SVs
-(ROADMAP.md Queue 1 item 12) raise NotImplementedError.
+(-runLongReadSVs, call/long_read_sv.py) go to a VCF of their own,
+`<output>_SVsLongReads.vcf`, and to the GFF.
 """
 from __future__ import annotations
 

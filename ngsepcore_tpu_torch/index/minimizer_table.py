@@ -13,8 +13,14 @@ then laid out on the host as a CSR structure sorted by k-mer code:
 Overrepresented codes (repeats) are dropped at build time like the
 reference's per-code hit cap.  `save`/`load` use the same npz format as
 ngsepcore_tpu.index.minimizer_table.
+
+The seeding kernel reads the table in one of two device layouts
+(`device_arrays`): bucket rows up to MAX_BUCKETIZED_CODES distinct codes,
+the sorted-key layout (`SortedKeyTable`) above.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,6 +56,18 @@ def _minimizers_compact(mat, lengths, bases, *, k, window):
     return lanes.cpu().numpy()
 
 
+class SortedKeyTable(NamedTuple):
+    """Sorted-key device layout of a table of more than
+    MAX_BUCKETIZED_CODES distinct codes.  Codes whose lookup hash another
+    code shares are culled (both of them: they get no seeds)."""
+
+    keys: torch.Tensor  # (U,) int64 lookup_hash32 values, ascending
+    ver_hi: torch.Tensor  # (U,) int32 canonical code, high half
+    ver_lo: torch.Tensor  # (U,) int32 canonical code, low half
+    row_offsets: torch.Tensor  # (U+1,) int32 into entry_packed
+    entry_packed: torch.Tensor  # (E,) int32 position | strand << 31
+
+
 class MinimizerTable:
     def __init__(
         self,
@@ -64,7 +82,7 @@ class MinimizerTable:
         self.row_offsets = np.zeros(1, np.int64)
         self.entry_pos = np.empty(0, np.int64)  # fwd-genome kmer start
         self.entry_strand = np.empty(0, np.int8)  # 1 = canonical is rc
-        self._device_arrays: dict[torch.device, torch.Tensor] = {}
+        self._device_arrays: dict[torch.device, torch.Tensor | SortedKeyTable] = {}
 
     @classmethod
     def from_arrays(
@@ -140,14 +158,17 @@ class MinimizerTable:
         hi = out[:, 0].astype(np.int64)
         lo = out[:, 1].astype(np.int64) & 0xFFFFFFFF
         codes = (hi << lo_bits) | lo
-        pos = out[:, 2].astype(np.int64)
-        strand = out[:, 3].astype(np.int64)
-        # dedupe seam duplicates, then CSR by code
-        pairs = np.stack([codes, pos, strand], axis=1)
-        pairs = np.unique(pairs, axis=0)
-        codes, pos, strand = pairs[:, 0], pairs[:, 1], pairs[:, 2]
-        order = np.argsort(codes, kind="stable")
-        codes, pos, strand = codes[order], pos[order], strand[order]
+        # sort by (code, pos, strand) and drop the seam duplicates: the
+        # rows of np.unique(axis=0), by two stable sorts (the first on
+        # entries already in position order but at the seams)
+        ps = out[:, 2].astype(np.int64) * 2 + out[:, 3]
+        order = np.argsort(ps, kind="stable")
+        order = order[np.argsort(codes[order], kind="stable")]
+        codes, ps = codes[order], ps[order]
+        new = np.ones(len(codes), bool)
+        new[1:] = (codes[1:] != codes[:-1]) | (ps[1:] != ps[:-1])
+        codes, ps = codes[new], ps[new]
+        pos, strand = ps >> 1, ps & 1
         starts = np.empty(len(codes), bool)
         starts[0] = True
         np.not_equal(codes[1:], codes[:-1], out=starts[1:])
@@ -225,44 +246,89 @@ class MinimizerTable:
     def size(self) -> int:
         return len(self.entry_pos)
 
-    # tables beyond this many unique codes need the sorted-key layout,
-    # which is not part of this slice (ROADMAP.md Queue 1)
+    # above this many distinct codes the seeding kernel reads the sorted-key
+    # layout; the switch decides which codes are culled, so it is the
+    # reference's value whatever the device could hold
     MAX_BUCKETIZED_CODES = 1 << 24
     BUCKET_WIDTH = 8
 
-    def device_arrays(self, device) -> torch.Tensor:
-        """Bucketized lookup table on `device` for the seeding kernel,
-        built once per device: (NB, 4W + W*KH) int32 rows [hi | lo |
-        code-row | cnt | entries].  A query computes bucket = lookup_hash32
-        & (NB-1) and gathers one row; NB is sized (and doubled on overflow)
-        so every bucket holds <= W codes; exactness comes from the per-slot
+    def device_arrays(self, device) -> torch.Tensor | SortedKeyTable:
+        """The seeding kernel's lookup table on `device`, built once per
+        device.  Up to MAX_BUCKETIZED_CODES distinct codes: (NB, 4W + W*KH)
+        int32 bucket rows [hi | lo | code-row | cnt | entries].  A query
+        computes bucket = lookup_hash32 & (NB-1) and gathers one row; NB is
+        sized (and doubled on overflow) so every bucket holds <= W codes;
+        exactness comes from the per-slot (hi, lo) compare.  Above: a
+        SortedKeyTable, queried by a search of the lookup hash and the same
         (hi, lo) compare.  Entries carry the genome position with the
         canonical-strand flag in bit 31."""
         device = torch.device(device)
         t = self._device_arrays.get(device)
         if t is None:
             if len(self.unique_codes) > self.MAX_BUCKETIZED_CODES:
-                raise NotImplementedError(
-                    "sorted-key seed table for genomes over 2^24 distinct "
-                    "minimizers: ROADMAP.md Queue 1, \"Sorted-key seed table\""
+                t = SortedKeyTable(
+                    *(torch.from_numpy(a).to(device) for a in self._build_sorted_key())
                 )
-            t = torch.from_numpy(self._build_bucketized()).to(device)
+            else:
+                t = torch.from_numpy(self._build_bucketized()).to(device)
             self._device_arrays[device] = t
         return t
 
-    def _build_bucketized(self) -> np.ndarray:
+    def _code_halves_and_hash(self):
+        """(code_hi, code_lo) int32 halves of the unique codes and their
+        lookup_hash32 values (uint32 in int64)."""
         from ..kernels.minimizers import lookup_hash32
-        from ..kernels.seeding import SEED_HITS_PER_KMER as KH
 
-        U = len(self.unique_codes)
-        if len(self.entry_pos) and int(self.entry_pos.max()) >= (1 << 31):
-            raise ValueError("genome too large for int32 seed positions")
         lo_bits = 2 * min(self.k, 15)
         code_hi = (self.unique_codes >> lo_bits).astype(np.int32)
         code_lo = (self.unique_codes & ((1 << lo_bits) - 1)).astype(np.int32)
         h = lookup_hash32(
             torch.from_numpy(code_hi), torch.from_numpy(code_lo)
         ).numpy()
+        return code_hi, code_lo, h
+
+    def _packed_entries(self) -> np.ndarray:
+        """(E,) int32 entries: genome position | canonical strand << 31."""
+        if len(self.entry_pos) and int(self.entry_pos.max()) >= (1 << 31):
+            raise ValueError("genome too large for int32 seed positions")
+        return (
+            self.entry_pos | (self.entry_strand.astype(np.int64) << 31)
+        ).astype(np.uint32).view(np.int32)
+
+    def _build_sorted_key(self):
+        """Host arrays of the sorted-key layout (SortedKeyTable's fields):
+        codes sorted stably by lookup hash (int64, so hashes of 2^31 and
+        above keep their unsigned order), both codes of every shared hash
+        culled, each kept code's entries in hash order."""
+        entries = self._packed_entries()
+        code_hi, code_lo, h = self._code_halves_and_hash()
+        order = np.argsort(h, kind="stable")
+        hs = h[order]
+        dup = np.zeros(len(hs), bool)
+        eq = hs[1:] == hs[:-1]
+        dup[1:] |= eq
+        dup[:-1] |= eq
+        keep = order[~dup]
+        counts = np.diff(self.row_offsets)[keep]
+        offs = np.zeros(len(keep) + 1, np.int64)
+        np.cumsum(counts, out=offs[1:])
+        src = np.repeat(self.row_offsets[:-1][keep] - offs[:-1], counts) + np.arange(
+            int(offs[-1]), dtype=np.int64
+        )
+        return (
+            h[keep],
+            code_hi[keep],
+            code_lo[keep],
+            offs.astype(np.int32),
+            entries[src],
+        )
+
+    def _build_bucketized(self) -> np.ndarray:
+        from ..kernels.seeding import SEED_HITS_PER_KMER as KH
+
+        U = len(self.unique_codes)
+        entries = self._packed_entries()
+        code_hi, code_lo, h = self._code_halves_and_hash()
         W = self.BUCKET_WIDTH
         NB = 1 << max(int(U - 1).bit_length(), 4) if U else 16
         while True:
@@ -287,10 +353,6 @@ class MinimizerTable:
             b_all[bs, W + slot] = code_lo[order]
             b_all[bs, 2 * W + slot] = order.astype(np.int32)  # code row
             b_all[bs, 3 * W + slot] = counts[order].astype(np.int32)
-        entries = (
-            self.entry_pos | (self.entry_strand.astype(np.int64) << 31)
-        ).astype(np.uint32).view(np.int32)
-        if U:
             take = np.minimum(counts, KH)[order]
             rows = np.repeat(bs, take)
             base = 4 * W + slot * KH

@@ -11,7 +11,8 @@ Ref: the short-read seeding stack
 Design (same as ngsepcore_tpu/kernels/seeding.py): k-mer codes are
 canonical, so one forward-strand pass finds matches on both genome
 strands; lookup is one bucket-row gather of the bucketized table
-(index/minimizer_table.py) with an exact (hi, lo) compare; diagonal
+(index/minimizer_table.py), or a search of the sorted-key table's lookup
+hashes, with an exact (hi, lo) compare; diagonal
 clustering is two per-row sorts plus segmented cumsum statistics; the
 tier-1 screen compares 16-base bit-packed words.
 
@@ -124,7 +125,8 @@ def seed_cluster_screen(
     codes: torch.Tensor,  # (B, L) int8 forward-strand read codes, OR uint8
     # packed (code | clamped_qual << 3) bytes (quality bits masked off here)
     lengths: torch.Tensor,  # (B,) int32
-    buckets: torch.Tensor,  # (NB, 4W + W*KH) int32 bucketized table rows
+    table,  # MinimizerTable.device_arrays: (NB, 4W + W*KH) int32 bucket
+    # rows, or a SortedKeyTable (keys, ver_hi, ver_lo, row_offsets, entries)
     packed_genome: torch.Tensor,  # (Wg,) 16-base packed genome words
     genome_n2: torch.Tensor,  # (Wg,) per-base non-ACGT flags (bit 2j)
     *,
@@ -170,30 +172,49 @@ def seed_cluster_screen(
     mflag = kflag.gather(1, seli)
     mpos = seli.to(torch.int32)
 
-    # ---- stage 2: bucketized table lookup --------------------------------
-    # ONE row gather of a combined [hi | lo | code-row | cnt | entries]
-    # bucket row, exact (hi, lo) compare, then the matching slot's entry
-    # block selected with the same match mask
+    # ---- stage 2: table lookup -------------------------------------------
     KH = SEED_HITS_PER_KMER
     assert K <= KH, f"hits-per-kmer K={K} exceeds inline slots {KH}"
     qhash = lookup_hash32(mhi, mlo)
-    NB = buckets.shape[0]
-    W = buckets.shape[1] // (4 + KH)
-    rows = buckets[qhash & (NB - 1)]  # (B, M, 4W + W*KH)
-    match = (rows[..., :W] == mhi[..., None]) & (
-        rows[..., W : 2 * W] == mlo[..., None]
-    )
-    found = msel & match.any(dim=-1)
-    mi = match.to(torch.int32)
-    cnt = torch.where(
-        found, (rows[..., 3 * W : 4 * W] * mi).sum(dim=-1, dtype=torch.int32), 0
-    )
-    cnt = torch.clamp(cnt, max=K)
     kk = torch.arange(K, dtype=torch.int32, device=dev)[None, None, :]
-    hit_valid = kk < cnt[..., None]
-    ent = rows[..., 4 * W :].reshape(B, M, W, KH)
-    entry = (ent[..., :K] * mi[..., None]).sum(dim=-2, dtype=torch.int32)
-    entry = torch.where(hit_valid, entry, 0)
+    if isinstance(table, torch.Tensor):
+        # bucket rows: ONE row gather of a combined [hi | lo | code-row |
+        # cnt | entries] bucket row, exact (hi, lo) compare, then the
+        # matching slot's entry block selected with the same match mask
+        NB = table.shape[0]
+        W = table.shape[1] // (4 + KH)
+        rows = table[qhash & (NB - 1)]  # (B, M, 4W + W*KH)
+        match = (rows[..., :W] == mhi[..., None]) & (
+            rows[..., W : 2 * W] == mlo[..., None]
+        )
+        found = msel & match.any(dim=-1)
+        mi = match.to(torch.int32)
+        cnt = torch.where(
+            found, (rows[..., 3 * W : 4 * W] * mi).sum(dim=-1, dtype=torch.int32), 0
+        )
+        cnt = torch.clamp(cnt, max=K)
+        hit_valid = kk < cnt[..., None]
+        ent = rows[..., 4 * W :].reshape(B, M, W, KH)
+        entry = (ent[..., :K] * mi[..., None]).sum(dim=-2, dtype=torch.int32)
+        entry = torch.where(hit_valid, entry, 0)
+    else:
+        # sorted keys: the first key >= the query hash; the (hi, lo)
+        # compare alone decides membership (an absent hash lands on another
+        # code's row, or is clipped onto the last one)
+        keys, ver_hi, ver_lo, row_offsets, entry_packed = table
+        U = keys.shape[0]
+        if U == 0:
+            hit_valid = torch.zeros((B, M, K), dtype=torch.bool, device=dev)
+            entry = torch.zeros((B, M, K), dtype=torch.int32, device=dev)
+        else:
+            r = torch.clamp(torch.searchsorted(keys, qhash), max=U - 1)
+            found = msel & (ver_hi[r] == mhi) & (ver_lo[r] == mlo)
+            start = torch.where(found, row_offsets[r], 0)
+            cnt = torch.where(found, row_offsets[r + 1] - row_offsets[r], 0)
+            cnt = torch.clamp(cnt, max=K)
+            hit_valid = kk < cnt[..., None]
+            eidx = torch.where(hit_valid, start[..., None] + kk, 0)
+            entry = torch.where(hit_valid, entry_packed[eidx], 0)
     spos = entry & 0x7FFFFFFF
     sflag = (entry >> 31) & 1
     # match strand = query canonical flag XOR entry canonical flag; on the
