@@ -129,11 +129,24 @@ count of IRGSP-1.0), whose more than 2^24 distinct codes take the
 sorted-key layout by themselves: index build seconds, table bytes, the
 culled codes, reads/s, stage seconds, peak device memory, bench.py's gates
 and the records that differ from phase 5's.
+The multi-device path follows (ngsepcore_tpu_torch/distribute, no kernel
+of its own).  Phase 25 runs ShardedAlignCallPipeline on a mesh of two
+shards of the card against two shards of the CPU on phase 4's 50 kb input
+(records equal to each other and to phase 4's unsharded ones), the CUDA
+run's first window through the sharded span kernel, its first tier-3 group
+through the sharded sweep and sharded_call_step on 2,048 reads on both
+meshes; then phase 5's genome, reads and index on cuda:0 x D for D = 1, 2,
+4 and 4 again: records identical at every D and to phase 5's, bench.py's
+gates, every shard launching the Gotoh kernel and the walk, no
+shear-histogram launch; wall, stage seconds, launches and host syncs by
+shard and peak device memory for each D.  Shards of one card are the
+counterpart of the JAX tests' virtual CPU devices, not a scaling claim.
 With --phases only the listed phases run (and the ones whose data they
 use; 0 and 1 always run).
 Prints one line per phase and exits nonzero at the first failure.  The
 last lines are a JSON object of the kernels (launch counts from the timed
-runs of phases 5, 6, 9, 10, 13, 15, 17, 19, 23 and 24, errors and times measured here; the
+runs of phases 5, 6, 9, 10, 13, 15, 17, 19, 23, 24 and 25 (its first D = 4 run, by
+shard too), errors and times measured here; the
 tier-2 and long-read entries at the launched shape that takes most of
 their time), the card's name and power limit, and the result line.  A kernel's bound is the least time the card could take: the
 larger of its bytes (inputs read once, outputs written once) over the
@@ -2155,6 +2168,238 @@ def phase_rice_sized(counters, data5, device="cuda", total_bp=RICE_BP):
     if cuda:
         walk_route(counters, "tier3", "phase 24, fused")
     return launches
+
+
+# phase 25 meshes on one card: D = 4 twice, since a missed wait between
+# streams gives wrong records only some of the time
+MESH_SHARDS = (1, 2, 4, 4)
+# relative tolerances of tests/test_torch_distribute.py: the span kernel's
+# float64 products summed in other orders; posteriors, 10^x on each side
+MESH_FLOAT_RTOL = 1e-9
+MESH_POST_RTOL = 1e-12
+
+
+def _sharded_pipeline(genome, devices, batch_size, table=None):
+    from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
+    from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
+    from ngsepcore_tpu_torch.distribute import make_reads_mesh
+    from ngsepcore_tpu_torch.distribute.pipeline import ShardedAlignCallPipeline
+
+    mesh = make_reads_mesh(devices=devices)
+    return ShardedAlignCallPipeline(
+        genome, aligner=ReadsAligner(genome, table=table, device=mesh.lead),
+        detector=SingleSampleVariantsDetector(genome, sample_id="s1", device=mesh.lead),
+        batch_size=batch_size, mesh=mesh,
+    )
+
+
+def _first_calls(pipe):
+    """[args, kw] of the first window's sharded span kernel call and of
+    the first tier-3 sweep, filled in as the pipeline runs."""
+    firsts = {}
+
+    def spy(name, fn):
+        def f(*args, **kw):
+            firsts.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+        return f
+
+    pipe._span_kernel = spy("span", pipe._span_kernel)
+    pipe.aligner.dp_run_all_fn = spy("dp", pipe.aligner.dp_run_all_fn)
+    return firsts
+
+
+def _on_cpu(x):
+    import torch
+
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _max_rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if not a.size:
+        return 0.0
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+
+def _call_step_inputs(rng, B=2048, L=160, W=1 << 16, read_len=150):
+    """sharded_call_step's inputs at the fused path's widths: reads of 150
+    bp copied from a random genome with 1% substitutions, subjects the
+    genome at the same start, qualities 2-40, window offsets the starts."""
+    g = rng.integers(0, 4, W + L).astype(np.int8)
+    pos = rng.integers(0, W - read_len, B)
+    idx = pos[:, None] + np.arange(L)[None, :]
+    subjects = g[idx]
+    reads = subjects.copy()
+    sub = rng.random((B, L)) < 0.01
+    reads[sub] = (reads[sub] + 1) % 4
+    reads[:, read_len:] = 4
+    quals = rng.integers(2, 41, (B, L)).astype(np.int8)
+    return (reads, np.full(B, read_len, np.int32), subjects, np.full(B, L, np.int32),
+            quals, pos.astype(np.int32)), W
+
+
+def phase_mesh_50kb(counters, keys4=None, device="cuda"):
+    """Phase 25 (a): ShardedAlignCallPipeline on ["cuda:0"] * 2 against
+    ["cpu"] * 2 on phase 4's 50 kb input, records equal to each other and to
+    phase 4's unsharded CUDA ones; the CUDA run's first window through the
+    sharded span kernel and its first tier-3 group through the sharded
+    sweep (in 4 times as many chunks, so both shards work) on both meshes;
+    sharded_call_step at two shards on both.  (device="cpu" rehearses the
+    phase on the CPU alone.)"""
+    import torch
+
+    from ngsepcore_tpu_torch.distribute import make_reads_mesh, sharded_call_step
+    from ngsepcore_tpu_torch.distribute.pipeline import (
+        make_sharded_dp_run_all,
+        make_sharded_span_kernel,
+    )
+    from ngsepcore_tpu_torch.kernels.genotyping import (
+        genotype_window_hist_resolve_batch,
+        snv_contribution_table,
+    )
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        try:
+            make_reads_mesh(torch.cuda.device_count() + 1, device="cuda")
+        except RuntimeError:
+            pass  # a mesh of more cards than the machine has raises
+        else:
+            fail("a mesh of more CUDA devices than visible did not raise")
+    genome, reads = _simulate_50kb()
+    if keys4 is None:
+        _, rec4 = _run_pipeline(genome, reads, device, 1024)
+        keys4 = [record_key(r) for r in rec4]
+    card = device + (":0" if device == "cuda" else "")
+    keys, firsts = [], None
+    for devices in ([card] * 2, ["cpu"] * 2):
+        pipe = _sharded_pipeline(genome, devices, 1024)
+        calls = _first_calls(pipe)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        with plain_post_pass_forbidden(devices[0].split(":")[0]):
+            recs = pipe.run_reads(reads)
+        sync(devices[0])
+        keys.append([record_key(r) for r in recs])
+        log(f"phase 25 50 kb on {devices}: {len(recs)} records "
+            f"({time.perf_counter() - t0:.2f}s), launches by shard "
+            f"{[dict(c) for c in pipe.mesh.launches]}, host syncs in shards "
+            f"{pipe.mesh.host_syncs}")
+        if firsts is None:
+            firsts = calls
+            if device == "cuda":
+                # a group here has one or two chunks, so a shard may get none
+                walk_route(counters, "tier3", "phase 25 50 kb")
+                if not sum(c["gotoh_forward"] for c in pipe.mesh.launches):
+                    fail("the sharded 50 kb run launched no Gotoh kernel in a shard")
+    if len(keys[0]) <= 10 or not keys[0] == keys[1] == keys4:
+        fail("phase 25: sharded CUDA, sharded CPU and phase 4's unsharded records differ")
+    if set(firsts) != {"span", "dp"}:
+        fail(f"the sharded CUDA run missed a sharded function: {sorted(firsts)}")
+
+    # the CUDA run's inputs on a CUDA mesh and, copied, on a CPU mesh
+    meshes = [make_reads_mesh(devices=d) for d in ([card] * 2, ["cpu"] * 2)]
+    both = lambda a: (a, [_on_cpu(x) for x in a])
+    args, kw = firsts["span"]
+    got = genotype_window_hist_resolve_batch([
+        make_sharded_span_kernel(m)(*a, **kw) for m, a in zip(meshes, both(args))
+    ])
+    ints = ("site_idx", "bi", "bj", "gq", "depths", "total", "strand_counts")
+    span_err = max(_max_rel(got[0][f], got[1][f]) for f in ("ref_prob", "logcond"))
+    if (got[0]["n_sites"] != got[1]["n_sites"] or got[0]["n_flagged"] != got[1]["n_flagged"]
+            or any(not np.array_equal(got[0][f], got[1][f]) for f in ints)
+            or span_err > MESH_FLOAT_RTOL):
+        fail(f"phase 25: the sharded span kernel differs, CUDA against CPU (float rel {span_err})")
+    args, kw = firsts["dp"]
+    kw = dict(kw, CH=kw["CH"] // 4, n_chunks=kw["n_chunks"] * 4)
+    dp = [make_sharded_dp_run_all(m)(*a, **kw) for m, a in zip(meshes, both(args))]
+    if any(not torch.equal(dp[0][k].cpu(), dp[1][k]) for k in dp[1]):
+        fail("phase 25: the sharded tier-3 sweep differs, CUDA against CPU")
+    step_args, W = _call_step_inputs(np.random.default_rng(25))
+    C = snv_contribution_table()
+    st = [[_on_cpu(x) for x in sharded_call_step(m, W, C)(*step_args)] for m in meshes]
+    post_err = _max_rel(st[0][3], st[1][3])
+    if (any(not torch.equal(st[0][i], st[1][i]) for i in range(3))
+            or post_err > MESH_POST_RTOL):
+        fail(f"phase 25: sharded_call_step differs, CUDA against CPU (posteriors rel {post_err})")
+    log(f"  span kernel on window 1: {got[0]['n_sites']} sites, {got[0]['n_flagged']} flagged, "
+        f"float rel {span_err:.3g}; tier-3 sweep {kw['n_chunks']} x {kw['CH']} rows equal; "
+        f"sharded_call_step {len(step_args[0])} reads, counts {int(st[0][2].sum())}, "
+        f"posteriors rel {post_err:.3g} (tolerance {MESH_POST_RTOL}); "
+        f"phase 25 (a) {time.perf_counter() - t_phase:.1f}s")
+
+
+def phase_mesh_real_size(counters, data5, smi: str, device="cuda"):
+    """Phase 25 (b): phase 5's genome, reads and index through
+    ShardedAlignCallPipeline on ["cuda:0"] * D for D in MESH_SHARDS: records
+    identical at every D and to phase 5's unsharded ones, bench.py's gates,
+    every walk in the tier3 mode, no shear-histogram launch (the mesh
+    genotypes on the span path), every shard launching the Gotoh kernel
+    and the walk.  Prints wall, stage seconds, launches and host syncs by
+    shard and peak memory for each D.  Returns the first D = 4 run's
+    launches, for the kernels line.  (device="cpu" rehearses the phase.)"""
+    import torch
+
+    from bench import check_accuracy
+    from ngsepcore_tpu_torch.utils import profiling
+
+    _, _, records5, genome, reads, truth, table, _, _ = data5
+    keys5 = [record_key(r) for r in records5]
+    cuda = device == "cuda"
+    card = device + (":0" if cuda else "")
+    out, keys = None, []
+    for D in MESH_SHARDS:
+        pipe = _sharded_pipeline(genome, [card] * D, 65536, table=table)
+        sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        profiling.enable()
+        profiling.reset()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        recs = pipe.run_reads(reads)
+        sync(device)
+        dt = time.perf_counter() - t0
+        profiling.enable(False)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+        launches = {c.__name__: c.launches for c in counters}
+        mesh = pipe.mesh
+        stages = {k: profiling._stages.get(k, [0.0, 0])[0] for k in (
+            "align.seed_dispatch", "align.tier3_dispatch", "call.window_dispatch")}
+        acc = check_accuracy(recs, *truth)
+        keys.append([record_key(r) for r in recs])
+        log(f"phase 25 {genome.total_length} bp, {len(reads)} reads on {card} x {D} ({smi}): "
+            f"{dt:.3f}s = {len(reads) / dt:.1f} reads/s; {len(recs)} records; stages "
+            + ", ".join(f"{k} {v:.3f}s" for k, v in stages.items())
+            + f"; launches by shard {[dict(c) for c in mesh.launches]}; host syncs in shards "
+            f"{mesh.host_syncs}; peak {peak:.3f} GiB; accuracy {json.dumps(acc['metrics'])}")
+        if cuda:
+            walk_route(counters, "tier3", f"phase 25, D = {D}")
+        if launches["shear_hist"]:
+            fail(f"phase 25, D = {D}: the mesh took the histogram genotyper")
+        by_shard = {k: sum(c[k] for c in mesh.launches) for k in ("gotoh_forward", "run_walk")}
+        if cuda and (by_shard != {"gotoh_forward": launches["gotoh_forward_plane"],
+                                  "run_walk": launches["_runs_from_plane"]}
+                     or not all(c["gotoh_forward"] and c["run_walk"] for c in mesh.launches)):
+            fail(f"phase 25, D = {D}: launches {launches}, by shard {mesh.launches}: every "
+                 "launch should come from a shard, and every shard should launch")
+        if acc["gates"]:
+            fail(f"phase 25, D = {D}: accuracy gates: " + "; ".join(acc["gates"]))
+        if D == 4 and out is None:
+            out = {"gotoh_forward_plane": launches["gotoh_forward_plane"],
+                   "_runs_from_plane": launches["_runs_from_plane"],
+                   "by_shard": [dict(c) for c in mesh.launches]}
+        del pipe
+    if any(k != keys5 for k in keys):
+        diff = [len(set(k) ^ set(keys5)) for k in keys]
+        fail(f"phase 25: sharded records differ from phase 5's (symmetric differences {diff})")
+    return out
+
+
+def phase_mesh(counters, data5, keys4, smi: str):
+    phase_mesh_50kb(counters, keys4)
+    return phase_mesh_real_size(counters, data5, smi)
 
 
 # ---------------------------------------------------------------------------
@@ -5475,10 +5720,10 @@ def phase_gbs_real_size(device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-PHASES = ("2", "2b", "2c", "2d", "3", "4", "5", "6", "7", "9", "10", "12", "13", "8", "11",
-          "24", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23")
+PHASES = ("2", "2b", "2c", "2d", "3", "4", "5", "6", "7", "9", "10", "12", "13", "25", "8",
+          "11", "24", "14", "15", "16", "17", "18", "19", "20", "21", "22", "23")
 # uses that phase's data
-NEEDS = {"6": "4", "8": "5", "10": "5", "11": "5", "13": "5", "24": "5"}
+NEEDS = {"6": "4", "8": "5", "10": "5", "11": "5", "13": "5", "24": "5", "25": "5"}
 
 
 def _chosen(argv):
@@ -5555,6 +5800,10 @@ def main(argv=None) -> None:
         elif p == "13":
             _, _, _, genome, _, truth, table, _, _ = t["5"]
             t[p] = phase_population_real_size(pop_counters, genome, table, truth[2])
+        elif p == "25":
+            torch.cuda.empty_cache()
+            t[p] = phase_mesh(counters, t["5"], t.get("4"), smi)
+            torch.cuda.empty_cache()
         elif p in ("8", "11"):
             if "d" not in t:  # phase 8's FASTQ and FASTA serve phase 11
                 t["5"] = t["5"][:6] + (None,) + t["5"][7:]  # drop the table
@@ -5726,6 +5975,17 @@ def kernel_entries(t: dict) -> list:
             out.append(entry("shear_hist_rice", "ngsepcore_tpu_torch/csrc/shear_hist.cu",
                              "ngsepcore_tpu/kernels/shear_pileup.py:227",
                              t["24"]["shear_hist"], t["3"][1]))
+    if "25" in t:
+        # the fused path over a mesh of four shards of the card (phase 25's
+        # first D = 4 run), timed at the fused path's shapes
+        if g:
+            out.append(entry("gotoh_forward_mesh", *gotoh, t["25"]["gotoh_forward_plane"],
+                             g["main-path chunk 2048x160x160"]))
+            out[-1]["launches_by_shard"] = [c["gotoh_forward"] for c in t["25"]["by_shard"]]
+        if w:
+            wt = w["fused tier 3 2048x160x160"]
+            out.append(entry("run_walk_mesh", *walk(wt), t["25"]["_runs_from_plane"], wt))
+            out[-1]["launches_by_shard"] = [c["run_walk"] for c in t["25"]["by_shard"]]
     if "13" in t and "2b" in t:
         # a lax.scan in the JAX package, no Pallas counterpart; launches of
         # the read-depth HMM callers at full width (phase 13)

@@ -221,6 +221,9 @@ class ReadsAligner:
         self.table = table
         self.known_strs = known_strs
         self._tier2 = None
+        # the tier-3 sweep (kernels/pairwise.dp_run_all when None;
+        # distribute/pipeline.py sets the sharded one)
+        self.dp_run_all_fn = None
         # stats (ref: ReadsAligner printStatistics)
         self.total_reads = 0
         self.aligned_reads = 0
@@ -591,9 +594,10 @@ class ReadsAligner:
         if n == 0:
             return None
 
-        from ..kernels.pairwise import dp_run_all
+        from ..kernels.pairwise import dp_run_all as plain_dp_run_all
         from ..utils.profiling import stage
 
+        dp_run_all = self.dp_run_all_fn or plain_dp_run_all
         dev = bigpq.device
         concat_dev = self.genome.device_concat(dev)
         self.complete_alns += n

@@ -281,6 +281,8 @@ class AlignCallPipeline:
         self._offs_dev = torch.from_numpy(
             np.asarray(genome.offsets, np.int64)
         ).to(self.device)
+        # the window genotyper; distribute/pipeline.py sets the sharded one
+        self._span_kernel = None
 
     # ------------------------------------------------------------------
     def run_reads(self, reads: list[RawRead]) -> list[VCFRecord]:
@@ -378,6 +380,7 @@ class AlignCallPipeline:
         lengths_dev = torch.from_numpy(
             np.concatenate([st.lengths for st in batches]).astype(np.int32)
         ).to(self.device)
+        bigpq, lengths_dev = self._prepare_tier3_arrays(bigpq, lengths_dev)
         rows_l, str_l, ql_l, f_l, l_l, bi_l = [], [], [], [], [], []
         for bi, m in enumerate(metas):
             if not m:
@@ -430,6 +433,11 @@ class AlignCallPipeline:
             rows, strand, qlen, firsts, lasts, bigpq, lengths_dev
         )
         return {"pend": pend, "store": store, "qget": qget}
+
+    def _prepare_tier3_arrays(self, bigpq, lengths_dev):
+        """Mesh seam: the sharded pipeline puts the DP gather operands on
+        each of its devices (distribute/pipeline.py)."""
+        return bigpq, lengths_dev
 
     def _tier3_finish_fused(self, launched) -> dict | None:
         """Fetch + decode a _tier3_dispatch_fused launch into its store."""
@@ -679,13 +687,42 @@ class AlignCallPipeline:
         )
 
     # ------------------------------------------------------------------
+    def _put_reads(self, pq: np.ndarray):
+        """Upload one packed read batch (mesh seam: the sharded pipeline
+        uploads one row block a shard)."""
+        return torch.from_numpy(pq).to(self.device)
+
+    def _device_put_repl(self, x: np.ndarray) -> torch.Tensor:
+        """Upload an array every window reads (mesh seam: the sharded
+        pipeline also puts a copy on each of its devices)."""
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _seed_screen(self, pq_dev, lengths_h: np.ndarray, const_len):
+        """seed_cluster_screen on an uploaded batch (mesh seam: the sharded
+        pipeline seeds each row block on its shard).  Returns (the packed
+        batch, its lengths and the seeding outputs) on the pipeline's
+        device."""
+        from ..kernels.seeding import seed_cluster_screen
+
+        al = self.aligner
+        lengths_dev = torch.from_numpy(lengths_h).to(self.device)
+        gp, gn2 = self.genome.device_packed(self.device)
+        res = seed_cluster_screen(
+            pq_dev, lengths_dev, al.table.device_arrays(self.device), gp, gn2,
+            k=al.kmer_length,
+            window=al.window_length,
+            genome_len=self.genome.total_length,
+            const_len=const_len,
+            genome_has_n=self.genome.has_n,
+        )
+        return pq_dev, lengths_dev, res
+
     def _seed_batch(self, reads):
         """Pack + upload one batch and run the seeding and classification
         on the pipeline's device; returns everything _classify_batch
         needs.  `reads` is a ReadBlock (dense matrices straight from
         IO/simulators) or a list of RawRead objects."""
         from ..core.sequences import ReadBlock
-        from ..kernels.seeding import seed_cluster_screen
 
         al = self.aligner
         B = len(reads)
@@ -751,17 +788,7 @@ class AlignCallPipeline:
         # seeding (which masks the code bits), the tier-3 gather and the
         # pileup
         pq = (fwd_mat.view(np.uint8) & 7) | _QUAL_LUT3[qmat]
-        pq_dev = torch.from_numpy(pq).to(self.device)
-        lengths_dev = torch.from_numpy(lengths_h).to(self.device)
-        gp, gn2 = self.genome.device_packed(self.device)
-        res = seed_cluster_screen(
-            pq_dev, lengths_dev, al.table.device_arrays(self.device), gp, gn2,
-            k=al.kmer_length,
-            window=al.window_length,
-            genome_len=self.genome.total_length,
-            const_len=cl,
-            genome_has_n=self.genome.has_n,
-        )
+        pq_dev, lengths_dev, res = self._seed_screen(self._put_reads(pq), lengths_h, cl)
         clf = self._dispatch_classify(res, lengths_dev)
         return reads, fwd_mat, lengths_h, pq_dev, clf
 
@@ -1202,7 +1229,10 @@ class AlignCallPipeline:
             meta_h[dst_rows, META_LEN] = st.lengths[rows]
             place_fused_rows(pq, st.pq_dev, up(rows.astype(np.int64)), up(dst_rows))
             r0 += nb
-        return {"pq": pq, "meta": up(meta_h), "pred": pred_h[order], "Lp": Lp}
+        return {
+            "pq": pq, "meta": self._device_put_repl(meta_h), "pred": pred_h[order],
+            "Lp": Lp,
+        }
 
     def _genotype_span(
         self, batches: list[_BatchState], host: list[ReadAlignment]
@@ -1228,6 +1258,7 @@ class AlignCallPipeline:
         het = float(det.heterozygosity_rate)
         minq = int(det.min_quality)
         empty_pk = torch.empty(0, dtype=torch.int32, device=dev)
+        span_kernel = self._span_kernel or genotype_window_span
         records: list[VCFRecord] = []
         pending = []
         for si in range(genome.num_sequences):
@@ -1273,7 +1304,7 @@ class AlignCallPipeline:
                 ref_win = np.full(window, 4, dtype=np.int8)
                 ref_win[: w1 - w0 + 1] = genome.sequences[si].codes[w0 - 1 : w1]
                 with stage("call.window_dispatch"):
-                    res = genotype_window_span(
+                    res = span_kernel(
                         fused["pq"] if fused else None,
                         fused["meta"] if fused else None,
                         slo, count, w0_concat, pk, up(ref_win), contribution,

@@ -23,6 +23,9 @@ Three genotypers share that math and differ in how counts arrive:
   calls, for runs the histogram path cannot bin (> 29 qualities);
 - genotype_window_hist: the shear-histogram pileup (kernels/shear_pileup).
 
+genotype_posteriors gives the posteriors of every position of a count
+tensor, unscreened (the mesh's sharded_call_step, distribute/mesh.py).
+
 Each screens every position in float32 and recomputes only the flagged
 positions exactly (_screen_flag, _exact_sites).  Integer scatters
 (index_add_ on int32) give the same counts in any order.
@@ -220,12 +223,11 @@ def _sum_genotypes(flat: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _posterior_decision(logcond, refs, het_rate: float, n: int):
-    """Posteriors with the 1e-20 truncation, the genotype decision with
-    +0.01 margins (VariantDiscoverySNVQAlgorithm.getIndexesMaxGenotype)
-    and GQ for F positions, from float64 logcond (F, n, n) and clamped
-    reference alleles refs (F,).  Returns (bi, bj, gq int32, ref_prob)."""
-    dev = logcond.device
+def _posteriors(logcond, het_rate: float, n: int):
+    """(F, n, n) float64 posteriors from float64 logcond (F, n, n): the
+    homozygous and heterozygous log priors, the shift by each row's
+    maximum, the 1e-20 truncation and the normalisation
+    (CountsHelper.java:480-495)."""
     F = logcond.shape[0]
     prior = torch.from_numpy(
         np.where(
@@ -233,12 +235,22 @@ def _posterior_decision(logcond, refs, het_rate: float, n: int):
             np.log10((1 - het_rate) / n),
             np.log10(het_rate / (n * (n - 1))),
         )
-    ).to(dev)
+    ).to(logcond.device)
     ev = logcond + prior[None, :, :]
     logmax = torch.amax(ev.reshape(F, n * n), dim=1)[:, None, None]
     rel = ev - logmax
     p = torch.where(rel < -20.0, 0.0, torch.pow(10.0, rel))
-    post = p / _sum_genotypes(p.reshape(F, n * n))[:, None, None]
+    return p / _sum_genotypes(p.reshape(F, n * n))[:, None, None]
+
+
+def _posterior_decision(logcond, refs, het_rate: float, n: int):
+    """Posteriors (_posteriors), the genotype decision with +0.01 margins
+    (VariantDiscoverySNVQAlgorithm.getIndexesMaxGenotype) and GQ for F
+    positions, from float64 logcond (F, n, n) and clamped reference
+    alleles refs (F,).  Returns (bi, bj, gq int32, ref_prob)."""
+    dev = logcond.device
+    F = logcond.shape[0]
+    post = _posteriors(logcond, het_rate, n)
     frows = torch.arange(F, device=dev)
     best = post[frows, refs, refs]
     bi = refs
@@ -521,6 +533,22 @@ def _logcond_in_order(counts: torch.Tensor, contribution: torch.Tensor) -> torch
     for k in range(n * nq):
         acc = acc + x[:, k : k + 1] * m[k]
     return acc.reshape(P, n, n)
+
+
+def genotype_posteriors(
+    counts: torch.Tensor,  # (P, n, Q) int32
+    contribution: torch.Tensor,  # (n, Q, n, n) float64
+    het_rate: float = HET_RATE_DIPLOID,
+    n_alleles: int = 4,
+):
+    """Posterior genotype probabilities of every position of a count
+    tensor (ngsepcore_tpu.kernels.genotyping.genotype_posteriors;
+    CountsHelper.getPosteriorProbabilities + calculatePosteriorProbabilities,
+    CountsHelper.java:410-495).  Returns (post, logcond), both (P, n, n)
+    float64; logcond adds its terms in XLA:CPU's order
+    (_logcond_in_order)."""
+    logcond = _logcond_in_order(counts, contribution)
+    return _posteriors(logcond, het_rate, n_alleles), logcond
 
 
 def genotype_window_from_counts(

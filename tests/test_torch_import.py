@@ -103,6 +103,8 @@ def test_port_imports_without_jax_triton_or_nvcc():
         "ngsepcore_tpu_torch.gwas.glm",
         "ngsepcore_tpu_torch.kernels.pairwise_simple",
         "ngsepcore_tpu_torch.align.pairwise_aligners",
+        "ngsepcore_tpu_torch.distribute.mesh",
+        "ngsepcore_tpu_torch.distribute.pipeline",
     ):
         assert mod in got["modules"]
     assert got["jax"] == []
