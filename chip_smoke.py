@@ -1574,6 +1574,26 @@ def _device_to_host_copies(fn):
     return out, sum("DtoH" in n for n in names), sum("viterbi_kernel" in n for n in names)
 
 
+VITERBI_POISSON_T = (1, 2, 33, 46_000, 120_000)  # phase 2b's Poisson cases, in order
+
+
+def _viterbi_poisson_ref_cpu(T):
+    """Phase 2b's plain reference for its Poisson S=5 case of T steps, in a
+    process of its own: the Poisson cases drawn again from rng 5 in phase
+    2b's order, viterbi_log_ref on the CPU with two torch threads; (path,
+    best) as numpy arrays."""
+    import torch
+
+    from ngsepcore_tpu_torch.kernels.hmm import viterbi_log_ref
+
+    torch.set_num_threads(2)
+    rng = np.random.default_rng(5)
+    cases = {t: _poisson_hmm(rng, t) for t in VITERBI_POISSON_T}
+    path, best = viterbi_log_ref(*(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float64))
+                                   for a in cases[T]))
+    return path.numpy(), best.numpy()
+
+
 def phase_viterbi():
     """The Viterbi kernel against the plain step loop on the card: path
     and best score bit for bit, one sequence a launch and ragged batches;
@@ -1586,12 +1606,14 @@ def phase_viterbi():
     from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
     from ngsepcore_tpu_torch.kernels.hmm import viterbi_log, viterbi_log_batch, viterbi_log_ref
 
+    # the longest case's plain reference (~15 s of host) runs meanwhile
+    ref_longest = _InBackground(functools.partial(_viterbi_poisson_ref_cpu,
+                                                  VITERBI_POISSON_T[-1]))
     lat = viterbi_latencies()
     log("phase 2b viterbi chain links, cycles: " + ", ".join(
         f"{k} {lat[k]:.2f}" for k in VITERBI_LATENCY_KINDS))
     rng = np.random.default_rng(5)
-    cases = [(f"Poisson S=5 T={T}", _poisson_hmm(rng, T))
-             for T in (1, 2, 33, 46_000, 120_000)]
+    cases = [(f"Poisson S=5 T={T}", _poisson_hmm(rng, T)) for T in VITERBI_POISSON_T]
     cases += [
         ("random S=32 T=2000", _random_hmm(rng, 2000, 32)),
         ("random S=1 T=50", _random_hmm(rng, 50, 1)),
@@ -1620,7 +1642,11 @@ def phase_viterbi():
         torch.cuda.synchronize()
         # the plain loop on the CPU: the same adds, maxima and ties as on
         # the card, at a step's host cost instead of its launches'
-        want_path, want_best = (x.cuda() for x in viterbi_log_ref(*(a.cpu() for a in args)))
+        if name == f"Poisson S=5 T={VITERBI_POISSON_T[-1]}":
+            want = (torch.from_numpy(x) for x in ref_longest.result("phase 2b"))
+        else:
+            want = viterbi_log_ref(*(a.cpu() for a in args))
+        want_path, want_best = (x.cuda() for x in want)
         refs[name] = (arrays, want_path, want_best)
         bad = int((path != want_path).sum())
         same_best = same(best, want_best)
@@ -2010,7 +2036,8 @@ def port_classes():
     )
 
 
-def real_size_inputs(mbp=GENOME_MBP, n_reads=N_READS, classes=None) -> dict:
+def real_size_inputs(mbp=GENOME_MBP, n_reads=N_READS, classes=None,
+                     with_reads=True) -> dict:
     """bench.py's workload at `mbp` Mbp and `n_reads` reads (bench.py's own
     at 12.0 and 900,000): build_repeat_genome(default_rng(2024)) with
     bench's 30 families and 400 tandem arrays scaled by mbp / 12, one
@@ -2019,7 +2046,8 @@ def real_size_inputs(mbp=GENOME_MBP, n_reads=N_READS, classes=None) -> dict:
     `classes` holds a package's ReferenceGenome, QualifiedSequence,
     QualifiedSequenceList, ReadBlock, SingleIndividualSimulator and
     SingleReadsSimulator (port_classes() by default).  Returns codes,
-    repeat_iv (merged), tandem, genome, reads, truth_snv {(first, alt)},
+    repeat_iv (merged), tandem, genome, reads (None, and not simulated,
+    unless `with_reads`), truth_snv {(first, alt)},
     truth_indel_pos and in_repeat (bench.check_accuracy's mask)."""
     k = classes or port_classes()
     rng = np.random.default_rng(2024)
@@ -2036,12 +2064,14 @@ def real_size_inputs(mbp=GENOME_MBP, n_reads=N_READS, classes=None) -> dict:
 
     sim = k.SingleIndividualSimulator(genome_of(), snv_rate=0.001, indel_rate=0.0001, seed=7)
     sim.simulate()
-    reads = k.ReadBlock.concatenate([
-        k.SingleReadsSimulator(
-            hg, read_length=READ_LEN, substitution_error_rate=0.003, seed=11 + h
-        ).simulate_block(n_reads // 2)
-        for h, hg in enumerate(sim.build_haplotype_genomes())
-    ])
+    reads = None
+    if with_reads:
+        reads = k.ReadBlock.concatenate([
+            k.SingleReadsSimulator(
+                hg, read_length=READ_LEN, substitution_error_rate=0.003, seed=11 + h
+            ).simulate_block(n_reads // 2)
+            for h, hg in enumerate(sim.build_haplotype_genomes())
+        ])
     in_repeat = np.zeros(L + 2, bool)
     for lo, hi in repeat_iv:
         in_repeat[max(0, lo - READ_LEN) : hi + READ_LEN] = True
@@ -2053,12 +2083,44 @@ def real_size_inputs(mbp=GENOME_MBP, n_reads=N_READS, classes=None) -> dict:
     )
 
 
-def records_digest(records) -> tuple:
-    """(count, sha256 of "\\n".join(repr(record_key(r))) in output order)."""
+def lines_digest(lines) -> tuple:
+    """(count, sha256 of "\\n".join(lines)) of text lines in output order."""
     import hashlib
 
-    text = "\n".join(repr(record_key(r)) for r in records)
-    return len(records), hashlib.sha256(text.encode()).hexdigest()
+    lines = list(lines)
+    return len(lines), hashlib.sha256("\n".join(lines).encode()).hexdigest()
+
+
+def records_digest(records) -> tuple:
+    """(count, sha256 of "\\n".join(repr(record_key(r))) in output order)."""
+    return lines_digest(repr(record_key(r)) for r in records)
+
+
+# The digests of what a user reads, each from lines that the package under
+# test prints with its own code: a sample's SAM lines ("\t".join of each
+# alignment's to_sam_fields(), or a SAM file's @SQ lines and records), a VCF
+# body (VCFFileWriter's lines without the header: every sample column of a
+# multisample record counts, where record_key reads only the first).
+sam_digest = vcf_body_digest = lines_digest
+
+
+def cnv_digest(calls) -> tuple:
+    """(count, sha256) of CNV calls, every field exact: repr of each call's
+    fields (dataclasses.asdict) a line."""
+    return lines_digest(repr(f) for f in _call_fields(calls))
+
+
+def sv_fields(variants) -> list:
+    """A long-read SV call's fields, as tests/test_torch_long_reads.py
+    compares them."""
+    return [(v.sequence_name, v.first, v.last, v.length(), tuple(v.alleles),
+             v.variant_type, v.var_id, v.quality, v.genotype_quality,
+             tuple(v.indexes_called_alleles), v.total_read_depth) for v in variants]
+
+
+def sv_digest(variants) -> tuple:
+    """(count, sha256) of long-read SV calls: repr of sv_fields a line."""
+    return lines_digest(repr(f) for f in sv_fields(variants))
 
 
 # The JAX package's records on the CPU, as records_digest gives them
@@ -2069,6 +2131,32 @@ PHASE5_RECORDS = (7888, "1623f5c0a4b9f38ba2a572962b8dca1dd32e70aa6267772443bfbf8
 BENCH_SIZE_RECORDS = (20187, "66cdc47ade32ff3a0d4e652c914fc328bd03d6b411ed25515e7c747cd258f0ed")
 BENCH_MBP = 12.0
 BENCH_N_READS = 900_000
+ALL_CNV_ALGORITHMS = "CNVnator,EWT,PoissonHMM,MAXIMUMLIKELIHOOD"
+# The JAX package's outputs on the CPU at the sizes of phases 13, 15 and 8
+# (tests/test_torch_paths_workload.py holds both packages' CPU outputs to
+# them), as sam_digest, vcf_body_digest, cnv_digest and sv_digest give them:
+# phase 13's SAM lines of each sample (ReadsAligner.align_batch in
+# 32,768-read batches), its VCF body (MultisampleVariantsDetector at
+# min_quality 10) and ind2's CNV calls by POP_CNV_RUNS; phase 15's SAM lines
+# of every group and its long-read SV calls; phase 8's SAM body (@SQ lines
+# and records) and VCF body from the CLI's ReadsAligner and
+# SingleSampleVariantsDetector on phase 5's FASTA and FASTQ.
+PHASE13_SAM = (
+    (183907, "06f392a36f8d89b87ebc7fdee2b58ef494c7098753b23b3c809871c4c30d4626"),
+    (183913, "efda3fd03524be715ab4e9f45ea780f60006d6e5b9129f157e4c2a252c12f391"),
+    (183921, "c0334131c2b95e96fe176fcd4a979689ae609dd04346ddab6c39547fe5c6a543"),
+)
+PHASE13_VCF = (23641, "85bd560853bba361be41cfd6f882373b45073d7bb0ae44d5cbba30140f553608")
+PHASE13_CNVS = {
+    ALL_CNV_ALGORITHMS: (87, "89258d2172c9a7c3674c70267c8657010f17237a28ca276833945c90034058df"),
+    "PoissonHMM": (3, "271610983b62389ed54e31d4fc8a79571f9dc2e1b7c0474153fb463b8f944b88"),
+    "MAXIMUMLIKELIHOOD": (7, "1e65e3d308008d775f43418121f6c2010e4d22674ae3d1755190b182f02d5205"),
+}
+PHASE15_SAM = (600, "2658b8d2d3add59a7dc030f3de9a0c9ff96482b0520f346f8f886a148fe30c55")
+# phase 15 plants no SV, so its caller makes no call
+PHASE15_SVS = (0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
+PHASE8_SAM = (344819, "35d038f90e449c5397809bdb080d772bee0c08e674ab3bad23dc22c3c1a2d2ff")
+PHASE8_VCF = (7888, "92538dfac9b599a19d23de1be0ffbf3de445370bbc95e076c0d3b848620e89eb")
 
 
 def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS, phase="5",
@@ -2603,11 +2691,25 @@ def _cli(args, timeout):
     return dt, [l for l in prof if l.startswith("  ")], summary
 
 
+def sam_file_body(path) -> list:
+    """A SAM file's @SQ lines and records (@HD, @RG and @PG, which names the
+    package, left out), without their line ends."""
+    with open(path) as fh:
+        return [l.rstrip("\n") for l in fh if l.startswith("@SQ") or not l.startswith("@")]
+
+
+def vcf_file_body(path) -> list:
+    """A VCF file's lines without the header, without their line ends."""
+    with open(path) as fh:
+        return [l.rstrip("\n") for l in fh if not l.startswith("#")]
+
+
 def phase_cli(d, genome, reads, truth, fused_records):
     """The classic CLI on phase 5's data; `d` is a scratch directory that
-    keeps genome.fa and reads.fastq for the phases after this one."""
+    keeps genome.fa and reads.fastq for the phases after this one.  The SAM
+    and VCF bodies are held to the JAX CLI's CPU digests (PHASE8_*)."""
     from bench import check_accuracy
-    from ngsepcore_tpu_torch.vcf.io import VCFFileReader, VCFFileWriter
+    from ngsepcore_tpu_torch.vcf.io import VCFFileReader
 
     t0 = time.perf_counter()
     _write_inputs(d, genome, reads)
@@ -2629,15 +2731,20 @@ def phase_cli(d, genome, reads, truth, fused_records):
         print(f"  call {line.strip()}", flush=True)
     log(f"  classic CLI total {t_al + t_vc:.3f}s = "
         f"{len(reads) / (t_al + t_vc):.1f} reads/s")
+    cli_lines = vcf_file_body(vcf + ".vcf")
+    digests = {"sam": sam_digest(sam_file_body(sam)), "vcf": vcf_body_digest(cli_lines)}
+    log(f"  phase 8 digests: {json.dumps(digests)}")
+    if digests != {"sam": PHASE8_SAM, "vcf": PHASE8_VCF}:
+        fail(f"phase 8's SAM or VCF body digest is not the JAX CLI's {PHASE8_SAM}, "
+             f"{PHASE8_VCF}")
     records = VCFFileReader(vcf + ".vcf").load_all()
-    with VCFFileWriter(os.path.join(d, "fused.vcf"), ["s1"]) as w:
-        for r in fused_records:
-            w.write(r)
-    body = lambda p: [l for l in open(p) if not l.startswith("#")]
-    cli_lines, fused_lines = body(vcf + ".vcf"), body(os.path.join(d, "fused.vcf"))
+    fused_lines = _vcf_body(fused_records, ["s1"])
     n_diff = len(set(cli_lines) ^ set(fused_lines))
     log(f"  {len(records)} records; differing from phase 5's fused "
         f"records: {n_diff} (of {len(cli_lines)} and {len(fused_lines)})")
+    # the JAX package's CLI and fused VCF bodies are equal at this size
+    if n_diff:
+        fail(f"the CLI's VCF body differs from phase 5's fused records in {n_diff} lines")
     acc = check_accuracy(records, *truth)
     log(f"  accuracy: {json.dumps(acc['metrics'])}")
     if acc["gates"]:
@@ -3150,7 +3257,6 @@ def phase_kmers(d, genome, reads, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-ALL_CNV_ALGORITHMS = "CNVnator,EWT,PoissonHMM,MAXIMUMLIKELIHOOD"
 # -minQuality of the 6x population run.  At 6x a heterozygous site seldom
 # reaches the default 40 (about half of the true sites would be called), so
 # a low-coverage population is called at 10; the share of the records that
@@ -3158,36 +3264,38 @@ ALL_CNV_ALGORITHMS = "CNVnator,EWT,PoissonHMM,MAXIMUMLIKELIHOOD"
 POP_MIN_QUALITY = 10
 
 
-def _vcf_body(records, samples):
-    """The records as the lines VCFFileWriter prints for them."""
+def _vcf_body(records, samples, writer=None):
+    """The records as the lines `writer` (a package's VCFFileWriter class;
+    the port's by default) prints for them."""
     import io
 
-    from ngsepcore_tpu_torch.vcf.io import VCFFileWriter
+    if writer is None:
+        from ngsepcore_tpu_torch.vcf.io import VCFFileWriter as writer
 
     buf = io.StringIO()
-    w = VCFFileWriter(buf, samples)
+    w = writer(buf, samples)
     for r in records:
         w.write(r)
     return [l for l in buf.getvalue().splitlines() if not l.startswith("#")]
 
 
-def _genome_of(name, codes):
-    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
-    from ngsepcore_tpu_torch.core.sequences import QualifiedSequence, QualifiedSequenceList
+def _genome_of(name, codes, classes=None):
+    """A one-sequence ReferenceGenome of `classes` (port_classes() by
+    default; see real_size_inputs)."""
+    k = classes or port_classes()
+    seqs = k.QualifiedSequenceList()
+    seqs.add(k.QualifiedSequence(name=name, codes=codes))
+    return k.ReferenceGenome(seqs)
 
-    seqs = QualifiedSequenceList()
-    seqs.add(QualifiedSequence(name=name, codes=codes))
-    return ReferenceGenome(seqs)
 
-
-def _with_svs(hap_genome, dup, dele):
+def _with_svs(hap_genome, dup, dele, classes=None):
     """The haplotype genome with a tandem duplication of [dup) and without
     [dele) (0-based half-open, dup left of dele; both homozygous when every
     haplotype gets them)."""
     c = hap_genome.sequences[0].codes
     assert dup[1] <= dele[0]
     c = np.concatenate([c[: dup[1]], c[dup[0] : dele[0]], c[dele[1] :]])
-    return _genome_of(hap_genome.sequence_name(0), c)
+    return _genome_of(hap_genome.sequence_name(0), c, classes)
 
 
 def _align_all(aligner, reads, batch):
@@ -3198,20 +3306,18 @@ def _align_all(aligner, reads, batch):
     return alns
 
 
-def _sample_reads(genome, seed, n_reads, read_len, error, svs=None):
+def _sample_reads(genome, seed, n_reads, read_len, error, svs=None, classes=None):
     """A diploid individual of `genome` (SNV 0.001, indel 0.0001) and its
-    reads, half from each haplotype: (truth calls, ReadBlock)."""
-    from ngsepcore_tpu_torch.core.sequences import ReadBlock
-    from ngsepcore_tpu_torch.simulation.individual_simulator import SingleIndividualSimulator
-    from ngsepcore_tpu_torch.simulation.reads_simulator import SingleReadsSimulator
-
-    sim = SingleIndividualSimulator(genome, snv_rate=0.001, indel_rate=0.0001, seed=seed)
+    reads, half from each haplotype, built with `classes` (port_classes()
+    by default): (truth calls, ReadBlock)."""
+    k = classes or port_classes()
+    sim = k.SingleIndividualSimulator(genome, snv_rate=0.001, indel_rate=0.0001, seed=seed)
     sim.simulate()
     haps = sim.build_haplotype_genomes()
     if svs:
-        haps = [_with_svs(hg, *svs) for hg in haps]
-    reads = ReadBlock.concatenate([
-        SingleReadsSimulator(
+        haps = [_with_svs(hg, *svs, classes=k) for hg in haps]
+    reads = k.ReadBlock.concatenate([
+        k.SingleReadsSimulator(
             hg, read_length=read_len, substitution_error_rate=error,
             seed=seed + 1000 * (h + 1),
         ).simulate_block(n_reads // 2)
@@ -3413,20 +3519,20 @@ def phase_population_small(counters, device="cuda"):
             fail("the CLI's population VCF differs from find_variants' records")
 
 
-def phase_population_real_size(counters, genome, table, in_repeat, device="cuda",
-                               n_reads=184_000, dup_len=20_000, del_len=10_000,
-                               batch=32_768):
-    """Phase 13: 3 diploid individuals of phase 5's genome at 6x each,
-    aligned in 32,768-read batches, called jointly; then the four CNV
-    algorithms on the individual that carries a homozygous tandem
-    duplication and a homozygous deletion in unique sequence."""
-    import torch
+POP_BATCH = 32_768  # phase 13's alignment batch
+POP_CNV_RUNS = (ALL_CNV_ALGORITHMS, "PoissonHMM", "MAXIMUMLIKELIHOOD")
 
-    from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
-    from ngsepcore_tpu_torch.call.multisample import MultisampleVariantsDetector
-    from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
-    from ngsepcore_tpu_torch.utils import profiling
 
+def population_inputs(genome, in_repeat, classes=None, n_reads=184_000, dup_len=20_000,
+                      del_len=10_000) -> dict:
+    """Phase 13's samples on phase 5's genome and its in_repeat mask
+    (real_size_inputs): 3 diploid individuals at 6x each (seeds 101-103,
+    _sample_reads), the third with a homozygous tandem duplication of
+    `dup_len` and a homozygous deletion of `del_len`, each at the first
+    window after 1/5 and 3/5 of the genome that touches no repeat.  Built
+    with `classes` (port_classes() by default).  Returns samples, truths
+    ({first: call} of each sample's SNVs), dup, dele (0-based half-open)
+    and blocks (each sample's ReadBlock)."""
     L = genome.sequence_length(0)
 
     def unique_window(start, length):
@@ -3440,20 +3546,82 @@ def phase_population_real_size(counters, genome, table, in_repeat, device="cuda"
 
     dup = unique_window(L // 5, dup_len)
     dele = unique_window((3 * L) // 5, del_len)
-    samples = ["ind0", "ind1", "ind2"]
-    t0 = time.perf_counter()
     truths, blocks = [], []
     for i in range(3):
         calls, reads = _sample_reads(genome, 101 + i, n_reads, READ_LEN, 0.003,
-                                     svs=(dup, dele) if i == 2 else None)
+                                     svs=(dup, dele) if i == 2 else None, classes=classes)
         truths.append({c.first: c for c in calls if c.is_snv})
         blocks.append(reads)
+    return dict(samples=["ind0", "ind1", "ind2"], truths=truths, dup=dup, dele=dele,
+                blocks=blocks)
+
+
+def population_accuracy(records, truths, in_repeat) -> dict:
+    """Phase 13's accuracy figures and gates from the joint records (either
+    package's) and population_inputs' truths: SNV precision, recall in
+    unique regions and per-sample genotype concordance over decided calls
+    at truth sites, the same at the default -minQuality 40 (a record's
+    quality is the best GQ of its non-reference calls), and `passed`."""
+    all_truth = set().union(*truths)
+    called = {r.variant.first for r in records if r.variant.is_snv}
+    unique_truth = {p for p in all_truth if not in_repeat[p]}
+    checked = [0, 0, 0]
+    concordant = [0, 0, 0]
+    for r in records:
+        p = r.variant.first
+        if not r.variant.is_snv or p not in all_truth:
+            continue
+        for si, call in enumerate(r.calls):
+            if call.is_undecided:
+                continue
+            t = truths[si].get(p)
+            checked[si] += 1
+            concordant[si] += call.genotype_state == (0 if t is None else t.genotype_state)
+    called40 = {r.variant.first for r in records
+                if r.variant.is_snv and r.variant.quality >= 40}
+    out = dict(
+        called=len(called), truth=len(all_truth), unique_truth=len(unique_truth),
+        precision=len(called & all_truth) / max(1, len(called)),
+        recall_unique=len(called & unique_truth) / max(1, len(unique_truth)),
+        concordance=[c / max(1, n) for c, n in zip(concordant, checked)], checked=checked,
+        called40=len(called40),
+        precision40=len(called40 & all_truth) / max(1, len(called40)),
+        recall_unique40=len(called40 & unique_truth) / max(1, len(unique_truth)),
+    )
+    out["passed"] = (out["precision"] >= 0.90 and out["recall_unique"] >= 0.85
+                     and min(out["concordance"]) >= 0.95)
+    return out
+
+
+def phase_population_real_size(counters, genome, table, in_repeat, device="cuda"):
+    """Phase 13: population_inputs' 3 diploid individuals of phase 5's
+    genome at 6x each, aligned in 32,768-read batches, called jointly;
+    then the four CNV algorithms on the individual that carries a
+    homozygous tandem duplication and a homozygous deletion in unique
+    sequence.  The SAM lines, the VCF body and the CNV calls are held to
+    the JAX package's CPU digests (PHASE13_*)."""
+    import torch
+
+    from ngsepcore_tpu_torch.align.reads_aligner import ReadsAligner
+    from ngsepcore_tpu_torch.call.multisample import MultisampleVariantsDetector
+    from ngsepcore_tpu_torch.call.single_sample import SingleSampleVariantsDetector
+    from ngsepcore_tpu_torch.utils import profiling
+
+    L = genome.sequence_length(0)
+    batch = POP_BATCH
+    t0 = time.perf_counter()
+    pop = population_inputs(genome, in_repeat)
+    samples, truths, blocks, dup, dele = (
+        pop["samples"], pop["truths"], pop["blocks"], pop["dup"], pop["dele"])
     t_sim = time.perf_counter() - t0
     t0 = time.perf_counter()
     aligner = ReadsAligner(genome, table=table, device=device)
     alns = [_align_all(aligner, reads, batch) for reads in blocks]
     sync(device)
     t_align = time.perf_counter() - t0
+    # before find_variants: its realigner edits the alignments
+    digests = {"sam": [sam_digest("\t".join(a.to_sam_fields()) for a in sample_alns)
+                       for sample_alns in alns]}
     n_total = sum(len(b) for b in blocks)
     log(f"phase 13 inputs: {L} bp, 3 individuals x {len(blocks[0])} reads of {READ_LEN} bp "
         f"({len(blocks[0]) * READ_LEN / L:.2f}x each, {n_total} in all), SNVs "
@@ -3476,6 +3644,7 @@ def phase_population_real_size(counters, genome, table, in_repeat, device="cuda"
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     stages = sorted(profiling._stages.items(), key=lambda kv: -kv[1][0])
     profiling.reset()
+    digests["vcf"] = vcf_body_digest(_vcf_body(records, samples))
     log(f"  MultisampleVariantsDetector(min_quality={POP_MIN_QUALITY}).find_variants "
         f"(first run): {dt:.3f}s = "
         f"{n_total / dt:.1f} reads/s; {len(records)} records "
@@ -3500,43 +3669,22 @@ def phase_population_real_size(counters, genome, table, in_repeat, device="cuda"
     # gates
     if not records or not all(len(r.calls) == 3 for r in records):
         fail("a population record does not carry 3 calls")
-    all_truth = set().union(*truths)
-    called = {r.variant.first for r in records if r.variant.is_snv}
-    tp = called & all_truth
-    unique_truth = {p for p in all_truth if not in_repeat[p]}
-    precision = len(tp) / max(1, len(called))
-    recall_unique = len(called & unique_truth) / max(1, len(unique_truth))
-    checked = [0, 0, 0]
-    concordant = [0, 0, 0]
-    for r in records:
-        p = r.variant.first
-        if not r.variant.is_snv or p not in all_truth:
-            continue
-        for si, call in enumerate(r.calls):
-            if call.is_undecided:
-                continue
-            t = truths[si].get(p)
-            checked[si] += 1
-            concordant[si] += call.genotype_state == (0 if t is None else t.genotype_state)
-    conc = [c / max(1, n) for c, n in zip(concordant, checked)]
-    # a record's quality is the best GQ of its non-reference calls: those of
-    # 40 and more are the records of a run at the default -minQuality
-    called40 = {r.variant.first for r in records
-                if r.variant.is_snv and r.variant.quality >= 40}
-    log(f"  accuracy: SNV records {len(called)}, truth sites {len(all_truth)} "
-        f"({len(unique_truth)} unique), precision {precision:.4f}, recall in unique "
-        f"regions {recall_unique:.4f}, genotype concordance per sample "
-        f"{[round(c, 4) for c in conc]} over {checked} decided calls; at quality >= 40: "
-        f"{len(called40)} SNV records, precision "
-        f"{len(called40 & all_truth) / max(1, len(called40)):.4f}, recall in unique regions "
-        f"{len(called40 & unique_truth) / max(1, len(unique_truth)):.4f}")
-    if precision < 0.90 or recall_unique < 0.85 or min(conc) < 0.95:
+    acc = population_accuracy(records, truths, in_repeat)
+    log(f"  accuracy: SNV records {acc['called']}, truth sites {acc['truth']} "
+        f"({acc['unique_truth']} unique), precision {acc['precision']:.4f}, recall in unique "
+        f"regions {acc['recall_unique']:.4f}, genotype concordance per sample "
+        f"{[round(c, 4) for c in acc['concordance']]} over {acc['checked']} decided calls; "
+        f"at quality >= 40: {acc['called40']} SNV records, precision "
+        f"{acc['precision40']:.4f}, recall in unique regions {acc['recall_unique40']:.4f}")
+    if not acc["passed"]:
         fail("population accuracy gates missed")
+    digests["cnv"] = {ALL_CNV_ALGORITHMS: cnv_digest(cnvs)}
     # a call does not name its algorithm: each HMM algorithm runs again alone
-    for alg in ("PoissonHMM", "MAXIMUMLIKELIHOOD"):
+    for alg in POP_CNV_RUNS[1:]:
         det.alg_cnv = alg
         before = counters[-1].launches  # viterbi_log's
         own = det.find_cnv_calls(alns[2])
+        digests["cnv"][alg] = cnv_digest(own)
         n_launch = counters[-1].launches - before
         cov_dup = _covering(own, *dup, lambda cn: cn >= 3)
         cov_del = _covering(own, *dele, lambda cn: cn <= 1)
@@ -3549,6 +3697,11 @@ def phase_population_real_size(counters, genome, table, in_repeat, device="cuda"
             fail(f"{alg}.call_cnvs made {n_launch} Viterbi launches, not one")
     if device == "cuda" and launches["viterbi_log"] == 0:
         fail(f"the CNV stage did not launch the Viterbi kernel: {launches}")
+    expect = {"sam": list(PHASE13_SAM), "vcf": PHASE13_VCF, "cnv": PHASE13_CNVS}
+    log(f"  phase 13 digests: {json.dumps(digests)}")
+    for key, want in expect.items():
+        if json.dumps(digests[key], sort_keys=True) != json.dumps(want, sort_keys=True):
+            fail(f"phase 13's {key} digest {digests[key]} is not the JAX package's {want}")
     return launches
 
 
@@ -3556,15 +3709,6 @@ def phase_population_real_size(counters, genome, table, in_repeat, device="cuda"
 LR_INS_AT, LR_INS_LEN = 15_000, 80  # 0-based insertion point in the reads' genome
 LR_DEL_AT, LR_DEL_LEN = 40_000, 100  # 0-based first deleted base
 LR_BATCH = 128  # bench_configs.bench_long_reads' batch
-
-
-def _genome_of_codes(name, codes):
-    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
-    from ngsepcore_tpu_torch.core.sequences import QualifiedSequence, QualifiedSequenceList
-
-    seqs = QualifiedSequenceList()
-    seqs.add(QualifiedSequence(name=name, codes=codes))
-    return ReferenceGenome(seqs)
 
 
 def _simulate_long_reads_60kb(seed: int = 4):
@@ -3579,14 +3723,14 @@ def _simulate_long_reads_60kb(seed: int = 4):
     mut = np.concatenate([
         ref[:LR_INS_AT], rng.integers(0, 4, LR_INS_LEN).astype(np.int8),
         ref[LR_INS_AT:LR_DEL_AT], ref[LR_DEL_AT + LR_DEL_LEN :]])
-    mg = _genome_of_codes("chr1", mut)
+    mg = _genome_of("chr1", mut)
     reads = []
     for n, length, sd in ((40, 8000, 11), (30, 4000, 12)):
         for r in SingleReadsSimulator(mg, read_length=length, substitution_error_rate=0.01,
                                       indel_error_rate=0.01, seed=sd).simulate(n):
             reads.append(RawRead(name=f"{r.name}_{length}", sequence=r.sequence,
                                  qualities=r.qualities))
-    return _genome_of_codes("chr1", ref), reads
+    return _genome_of("chr1", ref), reads
 
 
 def _align_long(aligner, reads):
@@ -3696,29 +3840,36 @@ def _long_read_gotoh_shapes(gotoh):
                     for (ends, *shape), n in gotoh.launch_shapes.items() if ends in kinds})
 
 
+def long_read_inputs(classes=None, length=4_000_000, n_reads=600):
+    """bench_configs.bench_long_reads' input, built with `classes`
+    (port_classes() by default; see real_size_inputs): the first `length`
+    bp of bench.py's 12 Mbp repeat genome as chr1 and `n_reads` reads of 10
+    kb (1% substitutions, 1% indels, seed 77).  Returns (genome, reads)."""
+    k = classes or port_classes()
+    genome = _genome_of("chr1", _bench_genome_codes()[:length].copy(), k)
+    reads = k.SingleReadsSimulator(genome, read_length=10_000, substitution_error_rate=0.01,
+                                   indel_error_rate=0.01, seed=77).simulate(n_reads)
+    return genome, reads
+
+
 def phase_long_reads_real_size(counters, device="cuda"):
     """bench_configs.bench_long_reads' input: 600 reads of 10 kb (1%
     substitutions, 1% indels) against the first 4 Mbp of bench.py's 12 Mbp
     repeat genome, in batches of 128: a warm-up run, two timed runs, the
     stage profile, launches by shape and peak device memory of the second;
     bench_long_reads' accuracy; then the long-read SV caller on its
-    alignments."""
+    alignments.  Every run's SAM lines and the SV calls are held to the
+    JAX package's CPU digests (PHASE15_SAM, PHASE15_SVS)."""
     import torch
 
     from ngsepcore_tpu_torch.align.long_reads import LongReadsAligner
     from ngsepcore_tpu_torch.call.long_read_sv import LongReadStructuralVariantDetector
     from ngsepcore_tpu_torch.index.minimizer_table import MinimizerTable
-    from ngsepcore_tpu_torch.simulation.reads_simulator import (
-        SingleReadsSimulator,
-        parse_simulated_read_name,
-    )
+    from ngsepcore_tpu_torch.simulation.reads_simulator import parse_simulated_read_name
     from ngsepcore_tpu_torch.utils import profiling
 
     t0 = time.perf_counter()
-    codes = _bench_genome_codes()
-    genome = _genome_of_codes("chr1", codes[:4_000_000].copy())
-    reads = SingleReadsSimulator(genome, read_length=10_000, substitution_error_rate=0.01,
-                                 indel_error_rate=0.01, seed=77).simulate(600)
+    genome, reads = long_read_inputs()
     bases = sum(len(r.sequence) for r in reads)
     log(f"phase 15 inputs: {genome.total_length} bp, {len(reads)} reads, {bases} bases "
         f"({time.perf_counter() - t0:.1f}s)")
@@ -3728,13 +3879,17 @@ def phase_long_reads_real_size(counters, device="cuda"):
     log(f"  index on {device}: {len(table.unique_codes)} codes, {table.size} entries, "
         f"{time.perf_counter() - t0:.2f}s")
 
+    sams = []
+
     def run():
         al = LongReadsAligner(genome, table=table, device=device)
         t0 = time.perf_counter()
         groups = [g for i in range(0, len(reads), LR_BATCH)
                   for g in al.align_batch(reads[i : i + LR_BATCH])]
         sync(device)
-        return al, groups, time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        sams.append(sam_digest("\t".join(a.to_sam_fields()) for g in groups for a in g))
+        return al, groups, dt
 
     _, _, warm = run()
     _, _, dt1 = run()
@@ -3772,6 +3927,11 @@ def phase_long_reads_real_size(counters, device="cuda"):
         [a for g in groups for a in g])
     log(f"  LongReadStructuralVariantDetector.find_variants: {len(svs)} calls, "
         f"{time.perf_counter() - t0:.3f}s (no planted events)")
+    log(f"  phase 15 digests: SAM of the three runs {json.dumps(sams)}, SVs "
+        f"{json.dumps(sv_digest(svs))}")
+    if any(d != PHASE15_SAM for d in sams) or sv_digest(svs) != PHASE15_SVS:
+        fail(f"phase 15's SAM or SV digests are not the JAX package's {PHASE15_SAM}, "
+             f"{PHASE15_SVS}")
     if aligned < 0.95 or placed < 0.95:
         fail(f"long-read accuracy gates: aligned_frac {aligned}, placed {placed}")
     if device == "cuda" and min(launches.values()) == 0:
@@ -5605,7 +5765,33 @@ def _msa_cpu(families):
     return rows, time.perf_counter() - t0
 
 
-def phase_gbs_real_size(device="cuda"):
+def msa_families():
+    """Phase 23's MSA input: the 30 repeat families of
+    build_repeat_genome(rng 2024, 12 Mbp), each its source and copies as
+    text; returns (families, their order by size, those whose widest
+    sequence is over SEG_MAX_LS, the cluster kernel's, in that order)."""
+    from ngsepcore_tpu_torch.core.sequences import decode_dna
+    from ngsepcore_tpu_torch.kernels.pairwise_cuda import SEG_MAX_LS
+
+    codes, _, _, families = build_repeat_genome(np.random.default_rng(2024), 12_000_000, 30,
+                                                400)
+    fams = [[decode_dna(codes[p : p + slen]) for p in [src] + list(copies)]
+            for src, slen, _seg, copies in families]
+    order = sorted(range(len(fams)), key=lambda i: (len(fams[i][0]), len(fams[i])))
+    return fams, order, [i for i in order if max(map(len, fams[i])) > SEG_MAX_LS]
+
+
+def start_msa_cpu():
+    """Phase 23's CPU side, started now, each in a background process of its
+    own: the MSA of the 5 smallest families and of the smallest family over
+    SEG_MAX_LS (None where none is)."""
+    fams, order, over_seg = msa_families()
+    return (_InBackground(functools.partial(_msa_cpu, [fams[i] for i in order[:5]])),
+            _InBackground(functools.partial(_msa_cpu, [fams[over_seg[0]]]))
+            if over_seg else None)
+
+
+def phase_gbs_real_size(device="cuda", msa_cpu=None):
     """Phase 23, on the card at user size: DeNovoGBS on a 24-plex ApeKI lane
     cut to 10,000 loci of bench.build_repeat_genome(rng 2024, 12 Mbp)
     (stage seconds, peak device memory; SNV precision and recall gates; the
@@ -5614,14 +5800,14 @@ def phase_gbs_real_size(device="cuda"):
     families (source and copies: rows of one width that are their inputs
     with gaps; CUDA rows equal to the CPU's for the 5 smallest families
     and the smallest family over SEG_MAX_LS, their CPU side in background
-    processes from the start of the phase; Gotoh launches by kernel
+    processes: `msa_cpu`, start_msa_cpu()'s jobs started by an earlier
+    phase, else started at the start of this one; Gotoh launches by kernel
     and shape, every family over SEG_MAX_LS on the cluster kernel; the
     batch with the most cells and the cluster kernel's timed against
     their plain version)."""
     import torch
 
     from ngsepcore_tpu_torch.clustering.msa import BestStarMultipleSequenceAlignmentAlgorithm
-    from ngsepcore_tpu_torch.core.sequences import decode_dna
     from ngsepcore_tpu_torch.gbs.denovo import (
         GBSReads,
         KmerPrefixReadsClusteringAlgorithm,
@@ -5638,25 +5824,17 @@ def phase_gbs_real_size(device="cuda"):
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(23)
-    codes, merged, _, families = build_repeat_genome(np.random.default_rng(2024), 12_000_000,
-                                                     30, 400)
+    codes, merged, _, _ = build_repeat_genome(np.random.default_rng(2024), 12_000_000, 30,
+                                              400)
     starts = apeki_loci(codes, merged, GBS_LOCI)
     if len(starts) < GBS_LOCI:
         fail(f"phase 23: {len(starts)} ApeKI loci outside the repeats, not {GBS_LOCI}")
     loci, s_locus, s_col, s_alt, haps = gbs_population(rng, codes, starts, GBS_SAMPLES)
     report = {"loci": len(starts), "planted_snvs": len(s_locus)}
     # MSA of each repeat family: the source and its copies, read from the
-    # genome.  The 5 smallest families and the smallest whose widest
-    # sequence is over SEG_MAX_LS (the cluster kernel's) start on the CPU in
-    # the background now, each in a process of its own.
-    fams = []
-    for src, slen, _seg, copies in families:
-        fams.append([decode_dna(codes[p : p + slen]) for p in [src] + list(copies)])
-    order = sorted(range(len(fams)), key=lambda i: (len(fams[i][0]), len(fams[i])))
-    over_seg = [i for i in order if max(map(len, fams[i])) > SEG_MAX_LS]
-    cpu_smallest = _InBackground(functools.partial(_msa_cpu, [fams[i] for i in order[:5]]))
-    cpu_over_seg = (_InBackground(functools.partial(_msa_cpu, [fams[over_seg[0]]]))
-                    if over_seg else None)
+    # genome; the CPU side of the comparison runs in the background
+    fams, order, over_seg = msa_families()
+    cpu_smallest, cpu_over_seg = msa_cpu or start_msa_cpu()
     with tempfile.TemporaryDirectory(dir=ROOT) as d:
         paths = [os.path.join(d, f"gbs{si:02d}.fastq") for si in range(GBS_SAMPLES)]
         for si, path in enumerate(paths):  # Poisson(8) reads a locus, 0.3% errors, Q30
@@ -5860,6 +6038,10 @@ def main(argv=None) -> None:
     t = {}  # what each phase returns, by phase
     deferred = []  # checks of work left running in the background
     for p in chosen:
+        if p in ("20", "21", "22") and "23" in chosen and "23 cpu" not in t:
+            # phase 23's CPU-side MSAs (30-80 s of host) end during phases
+            # 20-22, so that phase 23 need not wait for them
+            t["23 cpu"] = start_msa_cpu()
         if p == "2":
             t[p] = phase_gotoh()
         elif p == "2b":
@@ -5949,7 +6131,7 @@ def main(argv=None) -> None:
             phase_gbs_small()
         elif p == "23":
             torch.cuda.empty_cache()
-            t[p] = phase_gbs_real_size()
+            t[p] = phase_gbs_real_size(msa_cpu=t.pop("23 cpu", None))
     if "d" in t:
         t.pop("d").cleanup()
     for finish in deferred:
