@@ -2000,18 +2000,20 @@ def build_repeat_genome(rng, L: int, n_families: int, n_tandem: int):
     return codes, np.asarray(merged, dtype=np.int64), tandem, families
 
 
-def str_catalogue(name: str, arrays):
+def str_catalogue(name: str, arrays, region_class=None):
     """A known-STR catalogue {sequence name: sorted regions} from 0-based
     half-open tandem arrays; an array that overlaps an earlier one is
-    merged into it, so the regions are disjoint."""
-    from ngsepcore_tpu_torch.core.regions import GenomicRegion
+    merged into it, so the regions are disjoint.  The regions are
+    `region_class`'s (a package's GenomicRegion, the port's by default)."""
+    if region_class is None:
+        from ngsepcore_tpu_torch.core.regions import GenomicRegion as region_class
 
     regions = []
     for lo, hi in sorted(arrays):
         if regions and lo + 1 <= regions[-1].last:
             regions[-1].last = max(regions[-1].last, hi)
         else:
-            regions.append(GenomicRegion(name, lo + 1, hi))
+            regions.append(region_class(name, lo + 1, hi))
     return {name: regions}
 
 
@@ -2104,6 +2106,24 @@ def records_digest(records) -> tuple:
 sam_digest = vcf_body_digest = lines_digest
 
 
+def msa_digest(rows_by_family) -> tuple:
+    """(count, sha256) of MSA rows: "<family index>\t<row>" a line, the
+    families in msa_families() order, each family's rows in its output
+    order."""
+    return lines_digest(f"{i}\t{row}" for i, rows in enumerate(rows_by_family) for row in rows)
+
+
+def imputed_digest(imputed, conf, cols) -> tuple:
+    """(cols, sha256 of imputed[:, :cols] as C-order int8, the f64 sum of
+    conf[:, :cols]): an imputer's dosages and confidences over its first
+    `cols` sites."""
+    import hashlib
+
+    d = np.ascontiguousarray(np.asarray(imputed)[:, :cols], dtype=np.int8)
+    return (cols, hashlib.sha256(d.tobytes()).hexdigest(),
+            float(np.asarray(conf, np.float64)[:, :cols].sum()))
+
+
 def cnv_digest(calls) -> tuple:
     """(count, sha256) of CNV calls, every field exact: repr of each call's
     fields (dataclasses.asdict) a line."""
@@ -2157,6 +2177,19 @@ PHASE15_SAM = (600, "2658b8d2d3add59a7dc030f3de9a0c9ff96482b0520f346f8f886a148fe
 PHASE15_SVS = (0, "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855")
 PHASE8_SAM = (344819, "35d038f90e449c5397809bdb080d772bee0c08e674ab3bad23dc22c3c1a2d2ff")
 PHASE8_VCF = (7888, "92538dfac9b599a19d23de1be0ffbf3de445370bbc95e076c0d3b848620e89eb")
+# The JAX package's outputs on the CPU at the sizes of phases 10, 23 and 19
+# (tests/test_torch_real_size_more.py holds both packages' CPU outputs to
+# them): phase 10's records (records_digest; phase 5's inputs with the
+# tandem arrays as the known-STR catalogue, run_reads at 65,536); phase 23's
+# VCF body (vcf_body_digest of KmerPrefixReadsClusteringAlgorithm.run on
+# gbs_inputs' lane) and its MSA rows (msa_digest over msa_families()); phase
+# 19's first window (imputed_digest of the imputer's columns [0, 4950),
+# which a later window does not overwrite), its confidence sum held within
+# PHASE19_CONF_RTOL: a log10 tolerance of FB_POST_TOL on each confidence.
+PHASE10_RECORDS = (7897, "11dd2123ab73a896a7ee0247fca369cf359b95f6a4d5d874cf6e4c5ff97cd407")
+PHASE23_VCF = (6828, "2c34e8c7a8fecb9dc339728358eb13d25192dd12730ef5e6701ce850c52a0112")
+PHASE23_MSA = (293, "91d299acb31bf01e028b94a4118b2f250a0bfa8da0da9148217f6207a5283972")
+PHASE19_WINDOW1 = (4950, "d7899a15bfdb702b44f409e3182d5c8bd60d9ff5cf87134b1f519822e0731564", 1394648.1970014584)
 
 
 def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS, phase="5",
@@ -3006,7 +3039,8 @@ def _split_at_long_str(sam_line) -> bool:
 def phase_str_real_size(counters, genome, reads, truth, table, tandem, metrics5,
                         device="cuda"):
     """Phase 5's genome and reads with its tandem arrays as the known-STR
-    catalogue, through AlignCallPipeline.run_reads."""
+    catalogue, through AlignCallPipeline.run_reads; the records' digest
+    against the JAX package's (PHASE10_RECORDS)."""
     from bench import check_accuracy
     from ngsepcore_tpu_torch.utils import profiling
 
@@ -3046,8 +3080,12 @@ def phase_str_real_size(counters, genome, reads, truth, table, tandem, metrics5,
     log(f"  false SNV calls: {len(fp)}, of them {fp_near} within 150 bp of a tandem "
         f"array; SNV precision {acc['metrics']['snv_precision']} with the catalogue, "
         f"{metrics5['snv_precision']} in phase 5; positions {fp[:60].tolist()}")
+    digest = records_digest(records)
+    log(f"  records digest {digest}; the JAX package's on the CPU {PHASE10_RECORDS}")
     if acc["gates"]:
         fail("known-STR accuracy gates: " + "; ".join(acc["gates"]))
+    if digest != PHASE10_RECORDS:
+        fail(f"phase 10: the records {digest} are not the JAX package's {PHASE10_RECORDS}")
     if al.tier2_reads == 0 or (
         device == "cuda"
         and min(list(t2.values()) + list(t2_walk.values()) + list(launches.values())) == 0
@@ -4393,6 +4431,8 @@ def _imputer_window(rng, n, T, K, missing=0.2):
 
 FB_POST_TOL = 1e-9  # log10 posteriors, absolute: exp10 against torch.pow, sums in another order
 FB_LL_RTOL = 1e-12  # log-likelihoods, relative: they grow with T
+# phase 19's confidence sum, relative: each confidence within FB_POST_TOL in log10
+PHASE19_CONF_RTOL = float(np.log(10)) * FB_POST_TOL
 
 
 def _fb_disagreement(got, want):
@@ -4708,7 +4748,9 @@ def phase_imputer_real_size(device="cuda"):
     """Phase 19: 300 samples x 20,000 biallelic SNVs (mosaics of 8 founder
     haplotypes, 20% of the genotypes masked) imputed at NGSEP's defaults
     (k 8, window 5,000, overlap 50, 10 iterations: 5 windows, 55 kernel
-    launches), with the JAX test's gate: masked accuracy >= 0.9."""
+    launches), with the JAX test's gate: masked accuracy >= 0.9; the first
+    window's dosages and confidence sum against the JAX package's
+    (PHASE19_WINDOW1)."""
     import torch
 
     from ngsepcore_tpu_torch.imputation.genotype_imputer import GenotypeImputer
@@ -4757,7 +4799,13 @@ def phase_imputer_real_size(device="cuda"):
         + f", the rest {wall - sum(spent.values()):.3f} s; kernel launches {launches} {by_form}; "
         f"peak device memory {peak:.3f} GiB; masked accuracy {acc:.4f} over "
         f"{int(mask.sum())} genotypes; undecided left {int((imputed < 0).sum())}")
+    window1 = imputed_digest(imputed, conf, PHASE19_WINDOW1[0])
+    log(f"  first window {window1}; the JAX package's on the CPU {PHASE19_WINDOW1}")
     windows = -(-(IMPUTE_SITES - 50) // 4950)
+    if window1[:2] != PHASE19_WINDOW1[:2] or not (
+            abs(window1[2] - PHASE19_WINDOW1[2]) <= PHASE19_CONF_RTOL * PHASE19_WINDOW1[2]):
+        fail(f"phase 19: the first window {window1} is not the JAX package's {PHASE19_WINDOW1} "
+             f"(confidence sum within {PHASE19_CONF_RTOL:.3e} of it)")
     if on_card and (launches != 11 * windows or by_form["product"] != launches):
         fail(f"phase 19 made {launches} forward-backward launches {by_form}, not "
              f"{11 * windows} ({windows} windows x 11) all of the product form")
@@ -5668,6 +5716,31 @@ def gbs_population(rng, codes, starts, n_samples, read_len=GBS_READ_LEN, snv_eve
     return loci, s_locus, s_col, s_alt, haps
 
 
+GBS_BP = 12_000_000  # bench.build_repeat_genome's
+
+
+def gbs_inputs(d, bp=GBS_BP, n_loci=GBS_LOCI, n_samples=GBS_SAMPLES):
+    """Phase 23's lane, written to directory d: the first n_loci ApeKI loci
+    of build_repeat_genome(rng 2024, bp) with bench's 30 families and 400
+    tandem arrays scaled by bp / 12 Mbp, gbs_population's planted SNVs and
+    one FASTQ a sample (Poisson(8) reads a locus, 0.3% errors, Q30), all
+    drawn from rng 23.  Returns the FASTQ paths, the sample ids and what
+    the gates read: loci, s_locus, s_col, s_alt, haps."""
+    rng = np.random.default_rng(23)
+    scale = bp / GBS_BP
+    codes, merged, _, _ = build_repeat_genome(np.random.default_rng(2024), bp,
+                                              round(30 * scale), round(400 * scale))
+    starts = apeki_loci(codes, merged, n_loci)
+    if len(starts) < n_loci:
+        fail(f"phase 23: {len(starts)} ApeKI loci outside the repeats, not {n_loci}")
+    loci, s_locus, s_col, s_alt, haps = gbs_population(rng, codes, starts, n_samples)
+    paths = [os.path.join(d, f"gbs{si:02d}.fastq") for si in range(n_samples)]
+    for si, path in enumerate(paths):
+        write_gbs_fastq(path, rng, loci, s_locus, s_col, s_alt, haps[si],
+                        rng.poisson(8, len(loci)))
+    return dict(paths=paths, ids=[f"gbs{i:02d}" for i in range(n_samples)], loci=loci, s_locus=s_locus, s_col=s_col, s_alt=s_alt, haps=haps)
+
+
 def _vcf_records_text(path):
     """{cluster id: [record lines]} of a de-novo GBS VCF."""
     out = {}
@@ -5796,15 +5869,16 @@ def phase_gbs_real_size(device="cuda", msa_cpu=None):
     cut to 10,000 loci of bench.build_repeat_genome(rng 2024, 12 Mbp)
     (stage seconds, peak device memory; SNV precision and recall gates; the
     first 1,000 clusters' records equal to the port's CPU run on their
-    reads), then the best-star MSA of each of the genome's 30 repeat
-    families (source and copies: rows of one width that are their inputs
-    with gaps; CUDA rows equal to the CPU's for the 5 smallest families
-    and the smallest family over SEG_MAX_LS, their CPU side in background
-    processes: `msa_cpu`, start_msa_cpu()'s jobs started by an earlier
-    phase, else started at the start of this one; Gotoh launches by kernel
-    and shape, every family over SEG_MAX_LS on the cluster kernel; the
-    batch with the most cells and the cluster kernel's timed against
-    their plain version)."""
+    reads; the VCF body's digest against the JAX package's, PHASE23_VCF),
+    then the best-star MSA of each of the genome's 30 repeat families
+    (source and copies: rows of one width that are their inputs with gaps,
+    their digest against the JAX package's, PHASE23_MSA; CUDA rows equal
+    to the CPU's for the 5 smallest families and the smallest family over
+    SEG_MAX_LS, their CPU side in background processes: `msa_cpu`,
+    start_msa_cpu()'s jobs started by an earlier phase, else started at
+    the start of this one; Gotoh launches by kernel and shape, every
+    family over SEG_MAX_LS on the cluster kernel; the batch with the most
+    cells and the cluster kernel's timed against their plain version)."""
     import torch
 
     from ngsepcore_tpu_torch.clustering.msa import BestStarMultipleSequenceAlignmentAlgorithm
@@ -5822,26 +5896,17 @@ def phase_gbs_real_size(device="cuda", msa_cpu=None):
     from ngsepcore_tpu_torch.utils import profiling
     from ngsepcore_tpu_torch.vcf.io import VCFFileWriter
 
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(23)
-    codes, merged, _, _ = build_repeat_genome(np.random.default_rng(2024), 12_000_000, 30,
-                                              400)
-    starts = apeki_loci(codes, merged, GBS_LOCI)
-    if len(starts) < GBS_LOCI:
-        fail(f"phase 23: {len(starts)} ApeKI loci outside the repeats, not {GBS_LOCI}")
-    loci, s_locus, s_col, s_alt, haps = gbs_population(rng, codes, starts, GBS_SAMPLES)
-    report = {"loci": len(starts), "planted_snvs": len(s_locus)}
     # MSA of each repeat family: the source and its copies, read from the
     # genome; the CPU side of the comparison runs in the background
     fams, order, over_seg = msa_families()
     cpu_smallest, cpu_over_seg = msa_cpu or start_msa_cpu()
     with tempfile.TemporaryDirectory(dir=ROOT) as d:
-        paths = [os.path.join(d, f"gbs{si:02d}.fastq") for si in range(GBS_SAMPLES)]
-        for si, path in enumerate(paths):  # Poisson(8) reads a locus, 0.3% errors, Q30
-            write_gbs_fastq(path, rng, loci, s_locus, s_col, s_alt, haps[si],
-                            rng.poisson(8, len(loci)))
-        report["setup_s"] = round(time.perf_counter() - t0, 3)
-        ids = [f"gbs{i:02d}" for i in range(GBS_SAMPLES)]
+        t0 = time.perf_counter()
+        inp = gbs_inputs(d)
+        paths, ids, loci = inp["paths"], inp["ids"], inp["loci"]
+        s_locus, s_col, s_alt, haps = (inp[k] for k in ("s_locus", "s_col", "s_alt", "haps"))
+        report = {"loci": len(loci), "planted_snvs": len(s_locus),
+                  "setup_s": round(time.perf_counter() - t0, 3)}
         algo = KmerPrefixReadsClusteringAlgorithm(device=device)
         profiling.enable()
         profiling.reset()
@@ -5867,6 +5932,7 @@ def phase_gbs_real_size(device="cuda", msa_cpu=None):
         planted = {(int(l), int(c)): int(a) for l, c, a in zip(s_locus, s_col, s_alt)}
         carried = haps.any(axis=(0, 1))
         records = _vcf_records_text(os.path.join(d, "lane.vcf"))
+        report["vcf_digest"] = vcf_body_digest(vcf_file_body(os.path.join(d, "lane.vcf")))
         true, found = 0, set()
         for cid, lines in records.items():
             li = locus_of.get(int(cluster_code[cid - 1]))
@@ -5910,6 +5976,9 @@ def phase_gbs_real_size(device="cuda", msa_cpu=None):
         del reads, sub, valid, code, rows, cstarts
     torch.cuda.empty_cache()
     log(f"phase 23 de-novo GBS real size: {json.dumps(report)}")
+    if tuple(report["vcf_digest"]) != PHASE23_VCF:
+        fail(f"phase 23: the VCF body {report['vcf_digest']} is not the JAX package's "
+             f"{PHASE23_VCF}")
     msa = {"families": len(fams), "sequences": sum(map(len, fams)),
            "lengths": [min(len(f[0]) for f in fams), max(len(f[0]) for f in fams)]}
     gotoh_forward_plane.launches = 0
@@ -5944,6 +6013,9 @@ def phase_gbs_real_size(device="cuda", msa_cpu=None):
     for i, r in rows.items():
         if len({len(a) for a in r}) != 1 or [a.replace("-", "") for a in r] != fams[i]:
             fail(f"phase 23: family {i}'s MSA rows are not its inputs with gaps, of one width")
+    msa["digest"] = msa_digest([rows[i] for i in range(len(fams))])
+    if msa["digest"] != PHASE23_MSA:
+        fail(f"phase 23: the MSA rows {msa['digest']} are not the JAX package's {PHASE23_MSA}")
     cpu, cpu_s = cpu_smallest.result("phase 23")
     for i, rows_cpu in zip(order[:5], cpu):
         if rows_cpu != rows[i]:
