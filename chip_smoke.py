@@ -2018,7 +2018,8 @@ def str_catalogue(name: str, arrays, region_class=None):
 
 
 def port_classes():
-    """The port's classes that real_size_inputs builds with."""
+    """The port's classes (and reverse complement) that real_size_inputs,
+    rice_sized_genome and _sim_asm_reads build with."""
     from types import SimpleNamespace
 
     from ngsepcore_tpu_torch.core.genome import ReferenceGenome
@@ -2026,6 +2027,7 @@ def port_classes():
         QualifiedSequence,
         QualifiedSequenceList,
         ReadBlock,
+        reverse_complement_codes,
     )
     from ngsepcore_tpu_torch.simulation.individual_simulator import SingleIndividualSimulator
     from ngsepcore_tpu_torch.simulation.reads_simulator import SingleReadsSimulator
@@ -2035,6 +2037,7 @@ def port_classes():
         QualifiedSequenceList=QualifiedSequenceList, ReadBlock=ReadBlock,
         SingleIndividualSimulator=SingleIndividualSimulator,
         SingleReadsSimulator=SingleReadsSimulator,
+        reverse_complement_codes=reverse_complement_codes,
     )
 
 
@@ -2143,6 +2146,44 @@ def sv_digest(variants) -> tuple:
     return lines_digest(repr(f) for f in sv_fields(variants))
 
 
+def file_lines(path) -> list:
+    """A text file's lines without their line ends."""
+    with open(path) as fh:
+        return [l.rstrip("\n") for l in fh]
+
+
+def fasta_digest(path) -> tuple:
+    """(records, sha256 of the file's lines as lines_digest joins them) of
+    a FASTA file as save_fasta writes it."""
+    lines = file_lines(path)
+    return sum(l.startswith(">") for l in lines), lines_digest(lines)[1]
+
+
+def gff_body(path) -> list:
+    """A GFF file's feature lines without the source column, where each
+    package writes its own name, and without the header."""
+    return ["\t".join(f[:1] + f[2:])
+            for f in (l.split("\t") for l in file_lines(path) if not l.startswith("#"))]
+
+
+def kmers_digest(prefix) -> tuple:
+    """(distinct k-mers, sha256) of KmersExtractor's outputs at `prefix`:
+    the _kmers.npz arrays k, codes and counts (name, dtype, shape and bytes
+    of each), then the bytes of _kmers_distribution.txt."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with np.load(prefix + "_kmers.npz") as z:
+        for key in ("k", "codes", "counts"):
+            a = np.ascontiguousarray(z[key])
+            h.update(f"{key}{a.dtype.str}{a.shape}".encode())
+            h.update(a.tobytes())
+        n = len(z["codes"])
+    with open(prefix + "_kmers_distribution.txt", "rb") as fh:
+        h.update(fh.read())
+    return n, h.hexdigest()
+
+
 # The JAX package's records on the CPU, as records_digest gives them
 # (tests/test_torch_bench_workload.py holds both packages' CPU records to
 # them): phase 5's workload (4.6 Mbp, 345,000 reads) and bench.py's (12
@@ -2190,6 +2231,22 @@ PHASE10_RECORDS = (7897, "11dd2123ab73a896a7ee0247fca369cf359b95f6a4d5d874cf6e4c
 PHASE23_VCF = (6828, "2c34e8c7a8fecb9dc339728358eb13d25192dd12730ef5e6701ce850c52a0112")
 PHASE23_MSA = (293, "91d299acb31bf01e028b94a4118b2f250a0bfa8da0da9148217f6207a5283972")
 PHASE19_WINDOW1 = (4950, "d7899a15bfdb702b44f409e3182d5c8bd60d9ff5cf87134b1f519822e0731564", 1394648.1970014584)
+# The JAX package's outputs on the CPU at the sizes of phases 17, 21, 11 and
+# 24 (tests/test_torch_real_size_rest.py holds both packages' CPU outputs to
+# them): phase 17's contigs of the 100 kb row (fasta_digest of save_fasta's
+# file); phase 21's GFF bodies without the source column (gff_body), by
+# library and de novo, and its orthogroup lines (calculate_orthogroups on the
+# catalogs' text, in the CLI runner's line format); phase 11's k-mer maps of
+# the reads and of the genome (kmers_digest) and the corrected FASTQ's lines;
+# phase 24's records (records_digest).
+PHASE17_CONTIGS = (1, "3920268a9b27bd704092fab38ab30c4f9166d89f22c66cd63cf63fdf9407e568")
+PHASE21_GFF_LIBRARY = (310, "2658690ccdb588235d1976805f96b6a877519128135b386ab4e6b2a838ad3531")
+PHASE21_GFF_DENOVO = (228, "b0f95652ef0d9e7266ed9d78017e68f42dc96a27d81dc638282bf6952e25f536")
+PHASE21_ORTHOGROUPS = (1857, "c934f9d55eed00784d6f89cf07950e82212d572531a6e9b8316069096e1caef9")
+PHASE11_READS_KMERS = (13098786, "7d7932d5b925cbe0b90524b044e901b73731f5f4de8fc76f0ed704103b9b1516")
+PHASE11_GENOME_KMERS = (8915480, "a31c7284a159ab3f8356ee29af07290d3b9ca4c1fe9ada0ab2ee9d19bb4a4cd4")
+PHASE11_CORRECTED = (80000, "b855749b5e5ac34b706c4975d75977746714282e677a98ead4386ed563088948")
+PHASE24_RECORDS = (7888, "150ce9f552a3f041ae2059053d2f2c1429f70291973c574d8859ea068e56b8b9")
 
 
 def phase_real_size(counters, device="cuda", mbp=GENOME_MBP, n_reads=N_READS, phase="5",
@@ -2277,22 +2334,21 @@ RICE_BP = 373_200_000  # rice, IRGSP-1.0: 373.2 Mbp in 12 pseudomolecules
 RICE_SEQS = 12
 
 
-def rice_sized_genome(chr1, total_bp=RICE_BP, n_seqs=RICE_SEQS, seed=373):
+def rice_sized_genome(chr1, total_bp=RICE_BP, n_seqs=RICE_SEQS, seed=373, classes=None):
     """`chr1` (phase 5's genome) and n_seqs - 1 random sequences of equal
     length (one base more for the first total % (n_seqs - 1)) that fill
-    the genome to total_bp."""
-    from ngsepcore_tpu_torch.core.genome import ReferenceGenome
-    from ngsepcore_tpu_torch.core.sequences import QualifiedSequence, QualifiedSequenceList
-
+    the genome to total_bp, in `classes`' ReferenceGenome (port_classes()
+    by default)."""
+    k = classes or port_classes()
     rng = np.random.default_rng(seed)
     rest, n = total_bp - len(chr1), n_seqs - 1
-    seqs = QualifiedSequenceList()
-    seqs.add(QualifiedSequence(name="chr1", codes=chr1))
+    seqs = k.QualifiedSequenceList()
+    seqs.add(k.QualifiedSequence(name="chr1", codes=chr1))
     for i in range(n):
         L = rest // n + (i < rest % n)
-        seqs.add(QualifiedSequence(
+        seqs.add(k.QualifiedSequence(
             name=f"chr{i + 2}", codes=rng.integers(0, 4, size=L, dtype=np.int8)))
-    return ReferenceGenome(seqs)
+    return k.ReferenceGenome(seqs)
 
 
 def phase_rice_sized(counters, data5, device="cuda", total_bp=RICE_BP):
@@ -2300,7 +2356,8 @@ def phase_rice_sized(counters, data5, device="cuda", total_bp=RICE_BP):
     is phase 5's genome, eleven random sequences fill it to 373.2 Mbp.  Its
     table has more than 2^24 distinct codes, so it takes the sorted-key
     layout by its own size; the fused run must pass bench.py's gates (a
-    record on a filler sequence counts as a call) and launch G, W and S."""
+    record on a filler sequence counts as a call), launch G, W and S, and
+    give the JAX package's CPU records (PHASE24_RECORDS)."""
     import torch
 
     from bench import check_accuracy
@@ -2365,11 +2422,15 @@ def phase_rice_sized(counters, data5, device="cuda", total_bp=RICE_BP):
     k5 = {record_key(r) for r in records5}
     off_chr1 = sum(r.variant.sequence_name != "chr1" for r in records)
     acc = check_accuracy(records, *truth)
+    digest = records_digest(records)
     log(f"  accuracy: {json.dumps(acc['metrics'])}; records differing from phase 5's: "
         f"{len(k24 - k5)} only here, {len(k5 - k24)} only there; {off_chr1} on the "
-        f"filler sequences; phase {time.perf_counter() - t_phase:.1f}s")
+        f"filler sequences; records digest {digest}, the JAX package's on the CPU "
+        f"{PHASE24_RECORDS}; phase {time.perf_counter() - t_phase:.1f}s")
     if acc["gates"]:
         fail("phase 24 accuracy gates: " + "; ".join(acc["gates"]))
+    if digest != PHASE24_RECORDS:
+        fail(f"phase 24: the records {digest} are not the JAX package's {PHASE24_RECORDS}")
     if cuda and min(launches.values()) == 0:
         fail(f"a kernel was not launched on the rice-sized run: {launches}")
     if cuda:
@@ -3233,13 +3294,20 @@ def _read_distribution(path):
 
 
 def phase_kmers(d, genome, reads, device="cuda"):
-    """KmersExtractor (k = 15, both strands) on phase 8's FASTQ and FASTA
-    and ReadsFileErrorsCorrector on the first 20,000 reads, through the
-    CLI on the card; counting invariants, and CUDA against the CPU."""
+    """KmersExtractor (k = 15, both strands) on phase 5's FASTQ and FASTA
+    (phase 8's files, written here when phase 8 did not run) and
+    ReadsFileErrorsCorrector on the first 20,000 reads, through the CLI on
+    the card; counting invariants, CUDA against the CPU, and the card's
+    outputs held to the JAX package's CPU digests PHASE11_READS_KMERS,
+    PHASE11_GENOME_KMERS and PHASE11_CORRECTED."""
     from ngsepcore_tpu_torch.io.fastq import write_fastq
 
     k = 15
     g, fq = os.path.join(d, "genome.fa"), os.path.join(d, "reads.fastq")
+    if not (os.path.exists(g) and os.path.exists(fq)):
+        t0 = time.perf_counter()
+        _write_inputs(d, genome, reads)
+        log(f"phase 11 inputs: {len(reads)} reads -> FASTQ ({time.perf_counter() - t0:.1f}s)")
     # reads: every valid window counted once on each strand
     t = _cli_plain(["KmersExtractor", "-k", str(k), "-o", os.path.join(d, "kr"), fq],
                    device, 600)[0]
@@ -3292,6 +3360,17 @@ def phase_kmers(d, genome, reads, device="cuda"):
         f"outputs equal {out_cuda == out_cpu}")
     if out_cuda != out_cpu or out_cuda.count("\n") != src.count("\n"):
         fail("ReadsFileErrorsCorrector CUDA and CPU outputs differ")
+    digests = {
+        "reads_kmers": kmers_digest(os.path.join(d, "kr")),
+        "genome_kmers": kmers_digest(os.path.join(d, f"kg_{device}")),
+        "corrected": lines_digest(file_lines(os.path.join(d, f"corr_{device}.fastq"))),
+    }
+    want = {"reads_kmers": PHASE11_READS_KMERS, "genome_kmers": PHASE11_GENOME_KMERS,
+            "corrected": PHASE11_CORRECTED}
+    log(f"  phase 11 digests: {json.dumps(digests)}")
+    for name, digest in digests.items():
+        if tuple(digest) != want[name]:
+            fail(f"phase 11: the {name} digest {digest} is not the JAX package's {want[name]}")
 
 
 # ---------------------------------------------------------------------------
@@ -3982,12 +4061,12 @@ def phase_long_reads_real_size(counters, device="cuda"):
 # ---------------------------------------------------------------------------
 # de-novo assembly (phases 16, 17)
 
-def _sim_asm_reads(genome_codes, L, cov, rl, seed=31, err=0.01):
-    """bench_configs._sim_asm_reads with the port's reverse complement:
-    L * cov // rl reads of rl bp from genome_codes[:L] with substitution and
-    indel errors (2:1 at `err` in all), half of them reverse-complemented."""
-    from ngsepcore_tpu_torch.core.sequences import reverse_complement_codes
-
+def _sim_asm_reads(genome_codes, L, cov, rl, seed=31, err=0.01, classes=None):
+    """bench_configs._sim_asm_reads with `classes`' reverse complement (the
+    port's by default): L * cov // rl reads of rl bp from genome_codes[:L]
+    with substitution and indel errors (2:1 at `err` in all), half of them
+    reverse-complemented."""
+    reverse_complement_codes = (classes or port_classes()).reverse_complement_codes
     rng = np.random.default_rng(seed)
     g = genome_codes[:L]
     reads = []
@@ -4193,10 +4272,14 @@ def phase_assembly_real_size(counters, row="lin100", device="cuda"):
     through Assembler() defaults; one synchronised wall time, genome
     bases/s, contigs, N50, n50_frac, anchored identity (gate >= 0.90), the
     asm.* and lr.* stage times, Gotoh and walk launches by shape (rows
-    summed), peak memory."""
+    summed), peak memory.  The 100 kb row's contigs, as save_fasta writes
+    them, are held to the JAX package's CPU contigs (PHASE17_CONTIGS); row A
+    is held by its gates only (the JAX package's CPU side would take
+    hours)."""
     import torch
 
     from ngsepcore_tpu_torch.assembly.assembler import Assembler
+    from ngsepcore_tpu_torch.io.fasta import save_fasta
     from ngsepcore_tpu_torch.utils import profiling
 
     ASM_ROW = ASM_ROWS[row]
@@ -4239,11 +4322,18 @@ def phase_assembly_real_size(counters, row="lin100", device="cuda"):
         rows[mode, Lq, Ls, R, fs2] += n * B
     log("  walk launches by (mode, Lq, Ls, R, free_start2): " + ", ".join(
         f"{n} x {k} ({rows[k]} rows)" for k, n in sorted(by.items(), key=lambda kv: -kv[1])))
+    with tempfile.TemporaryDirectory() as d:
+        save_fasta(contigs, os.path.join(d, "contigs.fa"))
+        digest = fasta_digest(os.path.join(d, "contigs.fa"))
+    log(f"  contigs digest {digest}" + (
+        f"; the JAX package's on the CPU {PHASE17_CONTIGS}" if row == "lin100" else ""))
     if st["identity"] < 0.90:
         fail(f"assembly identity {st['identity']} below the 0.90 gate")
     if min(launches.values()) == 0:
         fail(f"the assembly did not launch every kernel: {launches}")
     walk_route(counters, "hamming", "phase 17, assembly")
+    if row == "lin100" and digest != PHASE17_CONTIGS:
+        fail(f"phase 17: the contigs {digest} are not the JAX package's {PHASE17_CONTIGS}")
     return launches, gotoh_shapes, walk_shapes
 
 
@@ -5345,7 +5435,10 @@ def phase_long_tail_real_size(device="cuda"):
     gates over the families' source and copy intervals), then
     CDNACatalogAligner on three catalogs of 2,000 proteins (orthogroups
     equal to the CPU's, an exact-triple gate); stage seconds, call counts
-    and peak device memory."""
+    and peak device memory.  The GFF bodies without their source column
+    and the orthogroup lines are held to the JAX package's CPU digests
+    PHASE21_GFF_LIBRARY, PHASE21_GFF_DENOVO and PHASE21_ORTHOGROUPS (its
+    calculate_orthogroups on the catalogs' text)."""
     import torch
 
     from ngsepcore_tpu_torch.__main__ import main as port_main
@@ -5397,6 +5490,7 @@ def phase_long_tail_real_size(device="cuda"):
                     report[mode]["cpu_s"] = round(wall, 3)
             if open(gff[device], "rb").read() != open(gff["cpu"], "rb").read():
                 fail(f"phase 21: TransposonsFinder {mode} GFF differs between {device} and cpu")
+            report[mode]["digest"] = lines_digest(gff_body(gff[device]))
             need_cov, need_prec = gates[mode]
             if report[mode]["covered"] < need_cov or report[mode]["precision"] < need_prec:
                 fail(f"phase 21: TransposonsFinder {mode} {report[mode]} misses its gates "
@@ -5432,10 +5526,16 @@ def phase_long_tail_real_size(device="cuda"):
                 report["catalogs"]["cpu_stages_s"] = _stage_split(profiling, "orthogroups.")
         if open(og[device], "rb").read() != open(og["cpu"], "rb").read():
             fail("phase 21: CDNACatalogAligner orthogroups differ between the card and the CPU")
+        report["catalogs"]["digest"] = lines_digest(file_lines(og[device]))
         if report["catalogs"]["exact_triples"] < 1400:
             fail(f"phase 21: {report['catalogs']['exact_triples']} of 1,600 orthologs as exact "
                  "triples (gate 1,400)")
     log(f"phase 21 long tail real size: {json.dumps(report)}")
+    for key, want in (("library", PHASE21_GFF_LIBRARY), ("denovo", PHASE21_GFF_DENOVO),
+                      ("catalogs", PHASE21_ORTHOGROUPS)):
+        if report[key]["digest"] != want:
+            fail(f"phase 21: the {key} digest {report[key]['digest']} is not the JAX "
+                 f"package's {want}")
     return report
 
 
