@@ -7,7 +7,10 @@ legacy-id redirect and a grouped help listing.
 Global flags (any position): --device names where every tensor of the run
 lives (default cuda; there is no fallback: without a usable CUDA device
 the command exits nonzero), --profile prints the per-stage wall-clock
-ledger (utils/profiling.py) and the CUDA kernels' launch counts at exit.
+ledger (utils/profiling.py: each stage's total, calls, self time without
+its child stages and the collector's pauses inside it, then the
+collector's passes and seconds by generation) and the CUDA kernels'
+launch counts at exit.
 """
 from __future__ import annotations
 

@@ -229,7 +229,6 @@ class ReadsAligner:
         self.aligned_reads = 0
         self.few_mismatches_alns = 0
         self.complete_alns = 0
-        self.dp_cells = 0  # DP cell updates issued to the device
         self.tier2_reads = 0  # candidate cells that tried the tier-2 STR split
 
     @property
@@ -571,7 +570,6 @@ class ReadsAligner:
         sc = np.full((rows, Ls), 4, np.int8)
         sc[:n] = concat[idx]
         sc[:n][np.arange(Ls)[None, :] >= sl[:n, None]] = 4
-        self.dp_cells += rows * Lq * Ls
         dev = self.device
         qc_d, sc_d = torch.from_numpy(qc).to(dev), torch.from_numpy(sc).to(dev)
         return jobs, tier3_stats(
@@ -610,7 +608,6 @@ class ReadsAligner:
         # width only needs whole warps
         Lq = -(-int(qlen.max()) // 16) * 16
         Ls = -(-int(sl_all.max()) // 32) * 32
-        self.dp_cells += pad * Lq * Ls
 
         def padded(a, dtype):
             out = np.zeros(pad, dtype)

@@ -23,70 +23,65 @@ class AlnTable:
     )
 
     def __init__(self, alns, gorder=None):
-        import time as _time
+        from ..utils.profiling import stage
 
-        from ..utils import profiling
-
-        _t0 = _time.perf_counter()
-        A = len(alns)
-        self.n = A
-        if gorder is None:
-            gorder = np.arange(A, dtype=np.int64)
-        self.gorder = np.asarray(gorder, np.int64)
-        self.firsts = np.fromiter((a.first for a in alns), np.int64, A)
-        self.lasts = np.fromiter((a.last for a in alns), np.int64, A)
-        self.lens = np.fromiter((len(a.read_chars) for a in alns), np.int64, A)
-        self.scs = np.fromiter((a.soft_clip_start for a in alns), np.int64, A)
-        self.sce = np.fromiter((a.soft_clip_end for a in alns), np.int64, A)
-        self.ig5 = np.fromiter(
-            (a.bases_to_ignore_start for a in alns), np.int64, A
-        )
-        self.ig3 = np.fromiter(
-            (a.bases_to_ignore_end for a in alns), np.int64, A
-        )
-        self.neg = np.fromiter(
-            ((a.flags >> 4) & 1 for a in alns), np.int8, A
-        )  # FLAG_READ_REVERSE = 16
-        profiling.add("alntab.cols", _time.perf_counter() - _t0)
-        _t0 = _time.perf_counter()
-        run_counts = np.empty(A, np.int64)
-        runs_all: list = []
-        for i, a in enumerate(alns):
-            r = a.m_runs()
-            run_counts[i] = len(r)
-            runs_all.extend(r)
-        runs_np = (
-            np.array(runs_all, np.int64)
-            if runs_all
-            else np.empty((0, 3), np.int64)
-        )
-        self.run_ref = runs_np[:, 0]
-        self.run_read = runs_np[:, 1]
-        self.run_len = runs_np[:, 2]
-        self.run_aln = np.repeat(np.arange(A, dtype=np.int64), run_counts)
-        self.run_keys = (self.run_aln << 34) | self.run_ref
-        profiling.add("alntab.mruns", _time.perf_counter() - _t0)
-        _t0 = _time.perf_counter()
-        self.codes_flat = (
-            np.concatenate([a.read_codes for a in alns])
-            if A
-            else np.empty(0, np.int8)
-        )
-        self.off = np.zeros(A, np.int64)
-        np.cumsum(self.lens[:-1], out=self.off[1:])
-        # per-base phred qualities; '+' (q=10) when absent, matching
-        # ReadAlignment.java:1025 via pileup.expand_alignment_calls
-        self.qflat = (
-            np.frombuffer(
-                "".join(
-                    a.qualities if a.qualities else "+" * int(self.lens[i])
-                    for i, a in enumerate(alns)
-                ).encode("ascii"),
-                np.uint8,
-            ).astype(np.int16)
-            - 33
-        )
-        profiling.add("alntab.flat", _time.perf_counter() - _t0)
+        with stage("alntab.cols"):
+            A = len(alns)
+            self.n = A
+            if gorder is None:
+                gorder = np.arange(A, dtype=np.int64)
+            self.gorder = np.asarray(gorder, np.int64)
+            self.firsts = np.fromiter((a.first for a in alns), np.int64, A)
+            self.lasts = np.fromiter((a.last for a in alns), np.int64, A)
+            self.lens = np.fromiter((len(a.read_chars) for a in alns), np.int64, A)
+            self.scs = np.fromiter((a.soft_clip_start for a in alns), np.int64, A)
+            self.sce = np.fromiter((a.soft_clip_end for a in alns), np.int64, A)
+            self.ig5 = np.fromiter(
+                (a.bases_to_ignore_start for a in alns), np.int64, A
+            )
+            self.ig3 = np.fromiter(
+                (a.bases_to_ignore_end for a in alns), np.int64, A
+            )
+            self.neg = np.fromiter(
+                ((a.flags >> 4) & 1 for a in alns), np.int8, A
+            )  # FLAG_READ_REVERSE = 16
+        with stage("alntab.mruns"):
+            run_counts = np.empty(A, np.int64)
+            runs_all: list = []
+            for i, a in enumerate(alns):
+                r = a.m_runs()
+                run_counts[i] = len(r)
+                runs_all.extend(r)
+            runs_np = (
+                np.array(runs_all, np.int64)
+                if runs_all
+                else np.empty((0, 3), np.int64)
+            )
+            self.run_ref = runs_np[:, 0]
+            self.run_read = runs_np[:, 1]
+            self.run_len = runs_np[:, 2]
+            self.run_aln = np.repeat(np.arange(A, dtype=np.int64), run_counts)
+            self.run_keys = (self.run_aln << 34) | self.run_ref
+        with stage("alntab.flat"):
+            self.codes_flat = (
+                np.concatenate([a.read_codes for a in alns])
+                if A
+                else np.empty(0, np.int8)
+            )
+            self.off = np.zeros(A, np.int64)
+            np.cumsum(self.lens[:-1], out=self.off[1:])
+            # per-base phred qualities; '+' (q=10) when absent, matching
+            # ReadAlignment.java:1025 via pileup.expand_alignment_calls
+            self.qflat = (
+                np.frombuffer(
+                    "".join(
+                        a.qualities if a.qualities else "+" * int(self.lens[i])
+                        for i, a in enumerate(alns)
+                    ).encode("ascii"),
+                    np.uint8,
+                ).astype(np.int16)
+                - 33
+            )
 
     # ------------------------------------------------------------------
     def read_pos(self, pa: np.ndarray, pos: np.ndarray) -> np.ndarray:

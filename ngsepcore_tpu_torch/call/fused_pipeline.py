@@ -42,7 +42,8 @@ from ..align.read_alignment import ReadAlignment
 from ..align.reads_aligner import ReadsAligner, _Candidate, _row_bucket
 from ..core.genome import ReferenceGenome
 from ..core.sequences import RawRead, pack_reads
-from ..utils.profiling import enabled as profiling_enabled, stage
+from ..utils import profiling
+from ..utils.profiling import stage
 from ..vcf.io import VCFRecord
 
 # a read whose single accepted placement might interact with indel
@@ -286,6 +287,11 @@ class AlignCallPipeline:
 
     # ------------------------------------------------------------------
     def run_reads(self, reads: list[RawRead]) -> list[VCFRecord]:
+        """Align and call one sample: one request of the stage ledger."""
+        with profiling.request():
+            return self._run_reads(reads)
+
+    def _run_reads(self, reads: list[RawRead]) -> list[VCFRecord]:
         if not self._fusable:
             # classic two-stage flow: align every batch, then call
             alns: list[ReadAlignment] = []
@@ -468,6 +474,7 @@ class AlignCallPipeline:
         al = self.aligner
         det = self.detector
         offs = self.genome.offsets
+        profiling.count("align.reads", len(st.fused))
         nt2 = len(st.cand_t2)
         t1 = st.t1_cells
         nt1 = len(t1["ridx"]) if t1 else 0
@@ -587,6 +594,7 @@ class AlignCallPipeline:
 
         # ---- host-object winners ---------------------------------------
         rest = np.nonzero(~fusable)[0]
+        profiling.count("align.host_alns", len(rest))
         if len(rest):
             is_block = isinstance(st.reads, ReadBlock)
             names_blk = st.reads.names if is_block else None
@@ -933,14 +941,15 @@ class AlignCallPipeline:
         # host alignments tagged with global read order (batch-major), so
         # arrival order matches what the classic two-stage flow sees —
         # cap ties and indel-call ordering depend on it
-        host_tagged: list[tuple[int, ReadAlignment]] = []
-        for bi, st in enumerate(batches):
-            b0 = st.read0
-            for row, per_read in enumerate(st.host_alns):
-                for a in per_read:
-                    if not a.is_unmapped and a.alignment_quality >= min_mq:
-                        host_tagged.append((b0 + row, a))
-        host = [a for _, a in host_tagged]
+        with stage("call.gather_host"):
+            host_tagged: list[tuple[int, ReadAlignment]] = []
+            for bi, st in enumerate(batches):
+                b0 = st.read0
+                for row, per_read in enumerate(st.host_alns):
+                    for a in per_read:
+                        if not a.is_unmapped and a.alignment_quality >= min_mq:
+                            host_tagged.append((b0 + row, a))
+            host = [a for _, a in host_tagged]
 
         # indel/STR neighborhoods (concat coords) that demote fused reads
         # to the exact host path: raw indel events in any host alignment
@@ -961,30 +970,24 @@ class AlignCallPipeline:
                     lo = base + c0 - INDEL_PAD - max(length, c1 - c0 + 1)
                     hi = base + c1 + INDEL_PAD + max(length, c1 - c0 + 1) + read_len
                     ivs.append((lo, hi))
-            if profiling_enabled():
-                import sys as _sys
-
-                print(
-                    f"[nbh] host={len(host)} ivs={len(ivs)}", file=_sys.stderr
-                )
-        if ivs:
-            ivs.sort()
-            merged = [list(ivs[0])]
-            for lo, hi in ivs[1:]:
-                if lo <= merged[-1][1]:
-                    merged[-1][1] = max(merged[-1][1], hi)
-                else:
-                    merged.append([lo, hi])
-            iv_lo = np.array([m[0] for m in merged], dtype=np.int64)
-            iv_hi = np.array([m[1] for m in merged], dtype=np.int64)
-        else:
-            iv_lo = iv_hi = np.empty(0, np.int64)
+            if ivs:
+                ivs.sort()
+                merged = [list(ivs[0])]
+                for lo, hi in ivs[1:]:
+                    if lo <= merged[-1][1]:
+                        merged[-1][1] = max(merged[-1][1], hi)
+                    else:
+                        merged.append([lo, hi])
+                iv_lo = np.array([m[0] for m in merged], dtype=np.int64)
+                iv_hi = np.array([m[1] for m in merged], dtype=np.int64)
+            else:
+                iv_lo = iv_hi = np.empty(0, np.int64)
 
         # joint per-start cap in arrival order (AlignmentsPileupGenerator
         # caps 5 alignments per start position; pileup.cap_alignments_per_start)
         with stage("call.joint_cap"):
             self._joint_cap(batches, host_tagged)
-        host = [a for _, a in host_tagged]
+            host = [a for _, a in host_tagged]
 
         # fused reads overlapping an indel neighborhood STAY on the device
         # pileup path; they are registered per sequence so the realigner
@@ -1049,16 +1052,21 @@ class AlignCallPipeline:
         from .realigner import IndelRealigner
 
         det = self.detector
-        by_seq: dict[str, list[tuple[int, ReadAlignment]]] = {}
-        for go, a in host_tagged:
-            by_seq.setdefault(a.sequence_name, []).append((go, a))
+        with stage("call.gather_host"):
+            by_seq: dict[str, list[tuple[int, ReadAlignment]]] = {}
+            for go, a in host_tagged:
+                by_seq.setdefault(a.sequence_name, []).append((go, a))
+            seq_alns = {}
+            for name, tagged in by_seq.items():
+                tagged.sort(key=lambda t: (t[1].first, t[0]))
+                seq_alns[name] = (
+                    [a for _, a in tagged],
+                    np.fromiter((g for g, _ in tagged), np.int64, len(tagged)),
+                )
         self._seq_host = {}
         for si in range(self.genome.num_sequences):
             name = self.genome.sequence_name(si)
-            tagged = by_seq.get(name, [])
-            tagged.sort(key=lambda t: (t[1].first, t[0]))
-            alns = [a for _, a in tagged]
-            go = np.fromiter((g for g, _ in tagged), np.int64, len(tagged))
+            alns, go = seq_alns.get(name) or ([], np.empty(0, np.int64))
             arr = arr_by_seq.get(si)
             realigner = IndelRealigner(
                 self.genome, si, det.known_strs.get(name)
@@ -1272,37 +1280,39 @@ class AlignCallPipeline:
             if devc is not None:
                 # window bounds into the sorted call arrays: one
                 # searchsorted + one small fetch per sequence
-                edges = np.array(w_starts + [seq_len + 1], np.int32)
-                bnd = torch.searchsorted(devc["pos"], up(edges)).cpu().numpy()
+                with stage("call.window_bounds"):
+                    edges = np.array(w_starts + [seq_len + 1], np.int32)
+                    bnd = torch.searchsorted(devc["pos"], up(edges)).cpu().numpy()
             seq_records: list[VCFRecord] = []
             for wi, w0 in enumerate(w_starts):
-                w1 = min(seq_len, w0 + window - 1)
-                w0_concat = base + w0 - 1
-                # reads sorted by pred: the rows that can touch [w0, w1]
-                # are contiguous (left-edge over-inclusion is masked by
-                # the per-base bounds check)
-                if fused is not None:
-                    slo = int(np.searchsorted(
-                        fused["pred"], w0_concat - fused["Lp"], side="left"
-                    ))
-                    shi = int(np.searchsorted(
-                        fused["pred"], w0_concat + window, side="left"
-                    ))
-                    count = shi - slo
-                else:
-                    slo = count = 0
-                lo, hi = (int(bnd[wi]), int(bnd[wi + 1])) if devc else (0, 0)
-                if hi > lo:
-                    pk = window_pk_slice(
-                        devc["pos"], devc["attr"], lo, w0, hi - lo,
-                        size=hi - lo,
-                    )
-                elif count == 0:
-                    continue  # no evidence touches this window
-                else:
-                    pk = empty_pk
-                ref_win = np.full(window, 4, dtype=np.int8)
-                ref_win[: w1 - w0 + 1] = genome.sequences[si].codes[w0 - 1 : w1]
+                with stage("call.window_prep"):
+                    w1 = min(seq_len, w0 + window - 1)
+                    w0_concat = base + w0 - 1
+                    # reads sorted by pred: the rows that can touch [w0, w1]
+                    # are contiguous (left-edge over-inclusion is masked by
+                    # the per-base bounds check)
+                    if fused is not None:
+                        slo = int(np.searchsorted(
+                            fused["pred"], w0_concat - fused["Lp"], side="left"
+                        ))
+                        shi = int(np.searchsorted(
+                            fused["pred"], w0_concat + window, side="left"
+                        ))
+                        count = shi - slo
+                    else:
+                        slo = count = 0
+                    lo, hi = (int(bnd[wi]), int(bnd[wi + 1])) if devc else (0, 0)
+                    if hi > lo:
+                        pk = window_pk_slice(
+                            devc["pos"], devc["attr"], lo, w0, hi - lo,
+                            size=hi - lo,
+                        )
+                    elif count == 0:
+                        continue  # no evidence touches this window
+                    else:
+                        pk = empty_pk
+                    ref_win = np.full(window, 4, dtype=np.int8)
+                    ref_win[: w1 - w0 + 1] = genome.sequences[si].codes[w0 - 1 : w1]
                 with stage("call.window_dispatch"):
                     res = span_kernel(
                         fused["pq"] if fused else None,
@@ -1494,17 +1504,18 @@ class AlignCallPipeline:
         # per-window call-array bounds: one device searchsorted + one small
         # fetch per sequence
         win_bounds: dict[tuple[int, int], tuple[int, int]] = {}
-        for si in range(genome.num_sequences):
-            devc = seq_host[si][1]
-            if devc is None:
-                continue
-            ws = [wd for wd in win_desc if wd[0] == si]
-            if not ws:
-                continue
-            edges = np.array([w[2] for w in ws] + [ws[-1][3] + 1], np.int32)
-            bnd = torch.searchsorted(devc["pos"], up(edges)).cpu().numpy()
-            for t, w in enumerate(ws):
-                win_bounds[(si, w[2])] = (int(bnd[t]), int(bnd[t + 1]))
+        with stage("call.window_bounds"):
+            for si in range(genome.num_sequences):
+                devc = seq_host[si][1]
+                if devc is None:
+                    continue
+                ws = [wd for wd in win_desc if wd[0] == si]
+                if not ws:
+                    continue
+                edges = np.array([w[2] for w in ws] + [ws[-1][3] + 1], np.int32)
+                bnd = torch.searchsorted(devc["pos"], up(edges)).cpu().numpy()
+                for t, w in enumerate(ws):
+                    win_bounds[(si, w[2])] = (int(bnd[t]), int(bnd[t + 1]))
 
         records: list[VCFRecord] = []
         seq_records_by_name: dict[str, list[VCFRecord]] = {}
@@ -1515,36 +1526,38 @@ class AlignCallPipeline:
             # rank-0 reads that can reach this chunk's windows: starts in
             # [c0 - Lp, c0 + max_span) (later starts, e.g. on the next
             # sequence, cover no position of this chunk)
-            lo = np.searchsorted(r0_pred, c0 - Lp, side="left")
-            hi = np.searchsorted(r0_pred, c0 + s_cols - halo, side="left")
-            stage_t = build_stage(
-                colg, up(r0_rows[lo:hi]), up(r0_pred[lo:hi] - c0 + halo),
-                s_cols=s_cols,
-            )
+            with stage("call.stage_build"):
+                lo = np.searchsorted(r0_pred, c0 - Lp, side="left")
+                hi = np.searchsorted(r0_pred, c0 + s_cols - halo, side="left")
+                stage_t = build_stage(
+                    colg, up(r0_rows[lo:hi]), up(r0_pred[lo:hi] - c0 + halo),
+                    s_cols=s_cols,
+                )
 
             pending = []
             for si, name, w0, w1, w0c, window in wds:
-                indel_records, devc = seq_host[si]
-                w1c = w0c + (w1 - w0)
-                rlo = np.searchsorted(res_pred, w0c - Lp, side="right")
-                rhi = np.searchsorted(res_pred, w1c, side="right")
-                n_res = int(rhi - rlo)
-                plo, phi = win_bounds.get((si, w0), (0, 0))
-                # fused coverage of this window (rank-0 reads whose lanes
-                # can reach it)
-                flo = np.searchsorted(r0_pred, w0c - Lp, side="right")
-                fhi = np.searchsorted(r0_pred, w1c, side="right")
-                if phi == plo and n_res == 0 and fhi == flo:
-                    continue  # no evidence touches this window
-                if phi > plo:
-                    pk = window_pk_slice(
-                        devc["pos"], devc["attr"], plo, w0, phi - plo,
-                        size=phi - plo,
-                    )
-                else:
-                    pk = empty_pk
-                ref_win = np.full(window, 4, dtype=np.int8)
-                ref_win[: w1 - w0 + 1] = genome.sequences[si].codes[w0 - 1 : w1]
+                with stage("call.window_prep"):
+                    indel_records, devc = seq_host[si]
+                    w1c = w0c + (w1 - w0)
+                    rlo = np.searchsorted(res_pred, w0c - Lp, side="right")
+                    rhi = np.searchsorted(res_pred, w1c, side="right")
+                    n_res = int(rhi - rlo)
+                    plo, phi = win_bounds.get((si, w0), (0, 0))
+                    # fused coverage of this window (rank-0 reads whose lanes
+                    # can reach it)
+                    flo = np.searchsorted(r0_pred, w0c - Lp, side="right")
+                    fhi = np.searchsorted(r0_pred, w1c, side="right")
+                    if phi == plo and n_res == 0 and fhi == flo:
+                        continue  # no evidence touches this window
+                    if phi > plo:
+                        pk = window_pk_slice(
+                            devc["pos"], devc["attr"], plo, w0, phi - plo,
+                            size=phi - plo,
+                        )
+                    else:
+                        pk = empty_pk
+                    ref_win = np.full(window, 4, dtype=np.int8)
+                    ref_win[: w1 - w0 + 1] = genome.sequences[si].codes[w0 - 1 : w1]
                 with stage("call.window_dispatch"):
                     res = genotype_window_hist(
                         stage_t, w0c - c0 + halo, colg,
